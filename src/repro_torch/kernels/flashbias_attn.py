@@ -1,0 +1,170 @@
+"""Flash attention forward with a FlashBias bias: the Hopper CUDA kernel
+(``csrc/flashbias_attn.cu``) and its plain PyTorch version.
+
+Port of ``repro.kernels.flashbias_attn.flashbias_attention_fwd``. Layout is
+head-major: q ``(B, H, N, D)``, k ``(B, KVH, M, D)``, v ``(B, KVH, M, Dv)``,
+``phi_q (B, H, N, R)``, ``phi_k (B, H, M, R)``, ``slopes (H,)``; the output
+is ``(B, H, N, Dv)`` in q's dtype. Exactly one of {phi_q + phi_k, slopes,
+neither} selects the bias mode (factored / in-kernel ALiBi / none).
+
+``flashbias_attention_fwd`` is the wrapper: on a CUDA tensor it launches the
+kernel (or raises); on a CPU tensor it runs ``flashbias_attention_torch``.
+``flashbias_attention_fwd.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.core.attention import DEFAULT_MASK_VALUE
+from repro_torch.kernels import build
+
+__all__ = ["flashbias_attention_torch", "flashbias_attention_fwd",
+           "MASK_KINDS"]
+
+MASK_KINDS = {"none": 0, "causal": 1, "local": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 232_448          # dynamic shared memory a block may use (H100)
+
+
+def _allowed(n: int, m: int, mask_kind: str, window: int, kv_len: int,
+             device) -> torch.Tensor:
+    q_pos = torch.arange(n, device=device)[:, None]
+    k_pos = torch.arange(m, device=device)[None, :]
+    allowed = k_pos < kv_len
+    if mask_kind in ("causal", "local"):
+        allowed = allowed & (q_pos >= k_pos)
+    if mask_kind == "local":
+        allowed = allowed & (q_pos - k_pos < window)
+    return allowed                                            # (N, M)
+
+
+def flashbias_attention_torch(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    phi_q: Optional[torch.Tensor] = None,
+    phi_k: Optional[torch.Tensor] = None,
+    slopes: Optional[torch.Tensor] = None,
+    *, scale: float, mask_kind: str = "none", window: int = 0,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain version of the kernel: dense float32 logits and softmax.
+
+    Differentiable (the ``ops`` backward recomputes through it). A row with
+    no allowed key outputs 0, as the kernel's ``l == 0`` rows do."""
+    b, h, n, _ = q.shape
+    kvh, m = k.shape[1], k.shape[2]
+    kv_len = m if kv_len is None else kv_len
+    g = h // kvh
+    kf = k.float().repeat_interleave(g, dim=1) if g > 1 else k.float()
+    vf = v.float().repeat_interleave(g, dim=1) if g > 1 else v.float()
+    s = torch.einsum("bhnd,bhmd->bhnm", q.float(), kf) * scale
+    if phi_q is not None:
+        s = s + torch.einsum("bhnr,bhmr->bhnm", phi_q.float(),
+                             phi_k.float().expand(b, h, m, -1))
+    if slopes is not None:
+        rel = (torch.arange(m, device=q.device)[None, :]
+               - torch.arange(n, device=q.device)[:, None]).float()
+        s = s + slopes.float()[:, None, None] * rel
+    allowed = _allowed(n, m, mask_kind, window, kv_len, q.device)
+    s = torch.where(allowed, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    o = torch.einsum("bhnm,bhmd->bhnd", torch.softmax(s, dim=-1), vf)
+    o = o * allowed.any(dim=-1)[:, None]
+    return o.to(q.dtype)
+
+
+@functools.cache
+def _kernel():
+    """The launch and shared-memory functions of the built library,
+    bound once (building it on first use)."""
+    lib = build.load("flashbias_attn")
+    fn = lib.flashbias_attn_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    smem = lib.flashbias_attn_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_longlong
+    return fn, smem
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def flashbias_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    phi_q: Optional[torch.Tensor] = None,
+    phi_k: Optional[torch.Tensor] = None,
+    slopes: Optional[torch.Tensor] = None,
+    *, scale: float, mask_kind: str = "none", window: int = 0,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Kernel wrapper: launches ``flashbias_attn.cu`` on CUDA tensors, runs
+    the plain version on CPU tensors. Forward only."""
+    if q.device.type == "cpu":
+        return flashbias_attention_torch(
+            q, k, v, phi_q, phi_k, slopes, scale=scale, mask_kind=mask_kind,
+            window=window, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flashbias_attention_fwd: no kernel for device "
+                         f"{q.device}")
+    b, h, n, d = q.shape
+    if k.ndim != 4 or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k shape {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    kvh, m = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    if v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"v shape {tuple(v.shape)} vs k {tuple(k.shape)}")
+    if h % kvh:
+        raise ValueError(f"{h} heads do not group over {kvh} kv heads")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}: "
+                         f"the kernel takes float32 or bfloat16, all alike")
+    if mask_kind not in MASK_KINDS or (mask_kind == "local" and window < 1):
+        raise ValueError(f"mask {mask_kind!r} window {window}")
+    kv_len = m if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= m:
+        raise ValueError(f"kv_len {kv_len} outside [0, {m}]")
+    if not 1 <= d <= 256 or not 1 <= dv <= 256:
+        raise ValueError(f"head dims {d}/{dv}: the kernel takes 1..256")
+    r = 0
+    if phi_q is not None:
+        if phi_k is None or slopes is not None:
+            raise ValueError("phi mode takes phi_q and phi_k, no slopes")
+        r = phi_q.shape[-1]
+        if phi_q.shape != (b, h, n, r) or phi_k.shape != (b, h, m, r):
+            raise ValueError(f"phi shapes {tuple(phi_q.shape)} / "
+                             f"{tuple(phi_k.shape)}; want (B,H,N,R)/(B,H,M,R)")
+        phi_q = phi_q.float().contiguous()
+        phi_k = phi_k.float().contiguous()
+    if slopes is not None:
+        if slopes.shape != (h,):
+            raise ValueError(f"slopes shape {tuple(slopes.shape)} != ({h},)")
+        slopes = slopes.float().contiguous()
+    tensors = [t for t in (q, k, v, phi_q, phi_k, slopes) if t is not None]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flashbias_attention_fwd: inputs on several devices")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flashbias_attention_fwd takes contiguous q, k, v")
+    fn, smem = _kernel()
+    if smem(d, dv, r) > _SMEM_LIMIT:
+        raise ValueError(f"head dims {d}/{dv} with rank {r} exceed the "
+                         f"kernel's shared memory")
+    out = torch.empty((b, h, n, dv), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(phi_q),
+             _ptr(phi_k), _ptr(slopes), out.data_ptr(), _DTYPES[q.dtype],
+             b, h, kvh, n, m, d, dv, r, float(scale), MASK_KINDS[mask_kind],
+             int(window), kv_len, stream)
+    if err != 0:
+        raise RuntimeError(f"flashbias_attn.cu launch failed: CUDA error "
+                           f"{err}")
+    flashbias_attention_fwd.launches += 1
+    return out
+
+
+flashbias_attention_fwd.launches = 0

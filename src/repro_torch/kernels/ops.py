@@ -1,0 +1,155 @@
+"""Public attention entry points the models call: ``flash_attention``
+(prefill / training) and ``flash_decode`` (one token against a KV cache).
+
+Port of ``repro.kernels.ops``. Implementations:
+
+- ``"cuda"`` (the reference's ``"pallas"``): the hand-written Hopper
+  kernels through their wrappers — on a CUDA tensor the kernel runs or the
+  call raises; on a CPU tensor the wrapper runs the plain version.
+- ``"torch"`` (the reference's ``"xla"``): the plain PyTorch versions, on
+  any device. On a CUDA tensor this is taken only when asked for by name.
+- ``"auto"``: ``"cuda"`` for a CUDA tensor, ``"torch"`` for a CPU tensor.
+
+Cache layout contract (the decode hot path): caches are stored kv-head-major
+``(B, KVH, S, hd)`` per layer (``kv_layout="bhsd"``) and handed to the
+kernel zero-copy. The port stores ``hd`` unpadded: the 128-lane pads of the
+reference are TPU tile constraints.
+
+``flash_attention`` is differentiable: a ``torch.autograd.Function`` whose
+backward recomputes the forward through the plain path and differentiates
+that (flash-style recompute, as the reference's ``_bwd`` does with its XLA
+path). There is no backward kernel, as there is none on the TPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.flash_decode import flash_decode_fwd, flash_decode_torch
+from repro_torch.kernels.flashbias_attn import (
+    flashbias_attention_fwd,
+    flashbias_attention_torch,
+)
+
+__all__ = ["flash_attention", "flash_decode", "resolve_impl", "IMPLS"]
+
+IMPLS = ("torch", "cuda")
+
+
+def resolve_impl(impl: str, device: torch.device) -> str:
+    """``"auto"`` -> ``"cuda"`` on a CUDA device, ``"torch"`` elsewhere."""
+    if impl == "auto":
+        return "cuda" if torch.device(device).type == "cuda" else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS + ('auto',)}")
+    return impl
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through the kernel (or the plain version); backward through
+    the plain version's autograd, recomputing the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, phi_q, phi_k, slopes, mask_kind, window, scale,
+                impl):
+        ctx.save_for_backward(q, k, v, phi_q, phi_k, slopes)
+        ctx.opts = {"mask_kind": mask_kind, "window": window, "scale": scale}
+        fn = (flashbias_attention_torch if impl == "torch"
+              else flashbias_attention_fwd)
+        return fn(q, k, v, phi_q, phi_k, slopes, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            out = flashbias_attention_torch(*leaves, **ctx.opts)
+            wrt = [t for t, need in zip(leaves, needs)
+                   if t is not None and need]
+            grads = iter(torch.autograd.grad(out, wrt, grad_out))
+        res = [next(grads) if t is not None and need else None
+               for t, need in zip(leaves, needs)]
+        return (*res, None, None, None, None)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    phi_q: Optional[torch.Tensor] = None,
+    phi_k: Optional[torch.Tensor] = None,
+    slopes: Optional[torch.Tensor] = None,
+    *,
+    mask_kind: str = "none",
+    window: int = 0,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+    layout: str = "bshd",
+) -> torch.Tensor:
+    """FlashBias attention.
+
+    ``layout="bshd"``: canonical ``(B, N, H, D)`` q and ``(B, M, KVH, D)``
+    k/v in and out, factors ``phi_q (B, N, H, R)``, ``phi_k (B, M, 1|KVH|H,
+    R)``. ``layout="bhsd"``: the kernel's head-major ``(B, H, N, D)``,
+    factors ``phi_q (B, H, N, R)``, ``phi_k (B, 1|KVH|H, M, R)``.
+    Exactly one of {phi_q+phi_k, slopes ``(H,)``, neither} selects the bias
+    mode (factored / in-kernel ALiBi / none). Differentiable in q, k, v and
+    the factors.
+    """
+    if layout not in ("bshd", "bhsd"):
+        raise ValueError(f"layout {layout!r}")
+    if phi_q is not None and slopes is not None:
+        raise ValueError("pass factors or slopes, not both")
+    scale = (1.0 / float(np.sqrt(q.shape[-1]))) if scale is None else scale
+    impl = resolve_impl(impl, q.device)
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        if phi_q is not None:
+            phi_q, phi_k = phi_q.transpose(1, 2), phi_k.transpose(1, 2)
+    b, h, n, _ = q.shape
+    if phi_q is not None:
+        m, r = k.shape[2], phi_k.shape[-1]
+        if phi_k.shape[1] not in (1, h):       # per-kv-head: expand per group
+            if h % phi_k.shape[1]:
+                raise ValueError(f"phi_k heads {phi_k.shape[1]} vs {h}")
+            phi_k = phi_k.repeat_interleave(h // phi_k.shape[1], dim=1)
+        phi_k = phi_k.expand(b, h, m, r)
+    o = _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                              phi_q, phi_k, slopes, mask_kind, window, scale,
+                              impl)
+    return o.transpose(1, 2) if layout == "bshd" else o
+
+
+def flash_decode(
+    q: torch.Tensor,                        # (B, 1, H, D)
+    k_cache: torch.Tensor,                  # (B, KVH, S, D)
+    v_cache: torch.Tensor,                  # (B, KVH, S, Dv)
+    lengths: torch.Tensor,                  # (B,) int
+    phi_q: Optional[torch.Tensor] = None,   # (B, 1, H, R)
+    phi_k: Optional[torch.Tensor] = None,   # (B, KVH, S, R)
+    slopes: Optional[torch.Tensor] = None,  # (H,)
+    *,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Single-token decode against a contiguous kernel-layout cache (the
+    reference's ``kv_layout="bhsd"``; paged caches are not ported yet).
+    Returns ``(B, 1, H, Dv)``. The query of row ``b`` sits at position
+    ``lengths[b]-1``; rows with length 0 output 0."""
+    b, _, h, d = q.shape
+    kvh = k_cache.shape[1]
+    if h % kvh:
+        raise ValueError(f"{h} heads do not group over {kvh} kv heads")
+    g = h // kvh
+    scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
+    impl = resolve_impl(impl, q.device)
+    qg = q[:, 0].reshape(b, kvh, g, d).contiguous()
+    pq = None if phi_q is None else phi_q[:, 0].reshape(b, kvh, g, -1)
+    sl = None if slopes is None else slopes.reshape(kvh, g)
+    lengths = lengths.to(torch.int32).contiguous()
+    fn = flash_decode_torch if impl == "torch" else flash_decode_fwd
+    o = fn(qg, k_cache, v_cache, lengths, pq, phi_k, sl, scale=scale)
+    return o.reshape(b, 1, h, v_cache.shape[-1])

@@ -1,0 +1,209 @@
+"""Serve backend for the token-decoding LM path: what a workload owns
+(device state, the admit/step programs, per-slot sampling state, retire and
+preemption snapshots) versus what the engine core owns (requests,
+scheduling, slots, lifecycle).
+
+Port of ``repro.serve.backend.TokenDecodeBackend``, contiguous KV mode:
+each slot owns a ``max_len`` segment of a kernel-layout cache
+``(L, n_slots, KVH, max_len, hd)``. Paged KV, chunked prefill, prefix
+caching and mesh sharding wait for later slices.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.api import Model
+from repro_torch.models.common import tree_map
+from repro_torch.models.lm import cast_layers
+from repro_torch.serve.lifecycle import AdmissionRejected
+from repro_torch.serve.sampling import sample_tokens, sample_tokens_guarded
+from repro_torch.serve.scheduler import Request
+
+__all__ = ["TokenDecodeBackend"]
+
+
+class TokenDecodeBackend:
+    """Autoregressive LM decode over a contiguous slot cache.
+
+    Admission waves are right-padded to ``max(prefill_len, longest)``
+    columns and batch-padded to ``n_slots`` rows (padding rows are dropped
+    at insert), so one prefill shape serves every wave when
+    ``prefill_len`` is pinned; one decode step advances the full slot batch.
+    Per-slot sampling state lives on the host: temperature, top-k and the
+    sampling stream ``(seed, count)``, whose count advances only for slots
+    that commit a token.
+
+    ``admit``/``step`` return ``(emissions, mask)``: ``mask[slot]`` marks
+    slots that advanced one budget unit; ``emissions`` holds the emitted
+    token ids per slot. Parameters are cast to the compute dtype once, here.
+    """
+
+    guards: bool = True        # host-side non-finite guards
+
+    def __init__(self, model: Model, params: dict, max_len: int,
+                 n_slots: int, prefill_len: Optional[int] = None,
+                 device="cuda"):
+        self.model = model
+        self.device = torch.device(device)
+        self.params = cast_layers(
+            tree_map(lambda x: x.to(self.device), params), model.cfg)
+        self.max_len, self.n_slots = max_len, n_slots
+        self.prefill_len = prefill_len
+        self._vocab = model.cfg.vocab
+        self._guard_bad: Dict[int, str] = {}
+        self._cache = None                        # allocated on first use
+        self.n_waves = 0                          # prefill waves run
+        self.n_steps = 0                          # decode steps run
+
+    # -- lifecycle ------------------------------------------------------
+
+    def ensure_state(self) -> None:
+        if self._cache is not None:
+            return
+        ns = self.n_slots
+        self._cache = self.model.init_cache(ns, self.max_len,
+                                            device=self.device)
+        self._temps = np.zeros((ns,), np.float32)
+        self._topks = np.zeros((ns,), np.int64)
+        self._seeds = np.zeros((ns,), np.int64)
+        self._counts = np.zeros((ns,), np.int64)
+        self._last_tok = torch.zeros((ns, 1), dtype=torch.int64,
+                                     device=self.device)
+
+    def validate(self, req: Request) -> None:
+        if not np.issubdtype(req.tokens.dtype, np.integer):
+            raise AdmissionRejected("token backend takes int token prompts")
+        if req.frontend is not None:
+            raise AdmissionRejected("frontend embeddings are not ported yet")
+        if (self.prefill_len is not None
+                and req.tokens.size > self.prefill_len):
+            raise AdmissionRejected(
+                f"prompt of {req.tokens.size} tokens exceeds the pinned "
+                f"prefill_len={self.prefill_len}")
+        if req.prompt_len + req.max_new_tokens > self.max_len:
+            raise AdmissionRejected(
+                f"contiguous mode: prompt {req.prompt_len} + budget "
+                f"{req.max_new_tokens} exceeds the per-slot segment "
+                f"max_len={self.max_len}")
+
+    # -- admit / step ----------------------------------------------------
+
+    def admit(self, wave: List[Request], slots: List[int]):
+        """Prefill the wave into freed slots and sample each admitted
+        request's first token from its prefill logits."""
+        ns, w = self.n_slots, len(wave)
+        padded = max(r.tokens.size for r in wave)
+        if self.prefill_len is not None:
+            padded = max(self.prefill_len, padded)
+        toks = np.zeros((ns, padded), np.int64)
+        lengths = np.ones((ns,), np.int32)
+        for i, r in enumerate(wave):
+            toks[i, :r.tokens.size] = r.tokens
+            lengths[i] = r.prompt_len
+        with torch.no_grad():
+            logits, wave_cache = self.model.prefill(
+                self.params, {"tokens": torch.as_tensor(toks,
+                                                        device=self.device)},
+                lengths=torch.as_tensor(lengths, device=self.device))
+            slot_ids = np.full((ns,), ns, np.int64)   # padding rows dropped
+            slot_ids[:w] = slots
+            self._cache = self.model.insert_cache(self._cache, wave_cache,
+                                                  slot_ids)
+            del wave_cache
+            # first token: scatter wave-row logits into slot rows, sample
+            lg = torch.zeros((ns, logits.shape[-1]), dtype=logits.dtype,
+                             device=self.device)
+            lg[torch.as_tensor(slots, device=self.device)] = logits[:w, 0]
+        self.n_waves += 1
+        # per-slot sampling state; a preempted request resumes its stream
+        for slot, r in zip(slots, wave):
+            self._temps[slot] = r.sampling.temperature
+            self._topks[slot] = r.sampling.top_k
+            if r.key_override is None:
+                self._seeds[slot], self._counts[slot] = r.sampling.seed, 0
+            else:
+                self._seeds[slot], self._counts[slot] = r.key_override
+        mask = np.zeros((ns,), bool)
+        mask[slots] = True
+        return self._sample(lg, mask), mask
+
+    def step(self, live):
+        """One decode step over the full slot batch."""
+        with torch.no_grad():
+            logits, self._cache = self.model.decode(self.params, self._cache,
+                                                    self._last_tok)
+        self.n_steps += 1
+        mask = np.zeros((self.n_slots,), bool)
+        for s, st in live.items():
+            st.length += 1
+            mask[s] = True
+        return self._sample(logits[:, 0], mask), mask
+
+    def _sample(self, logits2d: torch.Tensor, mask: np.ndarray) -> np.ndarray:
+        """Sample all slots; commit stream/token state for ``mask`` slots
+        only. Guarded: an emitting slot whose raw logits are non-finite
+        (NaN, +inf, or an all(-inf) row: the row max says which) has its
+        commit withheld and is recorded for the engine to quarantine; its
+        stream state stays aligned with its committed token count, so the
+        retry resumes bit-identically."""
+        args = (self._temps, self._topks, self._seeds, self._counts,
+                self._vocab)
+        commit = mask
+        with torch.no_grad():
+            if self.guards:
+                toks, peak = sample_tokens_guarded(logits2d, *args)
+                peak_h = peak.cpu().numpy()
+                trip = ~np.isfinite(peak_h) & mask
+                if trip.any():
+                    commit = mask & ~trip
+                    for s in np.nonzero(trip)[0]:
+                        self._guard_bad[int(s)] = (
+                            f"non-finite logits (row max {peak_h[s]!r}) at "
+                            f"slot {int(s)} — emission withheld")
+            else:
+                toks = sample_tokens(logits2d, *args)
+            toks_h = toks.cpu().numpy()
+            self._counts[commit] += 1
+            keep = torch.as_tensor(commit, device=self.device)[:, None]
+            self._last_tok = torch.where(keep, toks[:, None], self._last_tok)
+        return toks_h
+
+    def take_guard_faults(self) -> Dict[int, str]:
+        """Drain {slot: detail} for slots whose last admit/step tripped the
+        non-finite guard."""
+        bad, self._guard_bad = self._guard_bad, {}
+        return bad
+
+    # -- retire / preempt ------------------------------------------------
+
+    def release(self, slot: int) -> None:
+        """Free a finished slot: zero its cache length so the decode step's
+        active mask freezes the lane."""
+        self._cache["length"][slot] = 0
+
+    def snapshot_request(self, slot: int, st, emitted) -> Request:
+        """The resumable request, without freezing anything: generated-so-
+        far folds into the prompt (the budget shrinks by as much) and the
+        sampling stream state is kept in ``key_override``. Re-prefill of
+        prompt + generated rebuilds the cache the preempted decode had."""
+        req = st.req
+        gen = emitted[-st.generated:] if st.generated else []
+        return Request(
+            req.rid, np.concatenate([req.tokens, np.asarray(gen, np.int32)]),
+            req.max_new_tokens - st.generated, req.sampling, req.frontend,
+            key_override=np.array([self._seeds[slot], self._counts[slot]],
+                                  np.int64),
+            priority=req.priority, on_token=req.on_token)
+
+    def snapshot(self, slot: int, st, emitted) -> Request:
+        """Preemption: the resume request, then freeze the slot."""
+        resumed = self.snapshot_request(slot, st, emitted)
+        self.release(slot)
+        return resumed
+
+    def stats(self) -> dict:
+        return {"prefill_waves": self.n_waves, "decode_steps": self.n_steps}
+

@@ -1,0 +1,278 @@
+"""The port's attention math against the JAX reference, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages. The
+port's plain kernel versions (``flashbias_attention_torch``,
+``flash_decode_torch``) are held to the reference's Pallas kernels run in
+interpret mode, at float32 with ``rtol = atol = 1e-5``; the port's core
+attention, oracles and ALiBi factorization to their reference twins. The
+CUDA kernels themselves are compared with their plain versions by the
+tests marked ``cuda``, which skip without a card. The reference is imported
+by a fixture, so that the ``cuda`` tests also run where JAX is absent:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda \
+        tests/test_torch_attention_kernels.py
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import attention as tattn
+from repro_torch.core import bias as tbias
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_decode import flash_decode_fwd, flash_decode_torch
+from repro_torch.kernels.flashbias_attn import (
+    flashbias_attention_fwd,
+    flashbias_attention_torch,
+)
+
+TOL = {"rtol": 1e-5, "atol": 1e-5}
+B, N, D, R, WINDOW = 2, 40, 16, 3, 12        # N is not a tile multiple
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX reference modules (the tests comparing against it skip where
+    JAX is not installed)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    import repro.core.attention as attn
+    import repro.core.bias as bias
+    from repro.kernels import ops, ref
+    return types.SimpleNamespace(jnp=jnp, attn=attn, bias=bias, ops=ops,
+                                 ref=ref)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.array(x))
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **(tol or TOL))
+
+
+def _prefill_case(rng, h, kvh, bias):
+    q, k, v = _rand(rng, B, h, N, D), _rand(rng, B, kvh, N, D), \
+        _rand(rng, B, kvh, N, D)
+    phi_q = phi_k = slopes = None
+    if bias == "phi":
+        phi_q, phi_k = _rand(rng, B, h, N, R), _rand(rng, B, h, N, R)
+    elif bias == "alibi":
+        slopes = tbias.alibi_slopes(h).numpy()
+    return q, k, v, phi_q, phi_k, slopes
+
+
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2)], ids=["mha", "gqa4:2"])
+@pytest.mark.parametrize("mask", ["causal", "local", "none"])
+@pytest.mark.parametrize("bias", ["alibi", "phi", "none"])
+def test_flashbias_plain_matches_pallas(jx, bias, mask, heads):
+    rng = np.random.default_rng(0)
+    q, k, v, phi_q, phi_k, slopes = _prefill_case(rng, *heads, bias)
+    want = jx.ops.flash_attention(q, k, v, phi_q, phi_k, slopes,
+                                mask_kind=mask, window=WINDOW,
+                                impl="pallas_interpret", layout="bhsd",
+                                block_q=16, block_k=16)
+    got = flashbias_attention_torch(
+        _t(q), _t(k), _t(v), _t(phi_q), _t(phi_k), _t(slopes),
+        scale=D ** -0.5, mask_kind=mask, window=WINDOW)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("heads", [(8, 8), (8, 2)], ids=["mha", "gqa4:1"])
+@pytest.mark.parametrize("bias", ["alibi", "phi"])
+def test_flash_decode_plain_matches_pallas(jx, bias, heads):
+    h, kvh = heads
+    s = 48
+    rng = np.random.default_rng(1)
+    q, k, v = _rand(rng, B + 1, 1, h, D), _rand(rng, B + 1, kvh, s, D), \
+        _rand(rng, B + 1, kvh, s, D)
+    lengths = np.array([0, 17, 48], np.int32)         # incl. an idle row
+    kw_j, kw_t = {}, {}
+    if bias == "phi":
+        pq, pk = _rand(rng, B + 1, 1, h, R), _rand(rng, B + 1, kvh, s, R)
+        kw_j = {"phi_q": pq, "phi_k": pk}
+        kw_t = {"phi_q": _t(pq), "phi_k": _t(pk)}
+    else:
+        slopes = np.asarray(jx.bias.alibi_slopes(h))
+        kw_j, kw_t = {"slopes": slopes}, {"slopes": _t(slopes)}
+    want = jx.ops.flash_decode(q, k, v, jx.jnp.asarray(lengths), **kw_j,
+                             impl="pallas_interpret", kv_layout="bhsd",
+                             block_k=16)
+    got = tops.flash_decode(_t(q), _t(k), _t(v), _t(lengths), **kw_t,
+                            impl="torch")
+    _close(got, want)
+    assert not got[0].any()                            # length 0 -> zeros
+
+
+@pytest.mark.parametrize("impl", ["dense", "chunked"])
+@pytest.mark.parametrize("mask", ["causal", "local", "none"])
+def test_core_attention_matches_reference(jx, impl, mask):
+    rng = np.random.default_rng(2)
+    m = 70
+    q, k, v = _rand(rng, B, N, 4, D), _rand(rng, B, m, 2, D), \
+        _rand(rng, B, m, 2, D)
+    pq, pk = _rand(rng, B, N, 4, R), _rand(rng, B, m, 1, R)
+    bias = _rand(rng, 1, 4, N, m)
+    kw = dict(mask=jx.attn.MaskSpec(mask, WINDOW), q_offset=np.array([30, 3]),
+              kv_length=np.array([70, 45]), impl=impl, chunk_size=32)
+    want = jx.attn.attention(q, k, v, phi_q=pq, phi_k=pk, bias=bias, **{
+        **kw, "q_offset": jx.jnp.asarray(kw["q_offset"]),
+        "kv_length": jx.jnp.asarray(kw["kv_length"])})
+    got = tattn.attention(
+        _t(q), _t(k), _t(v), phi_q=_t(pq), phi_k=_t(pk), bias=_t(bias),
+        **{**kw, "mask": tattn.MaskSpec(mask, WINDOW),
+           "q_offset": _t(kw["q_offset"]), "kv_length": _t(kw["kv_length"])})
+    _close(got, want)
+
+
+@pytest.mark.parametrize("mask", ["causal", "local", "none"])
+def test_mha_reference_matches_reference(jx, mask):
+    rng = np.random.default_rng(3)
+    q, k, v = _rand(rng, B, N, 4, D), _rand(rng, B, N, 2, D), \
+        _rand(rng, B, N, 2, D)
+    pq, pk = _rand(rng, B, N, 4, R), _rand(rng, B, N, 4, R)
+    kw = dict(mask_kind=mask, window=WINDOW, kv_length=33)
+    want = jx.ref.mha_reference(q, k, v, phi_q=pq, phi_k=pk, **kw)
+    got = tref.mha_reference(_t(q), _t(k), _t(v), phi_q=_t(pq),
+                             phi_k=_t(pk), **kw)
+    _close(got, want)
+
+
+def test_decode_reference_matches_reference(jx):
+    rng = np.random.default_rng(4)
+    q, k, v = _rand(rng, 3, 1, 8, D), _rand(rng, 3, 30, 2, D), \
+        _rand(rng, 3, 30, 2, D)
+    lengths = np.array([30, 1, 12], np.int32)
+    slopes = np.asarray(jx.bias.alibi_slopes(8))
+    want = jx.ref.decode_reference(q, k, v, jx.jnp.asarray(lengths),
+                                 slopes=jx.jnp.asarray(slopes))
+    got = tref.decode_reference(_t(q), _t(k), _t(v), _t(lengths),
+                                slopes=_t(slopes))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("heads", [8, 50, 64])
+def test_alibi_factorization_matches_reference(jx, heads):
+    _close(tbias.alibi_slopes(heads), jx.bias.alibi_slopes(heads))
+    pq_j, pk_j = jx.bias.alibi_factors(7, 9, heads, q_offset=3, k_offset=1)
+    pq_t, pk_t = tbias.alibi_factors(7, 9, heads, q_offset=3, k_offset=1)
+    _close(pq_t, pq_j)
+    _close(pk_t, pk_j)
+    dense = tbias.alibi_dense(7, 9, heads, q_offset=3, k_offset=1)
+    _close(dense, jx.bias.alibi_dense(7, 9, heads, q_offset=3, k_offset=1))
+    _close(torch.einsum("hnr,mr->hnm", pq_t, pk_t), dense)
+
+
+@pytest.mark.parametrize("bias", ["alibi", "phi"])
+def test_flash_attention_layouts_match_reference_xla(jx, bias):
+    """ops.flash_attention in both layouts, with per-kv-head factors that
+    must expand over their query groups, against the reference XLA path."""
+    rng = np.random.default_rng(5)
+    q, k, v = _rand(rng, B, N, 4, D), _rand(rng, B, N, 2, D), \
+        _rand(rng, B, N, 2, D)
+    kw_j = kw_t = {}
+    if bias == "phi":
+        pq, pk = _rand(rng, B, N, 4, R), _rand(rng, B, N, 2, R)
+        kw_j, kw_t = {"phi_q": pq, "phi_k": pk}, {"phi_q": _t(pq),
+                                                  "phi_k": _t(pk)}
+    else:
+        sl = np.asarray(jx.bias.alibi_slopes(4))
+        kw_j, kw_t = {"slopes": sl}, {"slopes": _t(sl)}
+    want = jx.ops.flash_attention(q, k, v, **kw_j, mask_kind="causal",
+                                impl="xla")
+    got = tops.flash_attention(_t(q), _t(k), _t(v), **kw_t,
+                               mask_kind="causal", impl="torch")
+    _close(got, want)
+    hm = {key: val.transpose(1, 2) for key, val in kw_t.items()
+          if key != "slopes"}
+    got_hm = tops.flash_attention(
+        _t(q).transpose(1, 2), _t(k).transpose(1, 2), _t(v).transpose(1, 2),
+        **{**kw_t, **hm}, mask_kind="causal", impl="auto", layout="bhsd")
+    _close(got_hm.transpose(1, 2), want)
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    rng = np.random.default_rng(6)
+    q, k, v, _, _, slopes = _prefill_case(rng, 4, 2, "alibi")
+    before = (flashbias_attention_fwd.launches, flash_decode_fwd.launches)
+    kw = dict(scale=0.25, mask_kind="causal")
+    out = flashbias_attention_fwd(_t(q), _t(k), _t(v), slopes=_t(slopes), **kw)
+    torch.testing.assert_close(out, flashbias_attention_torch(
+        _t(q), _t(k), _t(v), slopes=_t(slopes), **kw), rtol=0, atol=0)
+    lens = torch.tensor([3, 0], dtype=torch.int32)
+    qd = _t(q)[:, :, :1].reshape(B, 2, 2, D)
+    dec = flash_decode_fwd(qd, _t(k), _t(v), lens, scale=0.25)
+    torch.testing.assert_close(dec, flash_decode_torch(qd, _t(k), _t(v), lens,
+                                                       scale=0.25),
+                               rtol=0, atol=0)
+    assert (flashbias_attention_fwd.launches,
+            flash_decode_fwd.launches) == before
+    assert tops.resolve_impl("auto", torch.device("cpu")) == "torch"
+    assert tops.resolve_impl("auto", torch.device("cuda")) == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", ["causal", "local", "none"])
+@pytest.mark.parametrize("bias", ["alibi", "phi", "none"])
+def test_flashbias_kernel_matches_plain_on_card(cuda, bias, mask, dtype):
+    rng = np.random.default_rng(7)
+    args = [None if x is None else _t(x).to(cuda)
+            for x in _prefill_case(rng, 4, 2, bias)]
+    args[:3] = [x.to(dtype) for x in args[:3]]
+    kw = dict(scale=D ** -0.5, mask_kind=mask, window=WINDOW)
+    before = flashbias_attention_fwd.launches
+    got = flashbias_attention_fwd(*args, **kw)
+    want = flashbias_attention_torch(*args, **kw)
+    torch.cuda.synchronize()
+    assert flashbias_attention_fwd.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * 4
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", ["alibi", "phi", "none"])
+def test_flash_decode_kernel_matches_plain_on_card(cuda, bias, dtype):
+    rng = np.random.default_rng(8)
+    b, kvh, g, s = 4, 2, 4, 300
+    q = _t(_rand(rng, b, kvh, g, D)).to(cuda, dtype)
+    k = _t(_rand(rng, b, kvh, s, D)).to(cuda, dtype)
+    v = _t(_rand(rng, b, kvh, s, D)).to(cuda, dtype)
+    lens = torch.tensor([0, 1, 129, 300], dtype=torch.int32, device=cuda)
+    kw = {"scale": D ** -0.5}
+    if bias == "phi":
+        kw["phi_q"] = _t(_rand(rng, b, kvh, g, R)).to(cuda)
+        kw["phi_k"] = _t(_rand(rng, b, kvh, s, R)).to(cuda)
+    elif bias == "alibi":
+        kw["slopes"] = tbias.alibi_slopes(kvh * g, device=cuda).reshape(kvh, g)
+    got = flash_decode_fwd(q, k, v, lens, **kw)
+    want = flash_decode_torch(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * 4
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert not got[0].any()
