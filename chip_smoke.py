@@ -7,12 +7,14 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without them. Phases, each printed
 as it runs, any failure ending the run:
 
-1. build    — compile both CUDA kernels from ``src/repro_torch/csrc``
-              (one nvcc per source, started together) and print ptxas's
-              register / shared-memory report;
-2. kernels  — each kernel against its plain PyTorch version on the card,
-              at the serving path's shapes and off-path modes, within the
-              stated tolerances;
+1. build    — compile the CUDA sources of ``src/repro_torch/csrc`` (one
+              nvcc per source, started together: ``flashbias_attn.cu``
+              and ``flash_decode.cu``, which holds the contiguous and the
+              paged decode kernels) and print ptxas's register /
+              shared-memory report;
+2. kernels  — each of the three kernels against its plain PyTorch version
+              on the card, at the serving paths' shapes and off-path
+              modes, within the stated tolerances;
 3. serve    — GPT-2-ALiBi-1.5B at full width (48 layers, d_model 1600,
               bf16, random weights from ``--seed``) through ``ServeEngine``
               on 4 slots x 2048 positions: 8 ragged requests (prompts
@@ -20,13 +22,20 @@ as it runs, any failure ending the run:
               staggered as the launcher does. Every request must end OK
               with 32 tokens, and the kernels' launch counters must equal
               48 x prefill waves and 48 x decode steps;
-4. parity   — the first wave's prefill and 4 decode steps again, with the
-              plain path (impl="torch") on the card, logits compared; then
-              decode steps of the kernel path timed and traced with
+4. paged    — the same 8 requests through a paged engine (page size 16,
+              lazy reservation) whose pool is sized from the mix so that
+              it grows pages and preempts; every request OK with 32
+              tokens, the paged decode kernel launched 48 x decode steps
+              and the contiguous one never, every page free at the end;
+5. parity   — the first wave's prefill and 4 decode steps again, with the
+              plain path (impl="torch") on the card, logits compared, on
+              the contiguous cache and on a paged cache (whose kernel path
+              is also held against the contiguous kernel path); then
+              decode steps of both kernel paths timed and traced with
               torch.profiler (device busy time, idle share, top kernels);
-5. times    — kernel, plain-version and library device times per call at
+6. times    — kernel, plain-version and library device times per call at
               the path shapes (torch.profiler), the least time the card
-              could take (bound), decode step time and end-to-end tokens/s.
+              could take (bound), decode step times and end-to-end tokens/s.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -49,7 +58,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
 N_LAYERS = 48
 SLOTS, MAX_LEN, PROMPT_MAX, NEW_TOKENS = 4, 2048, 512, 32
-LOGIT_TOL = 0.25                 # bf16 logits, 48 layers deep (see phase 4)
+PAGE = 16                        # page size of the paged phases
+LOGIT_TOL = 0.25                 # bf16 logits, 48 layers deep (see phase 5)
+KERNELS = ("flashbias_attention_fwd", "flash_decode_fwd",
+           "flash_decode_paged_fwd")
 
 
 def log(phase: str, msg: str) -> None:
@@ -163,13 +175,72 @@ def decode_inputs(gen, b, kvh, g, s, d, dtype, bias, lengths, r=4):
     return q, k, v, lens, extra
 
 
+def paged_table(rng, b, n_live, n_pages):
+    """(b, n_live + 4) int32 page table: a random permutation of the pool's
+    pages, then garbage columns (ids past the pool and negative ones) that
+    the kernel must clamp and never reach past the length mask."""
+    live = rng.permutation(n_pages)[:b * n_live].reshape(b, n_live)
+    junk = rng.integers(-3, 2 * n_pages, (b, 4))
+    junk[:, 0] = n_pages                     # the engine's sentinel
+    return np.concatenate([live, junk], 1).astype(np.int32)
+
+
+def alibi_slab(table, lengths, n_pages, ps, rng):
+    """The engine's factor slab ``(n_pages, ps, 2)``: row ``[1, pos]`` of
+    every logical position a table maps, random rows elsewhere."""
+    slab = rng.standard_normal((n_pages, ps, 2)).astype(np.float32)
+    for b, n in enumerate(lengths):
+        for j in range(-(-n // ps)):
+            pos = np.arange(j * ps, (j + 1) * ps, dtype=np.float32)
+            slab[table[b, j]] = np.stack([np.ones_like(pos), pos], -1)
+    return slab
+
+
+def paged_inputs(gen, rng, b, kvh, g, d, ps, dtype, bias, lengths, r=4):
+    """Inputs of the paged decode kernel. ``bias="alibi_slab"`` is the
+    serving path: phi mode with ``phi_q = slope * [-(len-1), 1]`` against
+    the shared rank-2 ``[1, pos]`` slab; ``"phi"`` / ``"phi_kvh"`` random
+    factors on a shared / per-kv-head slab; ``"alibi"`` in-kernel slopes."""
+    import torch
+    from repro_torch.core.bias import alibi_slopes
+    dev = "cuda"
+    n_live = -(-max(lengths) // ps)
+    n_pages = b * n_live + 3
+    q = torch.randn((b, kvh, g, d), generator=gen, device=dev).to(dtype)
+    kp, vp = (torch.randn((kvh, n_pages, ps, d), generator=gen,
+                          device=dev).to(dtype) for _ in range(2))
+    table = paged_table(rng, b, n_live, n_pages)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    extra = {}
+    slopes = alibi_slopes(kvh * g, device=dev).reshape(kvh, g)
+    if bias == "alibi_slab":
+        qpos = (lens.float() - 1)[:, None, None]
+        extra["phi_q"] = torch.stack(
+            [-qpos * slopes[None], slopes[None].expand(b, kvh, g)], -1)
+        extra["phi_pages"] = torch.as_tensor(
+            alibi_slab(table, lengths, n_pages, ps, rng), device=dev)[None]
+    elif bias.startswith("phi"):
+        lead = kvh if bias == "phi_kvh" else 1
+        extra["phi_q"] = torch.randn((b, kvh, g, r), generator=gen,
+                                     device=dev)
+        extra["phi_pages"] = torch.randn((lead, n_pages, ps, r),
+                                         generator=gen, device=dev)
+    elif bias == "alibi":
+        extra["slopes"] = slopes
+    pt = torch.as_tensor(table, device=dev)
+    return q, kp, vp, lens, pt, extra
+
+
 def phase_kernels(seed: int) -> dict:
     import torch
     from repro_torch.kernels.flash_decode import (flash_decode_fwd,
+                                                  flash_decode_paged_fwd,
+                                                  flash_decode_paged_torch,
                                                   flash_decode_torch)
     from repro_torch.kernels.flashbias_attn import (
         flashbias_attention_fwd, flashbias_attention_torch)
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
     worst = {}
 
     def check(name, got, want, dtype, path=False):
@@ -220,11 +291,33 @@ def phase_kernels(seed: int) -> dict:
         kw = dict(scale=d ** -0.5, **extra)
         check(name, flash_decode_fwd(q, k, v, lens, **kw),
               flash_decode_torch(q, k, v, lens, **kw), dtype, path)
+
+    # paged decode kernel: the paged serving path's shape (phi mode against
+    # the shared [1, pos] slab, page size 16: a warp's 32 keys span two
+    # pages), then GQA, the other bias modes, a per-kv-head slab and page
+    # size 48 (a page does not divide into 32-key chunks)
+    cases = [(f"flash_decode_paged_fwd path B4 KVH64 G1 D32 ps{PAGE} bf16 "
+              f"alibi-slab", 4, 64, 1, 32, PAGE, torch.bfloat16,
+              "alibi_slab", [0, 1, 777, 2048], True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for bias in ("alibi_slab", "phi", "phi_kvh", "alibi", "none"):
+            cases.append((f"flash_decode_paged_fwd GQA G4 D160 ps48 "
+                          f"{str(dtype)[6:]} {bias}", 4, 2, 4, 160, 48,
+                          dtype, bias, [0, 1, 333, 1024], False))
+    cases.append(("flash_decode_paged_fwd MHA G1 D32 ps8 f32 phi_kvh", 3, 8,
+                  1, 32, 8, torch.float32, "phi_kvh", [200, 5, 0], False))
+    for name, b, kvh, g, d, ps, dtype, bias, lengths, path in cases:
+        q, kp, vp, lens, pt, extra = paged_inputs(gen, rng, b, kvh, g, d, ps,
+                                                  dtype, bias, lengths)
+        kw = dict(scale=d ** -0.5, **extra)
+        check(name, flash_decode_paged_fwd(q, kp, vp, lens, pt, **kw),
+              flash_decode_paged_torch(q, kp, vp, lens, pt, **kw), dtype,
+              path)
     return worst
 
 
 # ---------------------------------------------------------------------------
-# phases 3-4: full-width serving and parity
+# phases 3-5: full-width serving, paged serving and parity
 # ---------------------------------------------------------------------------
 
 def make_requests(seed: int, vocab: int):
@@ -237,14 +330,46 @@ def make_requests(seed: int, vocab: int):
              else SamplingParams()) for i, n in enumerate(lens)]
 
 
+def launch_counters() -> dict:
+    from repro_torch.kernels.flash_decode import (flash_decode_fwd,
+                                                  flash_decode_paged_fwd)
+    from repro_torch.kernels.flashbias_attn import flashbias_attention_fwd
+    return {"flashbias_attention_fwd": flashbias_attention_fwd,
+            "flash_decode_fwd": flash_decode_fwd,
+            "flash_decode_paged_fwd": flash_decode_paged_fwd}
+
+
+def drive_counted(engine, requests):
+    """Drive ``requests`` through ``engine`` with every launch counter set
+    to 0 just before and read just after; check every result."""
+    import torch
+    from repro_torch.launch.serve import drive
+    from repro_torch.serve import OK
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    rids = drive(engine, requests)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    vocab = engine.model.cfg.vocab
+    n_tok = 0
+    for rid in rids:
+        rec = engine.result(rid)
+        if rec.status != OK or rec.size != NEW_TOKENS:
+            raise AssertionError(f"request {rid}: {rec!r}")
+        if rec.min() < 0 or rec.max() >= vocab:
+            raise AssertionError(f"request {rid}: token ids out of range")
+        n_tok += rec.size
+    return rids, launches, n_tok / wall, wall
+
+
 def phase_serve(seed: int):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_decode import flash_decode_fwd
-    from repro_torch.kernels.flashbias_attn import flashbias_attention_fwd
-    from repro_torch.launch.serve import drive
     from repro_torch.models import get_model, init_params
-    from repro_torch.serve import OK, ServeEngine
+    from repro_torch.serve import ServeEngine
 
     cfg = get_config("gpt2_alibi_15b")
     if cfg.n_layers != N_LAYERS:
@@ -262,39 +387,86 @@ def phase_serve(seed: int):
                  f"{cfg.resolved_head_dim}, vocab {cfg.vocab_padded}; "
                  f"weights ready in {time.monotonic() - t0:.1f}s")
     requests = make_requests(seed, cfg.vocab)
-
-    flashbias_attention_fwd.launches = 0
-    flash_decode_fwd.launches = 0
-    t0 = time.monotonic()
-    rids = drive(engine, requests)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {"flashbias_attention_fwd": flashbias_attention_fwd.launches,
-                "flash_decode_fwd": flash_decode_fwd.launches}
-
+    rids, launches, tok_s, wall = drive_counted(engine, requests)
     stats = engine.stats()
-    n_tok = 0
-    for rid in rids:
-        rec = engine.result(rid)
-        if rec.status != OK or rec.size != NEW_TOKENS:
-            raise AssertionError(f"request {rid}: {rec!r}")
-        if rec.min() < 0 or rec.max() >= cfg.vocab:
-            raise AssertionError(f"request {rid}: token ids out of range")
-        n_tok += rec.size
     want = {"flashbias_attention_fwd": N_LAYERS * stats["prefill_waves"],
-            "flash_decode_fwd": N_LAYERS * stats["decode_steps"]}
+            "flash_decode_fwd": N_LAYERS * stats["decode_steps"],
+            "flash_decode_paged_fwd": 0}
     log("serve", f"{len(rids)} requests OK x {NEW_TOKENS} tokens in "
-                 f"{wall:.2f}s ({n_tok / wall:.1f} tok/s); "
+                 f"{wall:.2f}s ({tok_s:.1f} tok/s); "
                  f"{stats['prefill_waves']} prefill waves, "
                  f"{stats['decode_steps']} decode steps; launches {launches}")
-    if launches != want or not all(launches.values()):
+    if launches != want or not launches["flash_decode_fwd"]:
         raise AssertionError(f"kernel launches {launches} != {want}")
-    return engine, requests, launches, n_tok / wall
+    return engine, requests, launches, tok_s
+
+
+def phase_paged(engine, requests):
+    """The same requests through a paged engine (page size 16, lazy
+    reservation) on the same weights. The pool holds the first wave's
+    prompt pages and one more: the first page grown takes the spare, the
+    next finds the pool dry and preempts."""
+    from repro_torch.serve import ServeEngine
+    first = sum(-(-p.size // PAGE) for p, _, _ in requests[:SLOTS])
+    paged = ServeEngine(engine.model, engine.backend.params, max_len=MAX_LEN,
+                        n_slots=SLOTS, prefill_len=PROMPT_MAX,
+                        page_size=PAGE, n_pages=first + 1,
+                        pages_per_slot=MAX_LEN // PAGE, device="cuda")
+    rids, launches, tok_s, wall = drive_counted(paged, requests)
+    stats, pages = paged.stats(), paged.page_stats()
+    want = {"flashbias_attention_fwd": N_LAYERS * stats["prefill_waves"],
+            "flash_decode_fwd": 0,
+            "flash_decode_paged_fwd": N_LAYERS * stats["decode_steps"]}
+    log("paged", f"{len(rids)} requests OK x {NEW_TOKENS} tokens in "
+                 f"{wall:.2f}s ({tok_s:.1f} tok/s); "
+                 f"{stats['prefill_waves']} prefill waves, "
+                 f"{stats['decode_steps']} decode steps; launches "
+                 f"{launches}; pages {pages}")
+    if launches != want or not launches["flash_decode_paged_fwd"]:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    if pages["grown"] < 1 or pages["preemptions"] < 1:
+        raise AssertionError(f"the pool of {pages['n_pages']} pages neither "
+                             f"grew and preempted: {pages}")
+    if pages["n_free"] != pages["n_pages"]:
+        raise AssertionError(f"pages left in use after the drain: {pages}")
+    return launches, tok_s, pages
+
+
+def page_cap(longest: int) -> int:
+    """The serve engine's page bound: pages of ``longest`` rounded up to a
+    power of two."""
+    need, cap = -(-longest // PAGE), 1
+    while cap < need:
+        cap *= 2
+    return cap
+
+
+def paged_copy(model, cache, lengths, extra: int):
+    """A paged cache holding the contiguous wave ``cache``: each row gets
+    the pages of its length plus ``extra`` positions, in a random order."""
+    rng = np.random.default_rng(7)
+    need = [-(-(int(n) + extra) // PAGE) for n in lengths]
+    n_pages = sum(need) + 2
+    order = rng.permutation(n_pages)
+    tables = np.full((SLOTS, MAX_LEN // PAGE), n_pages, np.int64)
+    for i, n in enumerate(need):
+        tables[i, :n] = order[sum(need[:i]):sum(need[:i]) + n]
+    paged = model.init_paged_cache(SLOTS, n_pages, PAGE, MAX_LEN // PAGE,
+                                   device="cuda")
+    return model.insert_paged(paged, cache, np.arange(SLOTS), tables)
+
+
+PARITY_PAIRS = (("cuda", "torch"), ("paged_cuda", "paged_torch"),
+                ("paged_cuda", "cuda"))
 
 
 def phase_parity(engine, requests):
-    """The first wave again through impl="cuda" and impl="torch" on the
-    card: prefill, then 4 greedy decode steps fed the cuda path's tokens."""
+    """The first wave again, on the card: prefill, then 4 greedy decode
+    steps fed the contiguous kernel path's tokens, through four paths —
+    contiguous and paged caches, each with impl="cuda" and impl="torch".
+    The kernel path is held against the plain path on both caches, and the
+    paged kernel path against the contiguous one. Then decode steps of
+    both kernel paths are traced."""
     import torch
     from repro_torch.models import get_model
 
@@ -309,85 +481,146 @@ def phase_parity(engine, requests):
     lens = torch.as_tensor(lengths, device="cuda")
     models = {impl: get_model(cfg.replace(attn_impl=impl))
               for impl in ("cuda", "torch")}
-    worst, agree, total = 0.0, 0, 0
+    worst = {pair: 0.0 for pair in PARITY_PAIRS}
+    agree = {pair: 0 for pair in PARITY_PAIRS}
+    logits, caches = {}, {}
     with torch.no_grad():
-        out = {impl: m.prefill(params, batch, max_len=MAX_LEN, lengths=lens)
-               for impl, m in models.items()}
+        for impl, m in models.items():
+            logits[impl], caches[impl] = m.prefill(params, batch,
+                                                   max_len=MAX_LEN,
+                                                   lengths=lens)
+            logits[f"paged_{impl}"] = logits[impl]
+            caches[f"paged_{impl}"] = paged_copy(m, caches[impl], lengths,
+                                                 4 + TRACE_STEPS + 1)
         for step in range(5):
-            lc, lt = out["cuda"][0][:, 0].float(), out["torch"][0][:, 0].float()
-            lc[:, cfg.vocab:] = -torch.inf
-            lt[:, cfg.vocab:] = -torch.inf
-            err = float((lc[:, :cfg.vocab] - lt[:, :cfg.vocab]).abs().max())
-            worst = max(worst, err)
-            tok_c, tok_t = lc.argmax(-1), lt.argmax(-1)
-            agree += int((tok_c == tok_t).sum())
-            total += SLOTS
+            top = {}
+            for name, lg in logits.items():
+                lg = lg[:, 0, :cfg.vocab].float()
+                top[name] = (lg, lg.argmax(-1))
+            parts = []
+            for a, b in PARITY_PAIRS:
+                err = float((top[a][0] - top[b][0]).abs().max())
+                same = int((top[a][1] == top[b][1]).sum())
+                worst[(a, b)] = max(worst[(a, b)], err)
+                agree[(a, b)] += same
+                parts.append(f"{a} vs {b} {err:.3e} ({same}/{SLOTS})")
             log("parity", f"{'prefill' if step == 0 else f'decode {step}'}: "
-                          f"max |logits cuda - torch| {err:.3e}, greedy "
-                          f"agree {int((tok_c == tok_t).sum())}/{SLOTS}")
+                          f"max |logits gap| (greedy agree) "
+                          + "; ".join(parts))
             if step == 4:
                 break
-            nxt = tok_c[:, None]
-            for impl, m in models.items():
-                out[impl] = m.decode(params, out[impl][1], nxt)
-        decode_lengths = out["cuda"][1]["length"].clone()
-    log("parity", f"worst |logits| gap {worst:.3e} (tol {LOGIT_TOL}); "
-                  f"greedy agreement {agree}/{total}")
-    if not worst <= LOGIT_TOL:
-        raise AssertionError(f"cuda and torch paths disagree: {worst:.3e}")
-    del out["torch"]
-    trace = trace_decode(models["cuda"], params, out["cuda"][1], nxt)
-    del out
+            nxt = top["cuda"][1][:, None]
+            cap = page_cap(int(lengths.max()) + step + 2)
+            for name in logits:
+                m = models[name.removeprefix("paged_")]
+                kw = {"max_pages": cap} if name.startswith("paged") else {}
+                logits[name], caches[name] = m.decode(params, caches[name],
+                                                      nxt, **kw)
+        decode_lengths = caches["cuda"]["length"].clone()
+    for a, b in PARITY_PAIRS:
+        log("parity", f"{a} vs {b}: worst |logits| gap "
+                      f"{worst[(a, b)]:.3e} (tol {LOGIT_TOL}); greedy "
+                      f"agreement {agree[(a, b)]}/{5 * SLOTS}")
+        if not worst[(a, b)] <= LOGIT_TOL:
+            raise AssertionError(f"{a} and {b} paths disagree: "
+                                 f"{worst[(a, b)]:.3e}")
+    for name in ("torch", "paged_torch"):
+        del caches[name]
     torch.cuda.empty_cache()
-    return trace, decode_lengths
+    cap = page_cap(int(lengths.max()) + 4 + TRACE_STEPS + 1)
+    traces = trace_decode(models["cuda"], params, nxt, {
+        "contiguous": (caches["cuda"], {}),
+        "paged": (caches["paged_cuda"], {"max_pages": cap})})
+    del caches
+    torch.cuda.empty_cache()
+    return traces, decode_lengths
 
 
-def trace_decode(model, params, cache, tokens) -> dict:
-    """Decode steps of the kernel path: 5 timed on the host clock (each
-    ending in a synchronize), then 3 under torch.profiler for the device's
-    busy time per step (the sum of its kernels' and copies' durations) and
-    the kernels that hold it longest."""
+INDEX_KERNELS = ("index", "gather", "scatter")
+TRACE_ROUNDS, ROUND_STEPS = 6, 3
+TRACE_STEPS = TRACE_ROUNDS * ROUND_STEPS + 3      # per path, profiled too
+
+
+def trace_decode(model, params, tokens, paths: dict) -> dict:
+    """Decode steps of the kernel path on each cache of ``paths`` ({label:
+    (cache, decode kwargs)}): timed on the host clock in alternating rounds
+    of 3 steps (A B B A ..., each step ending in a synchronize), so both
+    see the same host; then 3 steps each under torch.profiler for the
+    device's busy time per step (the sum of its kernels' and copies'
+    durations), the kernels that hold it longest, and the indexing kernels
+    (gathers and scatters of cache rows, page ids and the factor slab)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    walls = []
-    with torch.no_grad():
-        for _ in range(5):
+    labels = list(paths)
+    caches = {label: cache for label, (cache, _) in paths.items()}
+    walls = {label: [] for label in labels}
+
+    def steps(label, n):
+        kw = paths[label][1]
+        for _ in range(n):
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            _, cache = model.decode(params, cache, tokens)
+            _, caches[label] = model.decode(params, caches[label], tokens,
+                                            **kw)
             torch.cuda.synchronize()
-            walls.append((time.monotonic() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                _, cache = model.decode(params, cache, tokens)
-            torch.cuda.synchronize()
+            walls[label].append((time.monotonic() - t0) * 1e3)
 
-    kernels = device_kernels(prof)
-    step_ms = float(np.median(walls))
-    busy_ms = sum(device_us(e) for e in kernels) / 3 / 1e3
-    if not busy_ms:
-        raise AssertionError("the profiler saw no kernels in the decode steps")
-    trace = {"step_ms": step_ms, "busy_ms": busy_ms,
-             "idle_share": 1 - busy_ms / step_ms}
-    log("trace", f"decode step {step_ms:.3f} ms on the host clock (median of "
-                 f"5); device busy {busy_ms:.3f} ms/step, idle share "
-                 f"{trace['idle_share']:.3f}")
-    for e in sorted(kernels, key=device_us, reverse=True)[:8]:
-        log("trace", f"  {device_us(e) / 3 / 1e3:8.3f} ms/step "
-                     f"{e.count // 3:5d} calls/step  {e.key[:90]}")
-    return trace
+    traces = {}
+    with torch.no_grad():
+        for r in range(TRACE_ROUNDS):
+            for label in (labels if r % 2 == 0 else labels[::-1]):
+                steps(label, ROUND_STEPS)
+        for label in labels:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    _, caches[label] = model.decode(
+                        params, caches[label], tokens, **paths[label][1])
+                torch.cuda.synchronize()
+            kernels = device_kernels(prof)
+            step_ms = float(np.median(walls[label]))
+            busy_ms = sum(device_us(e) for e in kernels) / 3 / 1e3
+            if not busy_ms:
+                raise AssertionError(f"the profiler saw no kernels in the "
+                                     f"{label} decode steps")
+            index = [e for e in kernels
+                     if any(w in e.key.lower() for w in INDEX_KERNELS)]
+            traces[label] = t = {
+                "step_ms": step_ms, "busy_ms": busy_ms,
+                "idle_share": 1 - busy_ms / step_ms,
+                "index_calls": sum(e.count for e in index) // 3,
+                "index_ms": sum(device_us(e) for e in index) / 3 / 1e3}
+            log("trace", f"{label} decode step {step_ms:.3f} ms on the host "
+                         f"clock (median of {len(walls[label])}, rounds "
+                         f"alternating with the other path); device busy "
+                         f"{busy_ms:.3f} ms/step, idle share "
+                         f"{t['idle_share']:.3f}; indexing kernels "
+                         f"{t['index_calls']} calls, {t['index_ms']:.3f} "
+                         f"ms/step")
+            for e in sorted(kernels, key=device_us, reverse=True)[:8]:
+                log("trace", f"  {device_us(e) / 3 / 1e3:8.3f} ms/step "
+                             f"{e.count // 3:5d} calls/step  {e.key[:90]}")
+            host = [e for e in prof.key_averages()
+                    if not any(e.key == k.key for k in kernels)]
+            for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                            reverse=True)[:6]:
+                log("trace", f"  host {e.self_cpu_time_total / 3 / 1e3:8.3f} "
+                             f"ms/step {e.count // 3:5d} calls/step  "
+                             f"{e.key[:70]}")
+    return traces
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times and bounds
+# phase 6: times and bounds
 # ---------------------------------------------------------------------------
 
 def phase_times(engine, decode_lengths, card: str):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode_fwd,
+                                                  flash_decode_paged_fwd,
+                                                  flash_decode_paged_torch,
                                                   flash_decode_torch)
     from repro_torch.kernels.flashbias_attn import (
         flashbias_attention_fwd, flashbias_attention_torch)
@@ -445,10 +678,51 @@ def phase_times(engine, decode_lengths, card: str):
             qd, kc, vc, attn_mask=dmask, scale=scale)),
         **bound(bytes_, flops))
     events["flash_decode_fwd"] = event_ms(kernel)
+
+    # paged decode kernel at the paged path shape: phi mode against the
+    # shared [1, pos] slab, page size 16, pages in random order, bf16, this
+    # run's lengths. Library: gather each row's pages, then SDPA with a
+    # float ALiBi mask (two calls).
+    lengths = [int(n) for n in lens.tolist()]
+    qp, kp, vp, lens_p, pt, extra = paged_inputs(
+        gen, np.random.default_rng(2), b, kvh, 1, d, PAGE, bf, "alibi_slab",
+        lengths)
+    n_live = -(-max(lengths) // PAGE)
+    last = (lens_p.long() - 1).clamp(min=0) // PAGE
+    pages = pt.long()[:, :n_live].gather(
+        1, torch.minimum(torch.arange(n_live, device="cuda")[None],
+                         last[:, None]))
+    kvp = torch.stack([kp, vp])                  # (2, KVH, n_pages, ps, d)
+    pmask = dmask[..., :n_live * PAGE].contiguous()
+
+    def gather_sdpa():
+        kv = kvp[:, :, pages].reshape(2, kvh, b, n_live * PAGE, d)
+        return F.scaled_dot_product_attention(
+            qp, kv[0].transpose(0, 1),
+            kv[1].transpose(0, 1), attn_mask=pmask, scale=scale)
+
+    n_pages_read = sum(-(-n // PAGE) for n in lengths)
+    bytes_ = (live * kvh * 2 * d * 2 + live * 2 * 4 + 2 * b * kvh * d * 2
+              + b * kvh * 2 * 4 + b * 4 + n_pages_read * 4)
+    flops = live * kvh * (4 * d + 4)
+    kernel = (lambda: flash_decode_paged_fwd(qp, kp, vp, lens_p, pt,
+                                             scale=scale, **extra))
+    out["flash_decode_paged_fwd"] = dict(
+        ms=device_ms(kernel),
+        plain_ms=device_ms(lambda: flash_decode_paged_torch(
+            qp, kp, vp, lens_p, pt, scale=scale, **extra)),
+        library_ms=device_ms(gather_sdpa),
+        **bound(bytes_, flops))
+    events["flash_decode_paged_fwd"] = event_ms(kernel)
+    library = {"flashbias_attention_fwd": "SDPA, dense float mask",
+               "flash_decode_fwd": "SDPA, float mask",
+               "flash_decode_paged_fwd": "page gather + SDPA with a float "
+                                         "mask, two calls"}
     for name, t in out.items():
         log("times", f"{name} (device time per call): kernel "
                      f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                     f"library {t['library_ms']:.4f} ms, bound "
+                     f"library ({library[name]}) {t['library_ms']:.4f} ms, "
+                     f"bound "
                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}); kernel "
                      f"between CUDA events, host gaps included, "
                      f"{events[name]:.4f} ms [{card}]")
@@ -490,22 +764,31 @@ def main(argv=None) -> int:
 
     errors = phase_kernels(args.seed)
     engine, requests, launches, tok_s = phase_serve(args.seed)
-    trace, decode_lengths = phase_parity(engine, requests)
-    log("times", f"decode step {trace['step_ms']:.3f} ms (4 slots, 48 "
-                 f"layers); "
-                 f"end to end {tok_s:.1f} tok/s [{card}]")
+    paged_launches, paged_tok_s, _ = phase_paged(engine, requests)
+    launches["flash_decode_paged_fwd"] = \
+        paged_launches["flash_decode_paged_fwd"]
+    traces, decode_lengths = phase_parity(engine, requests)
+    for label, rate in (("contiguous", tok_s), ("paged", paged_tok_s)):
+        t = traces[label]
+        log("times", f"{label}: decode step {t['step_ms']:.3f} ms (4 slots, "
+                     f"48 layers), device idle share {t['idle_share']:.3f}; "
+                     f"end to end {rate:.1f} tok/s [{card}]")
     times = phase_times(engine, decode_lengths, card)
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"
                                            "flashbias_attn.py:149",
-                "flash_decode_fwd": "src/repro/kernels/flash_decode.py:121"}
+                "flash_decode_fwd": "src/repro/kernels/flash_decode.py:121",
+                "flash_decode_paged_fwd": "src/repro/kernels/"
+                                          "flash_decode.py:195"}
     sources = {"flashbias_attention_fwd": "src/repro_torch/csrc/"
                                           "flashbias_attn.cu",
-               "flash_decode_fwd": "src/repro_torch/csrc/flash_decode.cu"}
+               "flash_decode_fwd": "src/repro_torch/csrc/flash_decode.cu",
+               "flash_decode_paged_fwd": "src/repro_torch/csrc/"
+                                         "flash_decode.cu"}
     kernels = [{"name": name, "route": "cuda", "source": sources[name],
                 "replaces": replaces[name], "launches": launches[name],
                 "max_abs_err": errors[name], **times[name]}
-               for name in ("flashbias_attention_fwd", "flash_decode_fwd")]
+               for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

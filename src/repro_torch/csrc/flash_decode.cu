@@ -1,33 +1,47 @@
-// Single-token flash-decoding against a contiguous KV cache, for Hopper (sm_90a).
+// Single-token flash-decoding against a contiguous or a paged KV cache, for
+// Hopper (sm_90a).
 //
 // Replaces: repro/kernels/flash_decode.py::flash_decode_fwd (body
-// _decode_kernel), the Pallas TPU kernel that decode reaches through
-// ops.flash_decode. Same function: the G q-heads of one kv head attend to
-// that head's cache rows 0 .. lengths[b]-1 with an online float32 softmax of
+// _decode_kernel) and ::flash_decode_paged_fwd (the same body behind index
+// maps that resolve pages), the Pallas TPU kernels that decode reaches
+// through ops.flash_decode. Same function: the G q-heads of one kv head
+// attend to that head's cache rows 0 .. lengths[b]-1 with an online float32
+// softmax of
 //   s = q.k^T * scale + bias,
 // the bias being phi (phi_q . phi_k^T, read as float32), ALiBi
 // slope * (k_pos - (lengths[b] - 1)) generated in the kernel, or none. Masked
 // logits take -0.7*FLT_MAX, and a row with length 0 writes 0, as on the TPU.
+//
+// Paged: the caches are a shared pool (KVH, n_pages, ps, D|Dv) and the phi
+// factors a slab (1|KVH, n_pages, ps, R); row b's logical key j lives on page
+// page_table[b, min(j / ps, last)] (last = (max(len-1, 0)) / ps), clipped
+// into [0, n_pages), at offset j % ps. A slab with a leading 1 is shared by
+// every kv head (head stride 0). As on the TPU, the two modes share one body
+// and differ only in how a key's row is found (key_rows below); a lane
+// resolves its own key's row once, and the v loop takes other keys' rows
+// from their lanes by shuffle.
 //
 // What bounds it on the H100: memory. Every live cache row is read once
 // (k and v, D + Dv values each) and each row feeds only G multiply-adds per
 // channel, far below the ~295 operations per byte the card needs before its
 // arithmetic is the limit. At the GPT-2-ALiBi-1.5B decode shape (B=4 slots,
 // KVH=64, G=1, head_dim 32, bf16) the bytes are ~128 B per live position per
-// head, so the least time is the live cache size over 3.35 TB/s.
+// head (plus 8 B of slab per position when paged), so the least time is the
+// live cache size over 3.35 TB/s.
 //
 // Design, simple first: one block of 8 warps per (b, kv head), so GPT-2 runs
 // B*KVH = 256 blocks. The block walks only the live rows (keys at or past
 // lengths[b] are never read, which replaces the TPU kernel's pl.when block
 // skipping); warp w takes the 32-key chunks w, w+8, ..., a lane owns one key
-// of a chunk, reads its k row with 16-byte loads where the row is aligned,
-// and computes its logit for each of the G rows from q staged in shared
-// memory; the warp reduces max and sum with shuffles and accumulates the
-// output dims lane, lane+32, ... from coalesced v rows, eight keys' loads in
-// flight at a time (a decode step is latency-bound: few blocks, so each
-// warp must keep several loads outstanding). The eight warps' partial
-// (m, l, acc) are merged by log-sum-exp in shared memory at the end.
-// Splitting the cache across blocks (split-KV) is later work.
+// of a chunk (a chunk may span several pages, or part of one), reads its k
+// row with 16-byte loads where the row is aligned, and computes its logit
+// for each of the G rows from q staged in shared memory; the warp reduces
+// max and sum with shuffles and accumulates the output dims lane, lane+32,
+// ... from coalesced v rows, eight keys' loads in flight at a time (a decode
+// step is latency-bound: few blocks, so each warp must keep several loads
+// outstanding). The eight warps' partial (m, l, acc) are merged by
+// log-sum-exp in shared memory at the end. Splitting the cache across
+// blocks (split-KV) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,15 +56,18 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxG = 8;                     // q heads per kv head
 
 struct DecodeArgs {
-  const void* q;        // (B, KVH, G, D)
-  const void* k;        // (B, KVH, S, D)
-  const void* v;        // (B, KVH, S, Dv)
-  const int* lengths;   // (B,)
-  const float* phi_q;   // (B, KVH, G, R) or null
-  const float* phi_k;   // (B, KVH, S, R) or null
-  const float* slopes;  // (KVH, G) or null
-  void* out;            // (B, KVH, G, Dv)
-  int B, KVH, G, S, D, Dv, R;
+  const void* q;          // (B, KVH, G, D)
+  const void* k;          // (B, KVH, S, D) | pool (KVH, n_pages, ps, D)
+  const void* v;          // (B, KVH, S, Dv) | pool (KVH, n_pages, ps, Dv)
+  const int* lengths;     // (B,)
+  const float* phi_q;     // (B, KVH, G, R) or null
+  const float* phi_k;     // (B, KVH, S, R) | slab (1|KVH, n_pages, ps, R)
+  const float* slopes;    // (KVH, G) or null
+  void* out;              // (B, KVH, G, Dv)
+  const int* page_table;  // paged: (B, P)
+  int B, KVH, G, S, D, Dv, R;  // paged: S = P * ps, the longest view
+  int P, n_pages, ps;          // paged only
+  int phi_heads;               // paged only: 1 (shared slab) or KVH
   float scale;
 };
 
@@ -94,15 +111,35 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Rows of key j of (b, h): kv indexes the k/v arrays in rows of D (Dv)
+// values, phi the phi_k array in rows of R. `last` is the last in-length
+// logical block (paged only).
+template <bool PAGED>
+__device__ __forceinline__ void key_rows(const DecodeArgs& a, int b, int h,
+                                         int j, int last, long long& kv,
+                                         long long& phi) {
+  if (!PAGED) {
+    kv = ((long long)b * a.KVH + h) * a.S + j;
+    phi = kv;
+  } else {
+    int page = a.page_table[(long long)b * a.P + min(j / a.ps, last)];
+    page = min(max(page, 0), a.n_pages - 1);
+    const long long in_pool = (long long)page * a.ps + j % a.ps;
+    const long long head = (long long)a.n_pages * a.ps;
+    kv = h * head + in_pool;
+    phi = (a.phi_heads == 1 ? 0 : h * head) + in_pool;
+  }
+}
+
 size_t smem_floats(const DecodeArgs& a) {
   return (size_t)a.G * a.D + (size_t)a.G * a.R + 2 * kWarps * kMaxG +
          (size_t)kWarps * a.G * a.Dv;
 }
 
-template <typename T, int DC>
+template <typename T, int DC, bool PAGED>
 __global__ void __launch_bounds__(kThreads) decode_fwd(DecodeArgs a) {
   extern __shared__ float smem[];
-  const int G = a.G, D = a.D, Dv = a.Dv, R = a.R, S = a.S;
+  const int G = a.G, D = a.D, Dv = a.Dv, R = a.R;
   float* sQ = smem;                       // G x D
   float* sPQ = sQ + G * D;                // G x R
   float* sM = sPQ + G * R;                // kWarps x kMaxG
@@ -113,10 +150,10 @@ __global__ void __launch_bounds__(kThreads) decode_fwd(DecodeArgs a) {
   const int h = blockIdx.x, b = blockIdx.y;
   const size_t bh = (size_t)b * a.KVH + h;
   const T* qb = static_cast<const T*>(a.q) + bh * G * D;
-  const T* kb = static_cast<const T*>(a.k) + bh * S * D;
-  const T* vb = static_cast<const T*>(a.v) + bh * S * Dv;
-  const float* pkb = R ? a.phi_k + bh * S * R : nullptr;
-  const int len = min(max(a.lengths[b], 0), S);
+  const T* kp = static_cast<const T*>(a.k);
+  const T* vp = static_cast<const T*>(a.v);
+  const int len = min(max(a.lengths[b], 0), a.S);
+  const int last = PAGED ? max(len - 1, 0) / a.ps : 0;
 
   for (int i = tid; i < G * D; i += kThreads) sQ[i] = load_f32(qb + i);
   for (int i = tid; i < G * R; i += kThreads) sPQ[i] = a.phi_q[bh * G * R + i];
@@ -133,11 +170,13 @@ __global__ void __launch_bounds__(kThreads) decode_fwd(DecodeArgs a) {
 
   constexpr int kVec = 16 / sizeof(T);
   const bool vec_k = (D % kVec) == 0 &&
-                     (reinterpret_cast<size_t>(kb) % 16) == 0;
+                     (reinterpret_cast<size_t>(kp) % 16) == 0;
   for (int base = warp * 32; base < len; base += kWarps * 32) {
     const int j = base + lane;
     const bool valid = j < len;
-    const T* kr = kb + (size_t)(valid ? j : base) * D;
+    long long row, phi_row;                 // lanes past len read `base`
+    key_rows<PAGED>(a, b, h, valid ? j : base, last, row, phi_row);
+    const T* kr = kp + row * D;
     float s[kMaxG];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
@@ -165,7 +204,7 @@ __global__ void __launch_bounds__(kThreads) decode_fwd(DecodeArgs a) {
       if (g < G) {  // uniform across the warp
         float x = s[g] * a.scale;
         if (R) {
-          const float* pk = pkb + (size_t)(valid ? j : base) * R;
+          const float* pk = a.phi_k + phi_row * R;
           float bias = 0.f;
           for (int c = 0; c < R; ++c) bias = fmaf(sPQ[g * R + c], pk[c], bias);
           x += bias;
@@ -187,7 +226,8 @@ __global__ void __launch_bounds__(kThreads) decode_fwd(DecodeArgs a) {
       float vd[kVBatch][DC];
 #pragma unroll
       for (int u = 0; u < kVBatch; ++u) {
-        const T* vr = vb + (size_t)(base + j0 + u) * Dv;
+        const long long vrow = __shfl_sync(0xffffffffu, row, j0 + u);
+        const T* vr = vp + vrow * Dv;
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
           const int d = lane + 32 * c;
@@ -241,32 +281,43 @@ __global__ void __launch_bounds__(kThreads) decode_fwd(DecodeArgs a) {
   }
 }
 
-template <typename T, int DC>
+template <typename T, int DC, bool PAGED>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
   const size_t smem = smem_floats(a) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_fwd<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        decode_fwd<T, DC, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid(a.KVH, a.B);
-  decode_fwd<T, DC><<<grid, kThreads, smem, stream>>>(a);
+  decode_fwd<T, DC, PAGED><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 cudaError_t dispatch(const DecodeArgs& a, cudaStream_t stream) {
   switch ((a.Dv + 31) / 32) {
-    case 1: return launch<T, 1>(a, stream);
-    case 2: return launch<T, 2>(a, stream);
-    case 3: return launch<T, 3>(a, stream);
-    case 4: return launch<T, 4>(a, stream);
-    case 5: return launch<T, 5>(a, stream);
-    case 6: return launch<T, 6>(a, stream);
-    case 7: return launch<T, 7>(a, stream);
-    case 8: return launch<T, 8>(a, stream);
+    case 1: return launch<T, 1, PAGED>(a, stream);
+    case 2: return launch<T, 2, PAGED>(a, stream);
+    case 3: return launch<T, 3, PAGED>(a, stream);
+    case 4: return launch<T, 4, PAGED>(a, stream);
+    case 5: return launch<T, 5, PAGED>(a, stream);
+    case 6: return launch<T, 6, PAGED>(a, stream);
+    case 7: return launch<T, 7, PAGED>(a, stream);
+    case 8: return launch<T, 8, PAGED>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool PAGED>
+int run(const DecodeArgs& a, int dtype, void* stream) {
+  if (a.B == 0 || a.KVH == 0) return cudaSuccess;
+  if (a.G < 1 || a.G > kMaxG) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float, PAGED>(a, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16, PAGED>(a, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -277,18 +328,61 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 const void* phi_k, const void* slopes, void* out,
                                 int dtype, int B, int KVH, int G, int S, int D,
                                 int Dv, int R, float scale, void* stream) {
-  DecodeArgs a{q, k, v, static_cast<const int*>(lengths),
-               static_cast<const float*>(phi_q), static_cast<const float*>(phi_k),
-               static_cast<const float*>(slopes), out, B, KVH, G, S, D, Dv, R, scale};
-  if (B == 0 || KVH == 0) return cudaSuccess;
-  if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, s);
-  return cudaErrorInvalidValue;
+  DecodeArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.lengths = static_cast<const int*>(lengths);
+  a.phi_q = static_cast<const float*>(phi_q);
+  a.phi_k = static_cast<const float*>(phi_k);
+  a.slopes = static_cast<const float*>(slopes);
+  a.out = out;
+  a.B = B;
+  a.KVH = KVH;
+  a.G = G;
+  a.S = S;
+  a.D = D;
+  a.Dv = Dv;
+  a.R = R;
+  a.scale = scale;
+  return run<false>(a, dtype, stream);
 }
 
-// Dynamic shared memory one launch needs, for the wrapper's size check.
+// Paged decode: pools (KVH, n_pages, ps, D|Dv), page_table (B, P) int32,
+// phi slab (phi_heads, n_pages, ps, R) with phi_heads 1 or KVH.
+extern "C" int flash_decode_paged_fwd(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* lengths, const void* page_table, const void* phi_q,
+    const void* phi_pages, const void* slopes, void* out, int dtype, int B,
+    int KVH, int G, int P, int n_pages, int ps, int D, int Dv, int R,
+    int phi_heads, float scale, void* stream) {
+  DecodeArgs a{};
+  a.q = q;
+  a.k = k_pages;
+  a.v = v_pages;
+  a.lengths = static_cast<const int*>(lengths);
+  a.phi_q = static_cast<const float*>(phi_q);
+  a.phi_k = static_cast<const float*>(phi_pages);
+  a.slopes = static_cast<const float*>(slopes);
+  a.out = out;
+  a.page_table = static_cast<const int*>(page_table);
+  a.B = B;
+  a.KVH = KVH;
+  a.G = G;
+  a.S = P * ps;
+  a.D = D;
+  a.Dv = Dv;
+  a.R = R;
+  a.P = P;
+  a.n_pages = n_pages;
+  a.ps = ps;
+  a.phi_heads = phi_heads;
+  a.scale = scale;
+  if (P < 1 || n_pages < 1 || ps < 1) return cudaErrorInvalidValue;
+  return run<true>(a, dtype, stream);
+}
+
+// Dynamic shared memory one launch needs, for the wrappers' size check.
 extern "C" long long flash_decode_smem_bytes(int G, int D, int Dv, int R) {
   DecodeArgs a{};
   a.G = G;

@@ -1,18 +1,26 @@
-"""Single-token decode against a contiguous KV cache: the Hopper CUDA kernel
-(``csrc/flash_decode.cu``) and its plain PyTorch version.
+"""Single-token decode against a contiguous or a paged KV cache: the Hopper
+CUDA kernel (``csrc/flash_decode.cu``) and its plain PyTorch versions.
 
-Port of ``repro.kernels.flash_decode.flash_decode_fwd`` (the contiguous
-kernel; the paged one is still to be ported). Layout is the kernel's
-grouped head-major one: q ``(B, KVH, G, D)`` (the G q-heads of a kv head are
-its rows), caches ``(B, KVH, S, D|Dv)``, ``lengths (B,)`` int32,
-``phi_q (B, KVH, G, R)``, ``phi_k (B, KVH, S, R)``, ``slopes (KVH, G)``.
-Row ``b`` attends to cache rows ``0 .. lengths[b]-1``; the query sits at
-position ``lengths[b]-1``. Output ``(B, KVH, G, Dv)`` in q's dtype; rows
-with length 0 output 0.
+Port of ``repro.kernels.flash_decode.flash_decode_fwd`` and
+``flash_decode_paged_fwd``. Layout is the kernel's grouped head-major one:
+q ``(B, KVH, G, D)`` (the G q-heads of a kv head are its rows),
+``lengths (B,)`` int32, ``phi_q (B, KVH, G, R)`` float32, ``slopes
+(KVH, G)``. Row ``b`` attends to its cache rows ``0 .. lengths[b]-1``; the
+query sits at position ``lengths[b]-1``. Output ``(B, KVH, G, Dv)`` in q's
+dtype; rows with length 0 output 0.
 
-``flash_decode_fwd`` is the wrapper: on a CUDA tensor it launches the
-kernel (or raises); on a CPU tensor it runs ``flash_decode_torch``.
-``flash_decode_fwd.launches`` counts kernel launches.
+- Contiguous: caches ``(B, KVH, S, D|Dv)``, ``phi_k (B, KVH, S, R)``.
+- Paged: pools ``(KVH, n_pages, ps, D|Dv)`` shared by every row,
+  ``page_table (B, P)`` int32, factor slab ``phi_pages (1|KVH, n_pages,
+  ps, R)`` float32 (a leading 1 is one slab for every kv head). Row ``b``'s
+  logical key ``j`` lives on page ``page_table[b, min(j // ps, last)]``
+  (``last = max(len-1, 0) // ps``) clipped into ``[0, n_pages)``, at offset
+  ``j % ps``, exactly as the TPU kernel's index maps resolve it: stale or
+  sentinel table entries can never fault.
+
+``flash_decode_fwd`` and ``flash_decode_paged_fwd`` are the wrappers: on a
+CUDA tensor they launch the kernel (or raise); on a CPU tensor they run the
+plain version. Their ``.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ import torch
 from repro_torch.core.attention import DEFAULT_MASK_VALUE
 from repro_torch.kernels import build
 
-__all__ = ["flash_decode_torch", "flash_decode_fwd", "MAX_GROUP"]
+__all__ = ["flash_decode_torch", "flash_decode_fwd",
+           "flash_decode_paged_torch", "flash_decode_paged_fwd", "MAX_GROUP"]
 
 MAX_GROUP = 8                 # q heads per kv head the kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,19 +67,103 @@ def flash_decode_torch(
     return o.to(q.dtype)
 
 
+def flash_decode_paged_torch(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    lengths: torch.Tensor, page_table: torch.Tensor,
+    phi_q: Optional[torch.Tensor] = None,
+    phi_pages: Optional[torch.Tensor] = None,
+    slopes: Optional[torch.Tensor] = None,
+    *, scale: float, max_pages: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain version of the paged kernel: gather each row's logical view of
+    the pool, capped at ``max_pages`` pages (default: the table's width),
+    page ids resolved and clipped as the kernel does, then the contiguous
+    plain version."""
+    b, kvh = q.shape[:2]
+    n_pages, ps = k_pages.shape[1], k_pages.shape[2]
+    width = page_table.shape[1]
+    cap = width if max_pages is None else max(1, min(int(max_pages), width))
+    lengths = lengths.to(q.device)
+    last = (lengths.long() - 1).clamp(min=0) // ps                   # (B,)
+    blocks = torch.minimum(torch.arange(cap, device=q.device)[None],
+                           last[:, None])                            # (B, cap)
+    pages = page_table.to(q.device).long().gather(1, blocks)
+    pages = pages.clamp(0, n_pages - 1)
+
+    def view(pool):           # (H', n_pages, ps, E) -> (B, H', cap*ps, E)
+        rows = pool[:, pages].transpose(0, 1)
+        return rows.reshape(b, pool.shape[0], cap * ps, pool.shape[-1])
+
+    phi_k = None
+    if phi_q is not None:
+        phi_k = view(phi_pages).expand(b, kvh, cap * ps, phi_pages.shape[-1])
+    return flash_decode_torch(q, view(k_pages), view(v_pages), lengths,
+                              phi_q, phi_k, slopes, scale=scale)
+
+
 @functools.cache
 def _kernel():
     """The launch and shared-memory functions of the built library,
     bound once (building it on first use)."""
     lib = build.load("flash_decode")
-    fn = lib.flash_decode_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    contiguous = lib.flash_decode_fwd
+    contiguous.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                           + [ctypes.c_float, ctypes.c_void_p])
+    contiguous.restype = ctypes.c_int
+    paged = lib.flash_decode_paged_fwd
+    paged.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+                      + [ctypes.c_float, ctypes.c_void_p])
+    paged.restype = ctypes.c_int
     smem = lib.flash_decode_smem_bytes
     smem.argtypes = [ctypes.c_int] * 4
     smem.restype = ctypes.c_longlong
-    return fn, smem
+    return contiguous, paged, smem
+
+
+def _check(name: str, q, k, v, lengths, phi_q, phi_k, slopes, extra=()):
+    """Checks both wrappers share; returns (phi_q, phi_k, slopes, r) with
+    the float32 contiguous copies the kernel reads."""
+    b, kvh, g, d = q.shape
+    dv = v.shape[-1]
+    if not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"group {g}: the kernel takes 1..{MAX_GROUP} q "
+                         f"heads per kv head")
+    if not 1 <= d <= 256 or not 1 <= dv <= 256:
+        raise ValueError(f"head dims {d}/{dv}: the kernel takes 1..256")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}: "
+                         f"float32 or bfloat16, all alike")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be ({b},) int32, got "
+                         f"{tuple(lengths.shape)} {lengths.dtype}")
+    r = 0
+    if phi_q is not None:
+        if phi_k is None or slopes is not None:
+            raise ValueError("phi mode takes phi_q and phi_k, no slopes")
+        r = phi_q.shape[-1]
+        if phi_q.shape != (b, kvh, g, r) or phi_k.shape[-1] != r:
+            raise ValueError(f"phi shapes {tuple(phi_q.shape)} / "
+                             f"{tuple(phi_k.shape)}; want (B,KVH,G,R) "
+                             f"and rank R key factors")
+        phi_q = phi_q.float().contiguous()
+        phi_k = phi_k.float().contiguous()
+    if slopes is not None:
+        if slopes.shape != (kvh, g):
+            raise ValueError(f"slopes shape {tuple(slopes.shape)} != "
+                             f"({kvh}, {g})")
+        slopes = slopes.float().contiguous()
+    tensors = [t for t in (q, k, v, lengths, phi_q, phi_k, slopes, *extra)
+               if t is not None]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: inputs on several devices")
+    if not all(t.is_contiguous() for t in (q, k, v, lengths, *extra)):
+        raise ValueError(f"{name} takes contiguous q, caches, lengths and "
+                         f"page table")
+    return phi_q, phi_k, slopes, r
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def flash_decode_fwd(
@@ -95,53 +188,21 @@ def flash_decode_fwd(
         raise ValueError(f"cache shapes {tuple(k_cache.shape)} / "
                          f"{tuple(v_cache.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if not 1 <= g <= MAX_GROUP:
-        raise ValueError(f"group {g}: the kernel takes 1..{MAX_GROUP} q "
-                         f"heads per kv head")
-    if not 1 <= d <= 256 or not 1 <= dv <= 256:
-        raise ValueError(f"head dims {d}/{dv}: the kernel takes 1..256")
-    if (q.dtype not in _DTYPES or k_cache.dtype != q.dtype
-            or v_cache.dtype != q.dtype):
-        raise ValueError(f"dtypes q {q.dtype}, k {k_cache.dtype}, v "
-                         f"{v_cache.dtype}: float32 or bfloat16, all alike")
-    if lengths.shape != (b,) or lengths.dtype != torch.int32:
-        raise ValueError(f"lengths must be ({b},) int32, got "
-                         f"{tuple(lengths.shape)} {lengths.dtype}")
-    r = 0
-    if phi_q is not None:
-        if phi_k is None or slopes is not None:
-            raise ValueError("phi mode takes phi_q and phi_k, no slopes")
-        r = phi_q.shape[-1]
-        if phi_q.shape != (b, kvh, g, r) or phi_k.shape != (b, kvh, s_len, r):
-            raise ValueError(f"phi shapes {tuple(phi_q.shape)} / "
-                             f"{tuple(phi_k.shape)}; want (B,KVH,G,R)/"
-                             f"(B,KVH,S,R)")
-        phi_q = phi_q.float().contiguous()
-        phi_k = phi_k.float().contiguous()
-    if slopes is not None:
-        if slopes.shape != (kvh, g):
-            raise ValueError(f"slopes shape {tuple(slopes.shape)} != "
-                             f"({kvh}, {g})")
-        slopes = slopes.float().contiguous()
-    tensors = [t for t in (q, k_cache, v_cache, lengths, phi_q, phi_k, slopes)
-               if t is not None]
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("flash_decode_fwd: inputs on several devices")
-    if not all(t.is_contiguous() for t in (q, k_cache, v_cache, lengths)):
-        raise ValueError("flash_decode_fwd takes contiguous q, caches and "
-                         "lengths")
-    fn, smem = _kernel()
+    if phi_k is not None and phi_k.shape[:3] != (b, kvh, s_len):
+        raise ValueError(f"phi_k shape {tuple(phi_k.shape)}; want "
+                         f"(B,KVH,S,R)")
+    phi_q, phi_k, slopes, r = _check("flash_decode_fwd", q, k_cache, v_cache,
+                                     lengths, phi_q, phi_k, slopes)
+    fn, _, smem = _kernel()
     if smem(g, d, dv, r) > _SMEM_LIMIT:
         raise ValueError(f"group {g}, head dims {d}/{dv}, rank {r} exceed "
                          f"the kernel's shared memory")
     out = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), None if phi_q is None else phi_q.data_ptr(),
-             None if phi_k is None else phi_k.data_ptr(),
-             None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], b, kvh, g, s_len, d, dv, r, float(scale),
-             stream)
+             lengths.data_ptr(), _ptr(phi_q), _ptr(phi_k), _ptr(slopes),
+             out.data_ptr(), _DTYPES[q.dtype], b, kvh, g, s_len, d, dv, r,
+             float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode.cu launch failed: CUDA error {err}")
     flash_decode_fwd.launches += 1
@@ -149,3 +210,63 @@ def flash_decode_fwd(
 
 
 flash_decode_fwd.launches = 0
+
+
+def flash_decode_paged_fwd(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    lengths: torch.Tensor, page_table: torch.Tensor,
+    phi_q: Optional[torch.Tensor] = None,
+    phi_pages: Optional[torch.Tensor] = None,
+    slopes: Optional[torch.Tensor] = None,
+    *, scale: float,
+) -> torch.Tensor:
+    """Kernel wrapper: launches the paged entry of ``flash_decode.cu`` on
+    CUDA tensors, runs the plain version on CPU tensors. The kernel reads
+    only rows below ``lengths[b]``, so it needs no page cap."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_torch(q, k_pages, v_pages, lengths,
+                                        page_table, phi_q, phi_pages, slopes,
+                                        scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_paged_fwd: no kernel for device "
+                         f"{q.device}")
+    b, kvh, g, d = q.shape
+    n_pages, ps, dv = k_pages.shape[1], k_pages.shape[2], v_pages.shape[-1]
+    if (k_pages.shape != (kvh, n_pages, ps, d)
+            or v_pages.shape[:3] != (kvh, n_pages, ps)):
+        raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}; want (KVH, n_pages, ps, D)")
+    if (page_table.dim() != 2 or page_table.shape[0] != b
+            or page_table.shape[1] < 1 or page_table.dtype != torch.int32):
+        raise ValueError(f"page_table must be ({b}, P) int32, got "
+                         f"{tuple(page_table.shape)} {page_table.dtype}")
+    phi_heads = 0
+    if phi_pages is not None:
+        phi_heads = phi_pages.shape[0]
+        if phi_pages.dim() != 4 or phi_heads not in (1, kvh) or \
+                phi_pages.shape[1:3] != (n_pages, ps):
+            raise ValueError(f"phi slab shape {tuple(phi_pages.shape)}; "
+                             f"want (1|KVH, n_pages, ps, R)")
+    phi_q, phi_pages, slopes, r = _check(
+        "flash_decode_paged_fwd", q, k_pages, v_pages, lengths, phi_q,
+        phi_pages, slopes, extra=(page_table,))
+    _, fn, smem = _kernel()
+    if smem(g, d, dv, r) > _SMEM_LIMIT:
+        raise ValueError(f"group {g}, head dims {d}/{dv}, rank {r} exceed "
+                         f"the kernel's shared memory")
+    out = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             lengths.data_ptr(), page_table.data_ptr(), _ptr(phi_q),
+             _ptr(phi_pages), _ptr(slopes), out.data_ptr(), _DTYPES[q.dtype],
+             b, kvh, g, page_table.shape[1], n_pages, ps, d, dv, r,
+             phi_heads, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode.cu paged launch failed: CUDA error "
+                           f"{err}")
+    flash_decode_paged_fwd.launches += 1
+    return out
+
+
+flash_decode_paged_fwd.launches = 0

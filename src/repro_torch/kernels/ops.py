@@ -11,9 +11,11 @@ Port of ``repro.kernels.ops``. Implementations:
 - ``"auto"``: ``"cuda"`` for a CUDA tensor, ``"torch"`` for a CPU tensor.
 
 Cache layout contract (the decode hot path): caches are stored kv-head-major
-``(B, KVH, S, hd)`` per layer (``kv_layout="bhsd"``) and handed to the
-kernel zero-copy. The port stores ``hd`` unpadded: the 128-lane pads of the
-reference are TPU tile constraints.
+per layer (the reference's ``kv_layout="bhsd"``) — contiguous ``(B, KVH, S,
+hd)``, paged pools ``(KVH, n_pages, ps, hd)`` with a ``(n_pages, ps, R)``
+float32 factor slab — and handed to the kernels zero-copy. The port stores
+``hd`` and ``R`` unpadded: the 128-lane pads of the reference are TPU tile
+constraints.
 
 ``flash_attention`` is differentiable: a ``torch.autograd.Function`` whose
 backward recomputes the forward through the plain path and differentiates
@@ -27,7 +29,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.flash_decode import flash_decode_fwd, flash_decode_torch
+from repro_torch.kernels.flash_decode import (
+    flash_decode_fwd,
+    flash_decode_paged_fwd,
+    flash_decode_paged_torch,
+    flash_decode_torch,
+)
 from repro_torch.kernels.flashbias_attn import (
     flashbias_attention_fwd,
     flashbias_attention_torch,
@@ -123,33 +130,75 @@ def flash_attention(
     return o.transpose(1, 2) if layout == "bshd" else o
 
 
+def _static_page_cap(lengths: torch.Tensor, ps: int, width: int,
+                     max_pages: Optional[int]) -> int:
+    """Bound on the pages any row references this step, for the plain
+    path's gather: an explicit ``max_pages`` (the serve engine derives one
+    from its host-side length mirror), else ``ceil(max(lengths)/ps)`` when
+    the lengths lie on the CPU, else the table's full width — never a read
+    back from the card."""
+    if max_pages is not None:
+        return max(1, min(int(max_pages), width))
+    if lengths.device.type != "cpu":
+        return width
+    longest = int(lengths.max()) if lengths.numel() else 0
+    return max(1, min(-(-longest // ps), width))
+
+
 def flash_decode(
     q: torch.Tensor,                        # (B, 1, H, D)
-    k_cache: torch.Tensor,                  # (B, KVH, S, D)
-    v_cache: torch.Tensor,                  # (B, KVH, S, Dv)
+    k_cache: torch.Tensor,                  # (B, KVH, S, D) | (KVH, n_pages, ps, D)
+    v_cache: torch.Tensor,                  # (B, KVH, S, Dv) | (KVH, n_pages, ps, Dv)
     lengths: torch.Tensor,                  # (B,) int
-    phi_q: Optional[torch.Tensor] = None,   # (B, 1, H, R)
-    phi_k: Optional[torch.Tensor] = None,   # (B, KVH, S, R)
+    phi_q: Optional[torch.Tensor] = None,   # (B, 1, H|KVH, R)
+    phi_k: Optional[torch.Tensor] = None,   # (B, KVH, S, R) | paged slab
     slopes: Optional[torch.Tensor] = None,  # (H,)
     *,
     scale: Optional[float] = None,
     impl: str = "auto",
+    page_table: Optional[torch.Tensor] = None,   # (B, P) int32 -> paged
+    max_pages: Optional[int] = None,
 ) -> torch.Tensor:
-    """Single-token decode against a contiguous kernel-layout cache (the
-    reference's ``kv_layout="bhsd"``; paged caches are not ported yet).
-    Returns ``(B, 1, H, Dv)``. The query of row ``b`` sits at position
-    ``lengths[b]-1``; rows with length 0 output 0."""
+    """Single-token decode against a kernel-layout cache (the reference's
+    ``kv_layout="bhsd"``). Returns ``(B, 1, H, Dv)``. The query of row ``b``
+    sits at position ``lengths[b]-1``; rows with length 0 output 0.
+
+    With ``page_table`` the caches are a shared page pool ``(KVH, n_pages,
+    ps, *)``: ``page_table[b, j]`` maps row b's logical block j to its
+    physical page, and entries past the mapped prefix may hold anything
+    (they are clamped and length-masked). ``phi_k`` is then the factor slab
+    ``(n_pages, ps, R)`` shared by every kv head, or ``(1|KVH, n_pages, ps,
+    R)``. The plain path gathers each row's logical view, capped at
+    ``max_pages`` pages (see ``_static_page_cap``); the kernel reads only
+    live rows and needs no cap."""
     b, _, h, d = q.shape
-    kvh = k_cache.shape[1]
+    kvh = k_cache.shape[0] if page_table is not None else k_cache.shape[1]
     if h % kvh:
         raise ValueError(f"{h} heads do not group over {kvh} kv heads")
     g = h // kvh
     scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
     impl = resolve_impl(impl, q.device)
     qg = q[:, 0].reshape(b, kvh, g, d).contiguous()
-    pq = None if phi_q is None else phi_q[:, 0].reshape(b, kvh, g, -1)
+    pq = None
+    if phi_q is not None:
+        if phi_q.shape[2] == kvh and kvh != h:   # shared within each group
+            phi_q = phi_q.repeat_interleave(g, dim=2)
+        pq = phi_q[:, 0].reshape(b, kvh, g, -1)
     sl = None if slopes is None else slopes.reshape(kvh, g)
     lengths = lengths.to(torch.int32).contiguous()
-    fn = flash_decode_torch if impl == "torch" else flash_decode_fwd
-    o = fn(qg, k_cache, v_cache, lengths, pq, phi_k, sl, scale=scale)
+    if page_table is None:
+        fn = flash_decode_torch if impl == "torch" else flash_decode_fwd
+        o = fn(qg, k_cache, v_cache, lengths, pq, phi_k, sl, scale=scale)
+        return o.reshape(b, 1, h, v_cache.shape[-1])
+    if phi_k is not None and phi_k.dim() == 3:   # shared slab, no copy
+        phi_k = phi_k[None]
+    pt = page_table.to(torch.int32).contiguous()
+    if impl == "torch":
+        cap = _static_page_cap(lengths, k_cache.shape[2], pt.shape[1],
+                               max_pages)
+        o = flash_decode_paged_torch(qg, k_cache, v_cache, lengths, pt, pq,
+                                     phi_k, sl, scale=scale, max_pages=cap)
+    else:
+        o = flash_decode_paged_fwd(qg, k_cache, v_cache, lengths, pt, pq,
+                                   phi_k, sl, scale=scale)
     return o.reshape(b, 1, h, v_cache.shape[-1])

@@ -4,7 +4,9 @@ Drives the continuous-batching engine against synthetic traffic: ragged
 prompt lengths, staggered arrivals (half the requests queue up front, the
 rest join one per engine step while earlier ones decode), and per-request
 sampling — the traffic of ``repro.launch.serve``. Runs on the CUDA device
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given. ``--page-size N`` serves from a shared
+page pool (lazy growth and preemption by default; ``--pool-pages`` sizes
+the pool, small enough to watch it preempt).
 """
 from __future__ import annotations
 
@@ -50,7 +52,20 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="> 0: paged KV — shared page pool + page tables "
+                         "instead of per-slot max_len segments")
+    ap.add_argument("--page-reservation", choices=("lazy", "whole"),
+                    default="lazy",
+                    help="lazy: reserve prompt pages, grow on demand, "
+                         "preempt on pool exhaustion; whole: reserve the "
+                         "full footprint at admission")
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="> 0: override the page-pool size (undersize it "
+                         "to watch lazy growth preempt under pressure)")
     args = ap.parse_args(argv)
+    if args.pool_pages and not args.page_size:
+        ap.error("--pool-pages requires --page-size (paged KV)")
 
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -58,8 +73,17 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)
     max_len = args.prompt_len + args.new_tokens + 8
+    kw = {}
+    if args.page_size:
+        # every request fits max_len by construction: cap the page table at
+        # one segment's footprint
+        kw = {"page_size": args.page_size,
+              "pages_per_slot": -(-max_len // args.page_size),
+              "page_reservation": args.page_reservation}
+        if args.pool_pages:
+            kw["n_pages"] = args.pool_pages
     engine = ServeEngine(model, params, max_len=max_len, n_slots=args.slots,
-                         prefill_len=args.prompt_len, device=device)
+                         prefill_len=args.prompt_len, device=device, **kw)
     del params                       # the engine holds its compute copy
 
     rng = np.random.default_rng(args.seed)
@@ -79,6 +103,11 @@ def main(argv=None):
     counts = engine.status_counts()
     line = ", ".join(f"{k}={v}" for k, v in sorted(counts.items()))
     print(f"[serve] lifecycle: {line}; {engine.n_quarantines} quarantines")
+    stats = engine.page_stats()
+    if stats:
+        print(f"[serve] pages: {stats['watermark']}/{stats['n_pages']} peak "
+              f"({args.page_reservation}), {stats['grown']} grown "
+              f"mid-flight, {stats['preemptions']} preemptions")
     print("first request:", engine.result(rids[0])[:16])
     return [engine.result(r) for r in rids]
 

@@ -5,14 +5,22 @@
 
 - ``template()``                           — PDef tree (shapes + init laws),
 - ``prefill(params, batch, max_len, lengths)`` — prompts -> (logits, cache),
-- ``decode(params, cache, tokens)``        — one token -> (logits, cache),
+- ``decode(params, cache, tokens, max_pages)`` — one token -> (logits,
+  cache), against a contiguous or a paged cache,
 - ``init_cache(batch, max_len, device)``   — zeroed kernel-layout cache,
 - ``insert_cache(dst, src, slots)``        — copy prefilled wave rows into
-  serve slots (out-of-range slot ids are dropped).
+  serve slots (out-of-range slot ids are dropped),
+- ``init_paged_cache(batch, n_pages, page_size, pages_per_slot, device)``
+  — zeroed page pools, factor slab and page tables,
+- ``insert_paged(dst, src, slots, tables)`` — scatter a prefilled wave's
+  pages into the pool and its table rows into the slots,
+- ``grow_page_table(dst, slots, tables)``  — rewrite the table rows of
+  slots that grew a page.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
@@ -29,6 +37,9 @@ class Model:
     decode: Callable
     init_cache: Callable
     insert_cache: Callable
+    init_paged_cache: Callable
+    insert_paged: Callable
+    grow_page_table: Callable
 
 
 def get_model(cfg: ArchConfig) -> Model:
@@ -41,8 +52,12 @@ def get_model(cfg: ArchConfig) -> Model:
         template=lambda: lm.lm_template(cfg),
         prefill=lambda p, batch, max_len=None, lengths=None: lm.prefill(
             p, batch, cfg, max_len=max_len, lengths=lengths),
-        decode=lambda p, cache, tokens: lm.decode_step(p, cache, tokens, cfg),
+        decode=lambda p, cache, tokens, max_pages=None: lm.decode_step(
+            p, cache, tokens, cfg, max_pages=max_pages),
         init_cache=lambda b, max_len, device="cuda", length=0: lm.init_cache(
             cfg, b, max_len, device=device, length=length),
         insert_cache=lm.insert_cache_at_slots,
+        init_paged_cache=functools.partial(lm.init_paged_cache, cfg),
+        insert_paged=lm.insert_paged_cache_at_slots,
+        grow_page_table=lm.grow_page_tables_at_slots,
     )

@@ -3,10 +3,19 @@
 preemption snapshots) versus what the engine core owns (requests,
 scheduling, slots, lifecycle).
 
-Port of ``repro.serve.backend.TokenDecodeBackend``, contiguous KV mode:
-each slot owns a ``max_len`` segment of a kernel-layout cache
-``(L, n_slots, KVH, max_len, hd)``. Paged KV, chunked prefill, prefix
-caching and mesh sharding wait for later slices.
+Port of ``repro.serve.backend.TokenDecodeBackend``, in two KV modes:
+
+- contiguous: each slot owns a ``max_len`` segment of a kernel-layout
+  cache ``(L, n_slots, KVH, max_len, hd)``;
+- paged (``page_size``): every slot draws pages from one shared pool
+  (``serve/pages.py`` on the host, ``lm.init_paged_cache`` on the device).
+  Admission reserves a prompt's pages (``"lazy"``, the default) or its
+  whole footprint (``"whole"``); the engine grows a slot by a page as its
+  length crosses a page boundary and preempts when the pool is dry. The
+  ``max_len`` bound on prompt + budget does not apply: the page table and
+  the pool bound a request instead.
+
+Chunked prefill, prefix caching and mesh sharding wait for later slices.
 """
 from __future__ import annotations
 
@@ -18,7 +27,8 @@ import torch
 from repro_torch.models.api import Model
 from repro_torch.models.common import tree_map
 from repro_torch.models.lm import cast_layers
-from repro_torch.serve.lifecycle import AdmissionRejected
+from repro_torch.serve.lifecycle import AdmissionRejected, PoolError
+from repro_torch.serve.pages import PagePool
 from repro_torch.serve.sampling import sample_tokens, sample_tokens_guarded
 from repro_torch.serve.scheduler import Request
 
@@ -26,7 +36,8 @@ __all__ = ["TokenDecodeBackend"]
 
 
 class TokenDecodeBackend:
-    """Autoregressive LM decode over a contiguous slot cache.
+    """Autoregressive LM decode over a contiguous slot cache or a shared
+    page pool (``page_size``; see the module docstring).
 
     Admission waves are right-padded to ``max(prefill_len, longest)``
     columns and batch-padded to ``n_slots`` rows (padding rows are dropped
@@ -45,7 +56,14 @@ class TokenDecodeBackend:
 
     def __init__(self, model: Model, params: dict, max_len: int,
                  n_slots: int, prefill_len: Optional[int] = None,
+                 page_size: Optional[int] = None,
+                 n_pages: Optional[int] = None,
+                 pages_per_slot: Optional[int] = None,
+                 page_reservation: str = "lazy",
                  device="cuda"):
+        if page_reservation not in ("lazy", "whole"):
+            raise ValueError(f"page_reservation must be 'lazy' or "
+                             f"'whole', got {page_reservation!r}")
         self.model = model
         self.device = torch.device(device)
         self.params = cast_layers(
@@ -54,6 +72,15 @@ class TokenDecodeBackend:
         self.prefill_len = prefill_len
         self._vocab = model.cfg.vocab
         self._guard_bad: Dict[int, str] = {}
+        self.paged = page_size is not None
+        self.lazy = self.paged and page_reservation == "lazy"
+        if self.paged:
+            self.page_size = page_size
+            self.n_pages = n_pages or n_slots * (-(-max_len // page_size))
+            self.pages_per_slot = min(pages_per_slot or self.n_pages,
+                                      self.n_pages)
+            self._pool = PagePool(self.n_pages, page_size)
+            self._slot_pages: Dict[int, List[int]] = {}
         self._cache = None                        # allocated on first use
         self.n_waves = 0                          # prefill waves run
         self.n_steps = 0                          # decode steps run
@@ -64,8 +91,13 @@ class TokenDecodeBackend:
         if self._cache is not None:
             return
         ns = self.n_slots
-        self._cache = self.model.init_cache(ns, self.max_len,
-                                            device=self.device)
+        if self.paged:
+            self._cache = self.model.init_paged_cache(
+                ns, self.n_pages, self.page_size, self.pages_per_slot,
+                device=self.device)
+        else:
+            self._cache = self.model.init_cache(ns, self.max_len,
+                                                device=self.device)
         self._temps = np.zeros((ns,), np.float32)
         self._topks = np.zeros((ns,), np.int64)
         self._seeds = np.zeros((ns,), np.int64)
@@ -83,11 +115,85 @@ class TokenDecodeBackend:
             raise AdmissionRejected(
                 f"prompt of {req.tokens.size} tokens exceeds the pinned "
                 f"prefill_len={self.prefill_len}")
-        if req.prompt_len + req.max_new_tokens > self.max_len:
+        if self.paged:
+            # the page-table row and the pool bound the request: a
+            # footprint the pool can never cover would preempt everything
+            # and still deadlock
+            needed = self._pages_needed(req)
+            cap = min(self.pages_per_slot, self.n_pages)
+            if needed > cap:
+                raise AdmissionRejected(
+                    f"paged mode: request footprint {needed} pages "
+                    f"(ceil((prompt {req.prompt_len} + budget "
+                    f"{req.max_new_tokens} - 1) / page_size "
+                    f"{self.page_size})) exceeds {cap} (page-table row "
+                    f"width {self.pages_per_slot}, pool {self.n_pages} "
+                    f"pages)")
+        elif req.prompt_len + req.max_new_tokens > self.max_len:
             raise AdmissionRejected(
                 f"contiguous mode: prompt {req.prompt_len} + budget "
                 f"{req.max_new_tokens} exceeds the per-slot segment "
-                f"max_len={self.max_len}")
+                f"max_len={self.max_len} (paged mode lifts this bound: "
+                f"pass page_size)")
+
+    # -- paged accounting -----------------------------------------------
+
+    def _pages_needed(self, req: Request) -> int:
+        """Pages a request can ever touch: its final cache length is
+        ``prompt + budget - 1`` (the last sampled token is never fed
+        back)."""
+        return self._pool.pages_needed(req.prompt_len + req.max_new_tokens
+                                       - 1)
+
+    def admission_units(self, req: Request) -> int:
+        """Pages reserved at admission: the prompt's under lazy growth, the
+        whole footprint under ``"whole"``."""
+        return (self._pool.pages_needed(req.prompt_len) if self.lazy
+                else self._pages_needed(req))
+
+    def units_free(self) -> int:
+        """Pages admission and growth can draw on."""
+        return self._pool.n_free
+
+    def page_cap(self, live) -> Optional[int]:
+        """Page bound for this decode step: the pages of the longest live
+        length (+1 for the position being written), rounded up to a power
+        of two, from the host mirror. None for unpaged engines."""
+        if not self.paged:
+            return None
+        longest = max((st.length for st in live.values()), default=0)
+        need = max(1, -(-(longest + 1) // self.page_size))
+        cap = 1
+        while cap < need:
+            cap *= 2
+        return min(cap, self.pages_per_slot)
+
+    def growth_pending(self, live) -> List[int]:
+        """Live slots whose next write position lies past their pages."""
+        ps = self.page_size
+        return [s for s, st in live.items()
+                if st.length // ps >= len(self._slot_pages[s])]
+
+    def grow_slots(self, growing: List[int]) -> None:
+        """Give every growing slot its next page and write the new table
+        rows. Atomic: every check and the allocation happen before any
+        table changes, so a ``PoolExhausted`` leaves ``_slot_pages`` and
+        the device tables as they were."""
+        for slot in growing:
+            if len(self._slot_pages[slot]) + 1 > self.pages_per_slot:
+                raise PoolError(
+                    f"slot {slot} page table full "
+                    f"({self.pages_per_slot} rows) — admission validation "
+                    f"should have rejected this footprint")
+        grown = self._pool.grow(len(growing))   # all-or-nothing
+        tables = np.full((len(growing), self.pages_per_slot), self.n_pages,
+                         np.int64)
+        for i, (slot, page) in enumerate(zip(growing, grown)):
+            pages = self._slot_pages[slot]
+            pages.append(page)
+            tables[i, :len(pages)] = pages
+        self._cache = self.model.grow_page_table(self._cache, growing,
+                                                 tables)
 
     # -- admit / step ----------------------------------------------------
 
@@ -103,15 +209,30 @@ class TokenDecodeBackend:
         for i, r in enumerate(wave):
             toks[i, :r.tokens.size] = r.tokens
             lengths[i] = r.prompt_len
+        # paged: the wave cache holds the padded prompt, page-aligned, not
+        # a max_len segment; its pages scatter into the pool
+        pf_len = (-(-padded // self.page_size) * self.page_size
+                  if self.paged else None)
         with torch.no_grad():
             logits, wave_cache = self.model.prefill(
                 self.params, {"tokens": torch.as_tensor(toks,
                                                         device=self.device)},
+                max_len=pf_len,
                 lengths=torch.as_tensor(lengths, device=self.device))
             slot_ids = np.full((ns,), ns, np.int64)   # padding rows dropped
             slot_ids[:w] = slots
-            self._cache = self.model.insert_cache(self._cache, wave_cache,
-                                                  slot_ids)
+            if self.paged:
+                tables = np.full((ns, self.pages_per_slot), self.n_pages,
+                                 np.int64)
+                for i, (slot, r) in enumerate(zip(slots, wave)):
+                    pages = self._pool.alloc(self.admission_units(r))
+                    self._slot_pages[slot] = pages
+                    tables[i, :len(pages)] = pages
+                self._cache = self.model.insert_paged(
+                    self._cache, wave_cache, slot_ids, tables)
+            else:
+                self._cache = self.model.insert_cache(self._cache,
+                                                      wave_cache, slot_ids)
             del wave_cache
             # first token: scatter wave-row logits into slot rows, sample
             lg = torch.zeros((ns, logits.shape[-1]), dtype=logits.dtype,
@@ -133,8 +254,9 @@ class TokenDecodeBackend:
     def step(self, live):
         """One decode step over the full slot batch."""
         with torch.no_grad():
-            logits, self._cache = self.model.decode(self.params, self._cache,
-                                                    self._last_tok)
+            logits, self._cache = self.model.decode(
+                self.params, self._cache, self._last_tok,
+                max_pages=self.page_cap(live))
         self.n_steps += 1
         mask = np.zeros((self.n_slots,), bool)
         for s, st in live.items():
@@ -181,8 +303,10 @@ class TokenDecodeBackend:
 
     def release(self, slot: int) -> None:
         """Free a finished slot: zero its cache length so the decode step's
-        active mask freezes the lane."""
+        active mask freezes the lane, and return its pages."""
         self._cache["length"][slot] = 0
+        if self.paged:
+            self._pool.free(self._slot_pages.pop(slot))
 
     def snapshot_request(self, slot: int, st, emitted) -> Request:
         """The resumable request, without freezing anything: generated-so-
@@ -204,6 +328,15 @@ class TokenDecodeBackend:
         self.release(slot)
         return resumed
 
+    def page_stats(self) -> dict:
+        """Pool accounting (empty for unpaged backends)."""
+        if not self.paged:
+            return {}
+        return {"n_pages": self.n_pages, "n_free": self._pool.n_free,
+                "watermark": self._pool.watermark,
+                "grown": self._pool.n_grown}
+
     def stats(self) -> dict:
-        return {"prefill_waves": self.n_waves, "decode_steps": self.n_steps}
+        return {"prefill_waves": self.n_waves, "decode_steps": self.n_steps,
+                **self.page_stats()}
 

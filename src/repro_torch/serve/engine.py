@@ -25,6 +25,14 @@ faulting slot through the preemption-snapshot machinery: its emission is
 withheld and the request retries bit-identically up to ``max_retries``
 before terminating FAILED.
 
+Paged KV (``page_size``): slots draw pages from one shared pool. Admission
+waits while the pool cannot cover the head request's reservation (no
+head-of-line bypass); before each decode step every slot whose length
+crossed a page boundary grows by a page, and while the pool is dry the
+lowest-priority live request (lowest class, then latest arrival) is
+preempted — its snapshot re-enters at the head of the queue and resumes
+bit-identically.
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device, constructing the engine with no
 ``device`` raises.
@@ -42,8 +50,8 @@ from repro_torch.models.api import Model
 from repro_torch.serve.backend import TokenDecodeBackend
 from repro_torch.serve.lifecycle import (
     CANCELLED, FAILED, OK, QUEUED, REJECTED, RUNNING, TERMINAL_STATUSES,
-    TIMED_OUT, AdmissionRejected, EngineStalled, RequestNotLive,
-    RequestRecord)
+    TIMED_OUT, AdmissionRejected, EngineStalled, PoolExhausted,
+    RequestNotLive, RequestRecord)
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import FIFOScheduler, Request
 
@@ -105,15 +113,24 @@ class ServeEngine:
         guards: host-side non-finite emission guards (default on).
         stall_limit: ``run()`` raises ``EngineStalled`` after this many
             consecutive steps with work outstanding but no progress.
+        page_size / n_pages / pages_per_slot / page_reservation: paged
+            KV, forwarded to the backend: page size in tokens, pool size
+            (default: ``n_slots`` max_len segments), page-table row width,
+            and ``"lazy"`` (prompt pages at admission, growth on demand,
+            preemption when the pool is dry) or ``"whole"`` (the full
+            footprint at admission; decode never allocates).
         device: where the engine runs; None means the CUDA device.
-        page_size, prefill_chunk, prefix_cache, mesh, faults: later slices
-            of the port; passing any raises ``NotImplementedError``.
+        prefill_chunk, prefix_cache, mesh, faults: later slices of the
+            port; passing any raises ``NotImplementedError``.
     """
 
     def __init__(self, model: Model, params: dict, max_len: int = 1024,
                  eos_id: int = -1, n_slots: int = 4,
                  prefill_len: Optional[int] = None,
                  page_size: Optional[int] = None,
+                 n_pages: Optional[int] = None,
+                 pages_per_slot: Optional[int] = None,
+                 page_reservation: str = "lazy",
                  scheduler_policy: str = "fifo",
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = False,
@@ -122,16 +139,14 @@ class ServeEngine:
                  faults=None,
                  stall_limit: int = 64,
                  device=None):
-        if page_size is not None:
-            raise _deferred("page_size (paged KV)", "5")
         if prefill_chunk is not None:
-            raise _deferred("prefill_chunk (chunked prefill)", "5")
+            raise _deferred("prefill_chunk (chunked prefill)", "12")
         if prefix_cache:
-            raise _deferred("prefix_cache (prefix caching)", "6")
+            raise _deferred("prefix_cache (prefix caching)", "13")
+        if faults is not None:
+            raise _deferred("faults (fault injection)", "14")
         if mesh is not None:
             raise _deferred("mesh (sharded serving)", "11")
-        if faults is not None:
-            raise _deferred("faults (fault injection)", "6")
         if stall_limit < 1:
             raise ValueError(f"stall_limit must be >= 1, got {stall_limit}")
         self.device = resolve_device(device)
@@ -140,13 +155,20 @@ class ServeEngine:
         self.n_slots, self.prefill_len = n_slots, prefill_len
         self.backend = TokenDecodeBackend(
             model, params, max_len=max_len, n_slots=n_slots,
-            prefill_len=prefill_len, device=self.device)
+            prefill_len=prefill_len, page_size=page_size, n_pages=n_pages,
+            pages_per_slot=pages_per_slot,
+            page_reservation=page_reservation, device=self.device)
+        if self.backend.paged:
+            self.page_size = self.backend.page_size
+            self.n_pages = self.backend.n_pages
+            self.pages_per_slot = self.backend.pages_per_slot
         self.guards = guards
         self.backend.guards = guards
         self.stall_limit = stall_limit
         self.step_idx = 0               # engine steps taken
         self.n_preemptions = 0
         self.n_quarantines = 0          # guard trips contained
+        self.n_faults_contained = 0     # pool exhaustions at growth
         self.scheduler = FIFOScheduler(policy=scheduler_policy)
         self._next_rid = 0
         self._results: Dict[int, list] = {}     # rid -> [ids]
@@ -269,6 +291,15 @@ class ServeEngine:
         return {**self.backend.stats(), "preemptions": self.n_preemptions,
                 "quarantines": self.n_quarantines}
 
+    def page_stats(self) -> dict:
+        """Pool accounting snapshot (empty for unpaged engines)."""
+        stats = self.backend.page_stats()
+        if stats:
+            stats.update(preemptions=self.n_preemptions,
+                         quarantines=self.n_quarantines,
+                         faults_contained=self.n_faults_contained)
+        return stats
+
     # ------------------------------------------------------------------
     # Engine steps
     # ------------------------------------------------------------------
@@ -302,6 +333,7 @@ class ServeEngine:
                         f"{len(self._live)} live "
                         f"(slots {sorted(self._live)}), "
                         f"free slots {self._free}, "
+                        f"page stats {self.page_stats() or None}, "
                         f"statuses {self.status_counts()}")
             else:
                 idle = 0
@@ -333,10 +365,13 @@ class ServeEngine:
         return expired
 
     def _take_wave(self) -> List[Request]:
-        """Pop the next admission wave: one request per free slot. A resumed
-        request whose prompt outgrew a pinned ``prefill_len`` rides a SOLO
-        wave, so co-admitted requests keep their pinned padded length."""
+        """Pop the next admission wave: one request per free slot, gated in
+        paged mode on the pool — admit while the head request's reservation
+        fits, with no head-of-line bypass. A resumed request whose prompt
+        outgrew a pinned ``prefill_len`` rides a SOLO wave, so co-admitted
+        requests keep their pinned padded length."""
         wave: List[Request] = []
+        reserved = 0
         while len(wave) < len(self._free):
             r = self.scheduler.peek()
             if r is None:
@@ -345,6 +380,11 @@ class ServeEngine:
                     and r.tokens.size > self.prefill_len)
             if over and wave:
                 break                    # over-length request: next wave
+            if self.backend.paged:
+                needed = self.backend.admission_units(r)
+                if needed > self.backend.units_free() - reserved:
+                    break                # backpressure: wait for frees
+                reserved += needed
             wave.append(self.scheduler.take(1)[0])
             if over:
                 break                    # solo wave for the resumed prompt
@@ -365,8 +405,31 @@ class ServeEngine:
         return self._commit_guarded(emissions, mask)
 
     def decode(self) -> List[int]:
-        """Advance every live slot one token in one backend step."""
+        """Advance every live slot one token in one backend step. Lazy paged
+        mode first grows every slot whose write position crossed a page
+        boundary, preempting the lowest-priority live request while the
+        pool is dry, so the step itself never allocates."""
         self.backend.ensure_state()
+        if self.backend.lazy:
+            # (priority, arrival) is a total order, so the highest-priority
+            # earliest request always progresses: no preemption livelock
+            growing = self.backend.growth_pending(self._live)
+            while growing and self.backend.units_free() < len(growing):
+                victim = self._victim_slot()
+                self._preempt_slot(victim)
+                growing = [s for s in growing if s != victim]
+            if growing:
+                try:
+                    self.backend.grow_slots(growing)
+                except PoolExhausted:
+                    # reached only through an accounting bug: growth is
+                    # atomic, so preempting the growing slots is safe
+                    self.n_faults_contained += 1
+                    for slot in growing:
+                        if slot in self._live:
+                            self._preempt_slot(slot)
+        if not self._live:
+            return []
         emissions, mask = self.backend.step(self._live)
         return self._commit_guarded(emissions, mask)
 
@@ -466,10 +529,10 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def snapshot_engine(self) -> dict:
-        raise _deferred("snapshot_engine (crash-safe checkpoint)", "6")
+        raise _deferred("snapshot_engine (crash-safe checkpoint)", "15")
 
     def restore_engine(self, state: dict) -> None:
-        raise _deferred("restore_engine (crash-safe checkpoint)", "6")
+        raise _deferred("restore_engine (crash-safe checkpoint)", "15")
 
     # ------------------------------------------------------------------
     # Internals

@@ -22,7 +22,12 @@ from repro_torch.core import attention as tattn
 from repro_torch.core import bias as tbias
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_decode import flash_decode_fwd, flash_decode_torch
+from repro_torch.kernels.flash_decode import (
+    flash_decode_fwd,
+    flash_decode_paged_fwd,
+    flash_decode_paged_torch,
+    flash_decode_torch,
+)
 from repro_torch.kernels.flashbias_attn import (
     flashbias_attention_fwd,
     flashbias_attention_torch,
@@ -273,6 +278,45 @@ def test_flash_decode_kernel_matches_plain_on_card(cuda, bias, dtype):
     got = flash_decode_fwd(q, k, v, lens, **kw)
     want = flash_decode_torch(q, k, v, lens, **kw)
     torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * 4
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [16, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", ["alibi", "phi", "phi_kvh", "none"])
+def test_flash_decode_paged_kernel_matches_plain_on_card(cuda, bias, dtype,
+                                                         ps):
+    """Pages in a random permutation, then garbage table entries (ids past
+    the pool and negative ones): the kernel clamps them as the plain
+    version does."""
+    rng = np.random.default_rng(9)
+    b, kvh, g, d = 4, 2, 4, 160
+    lengths = [0, 1, 129, 300]
+    live = -(-max(lengths) // ps)
+    n_pages = b * live + 3
+    q = _t(_rand(rng, b, kvh, g, d)).to(cuda, dtype)
+    kp = _t(_rand(rng, kvh, n_pages, ps, d)).to(cuda, dtype)
+    vp = _t(_rand(rng, kvh, n_pages, ps, d)).to(cuda, dtype)
+    table = rng.permutation(n_pages)[:b * live].reshape(b, live)
+    junk = rng.integers(-2, 2 * n_pages, (b, 4))
+    pt = torch.tensor(np.concatenate([table, junk], 1), dtype=torch.int32,
+                      device=cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = {"scale": d ** -0.5}
+    if bias.startswith("phi"):
+        lead = kvh if bias == "phi_kvh" else 1
+        kw["phi_q"] = _t(_rand(rng, b, kvh, g, R)).to(cuda)
+        kw["phi_pages"] = _t(_rand(rng, lead, n_pages, ps, R)).to(cuda)
+    elif bias == "alibi":
+        kw["slopes"] = tbias.alibi_slopes(kvh * g, device=cuda).reshape(kvh, g)
+    before = flash_decode_paged_fwd.launches
+    got = flash_decode_paged_fwd(q, kp, vp, lens, pt, **kw)
+    want = flash_decode_paged_torch(q, kp, vp, lens, pt, **kw)
+    torch.cuda.synchronize()
+    assert flash_decode_paged_fwd.launches == before + 1
     tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * 4
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
     assert not got[0].any()

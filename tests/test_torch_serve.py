@@ -2,7 +2,8 @@
 engine on the same staggered schedule, and the engine's in-port contracts
 (sampled streams independent of batch packing, lifecycle statuses, cancel,
 deadlines, bit-identical preemption resume, guard quarantine) plus the
-constructor arguments that belong to later slices."""
+constructor arguments that belong to later slices (paged serving is in
+``test_torch_paged.py``)."""
 import jax
 import numpy as np
 import pytest
@@ -212,8 +213,8 @@ def test_guards_off_lets_poison_through(gpt2):
 
 
 @pytest.mark.parametrize("kwarg", [
-    {"page_size": 16}, {"prefill_chunk": 8}, {"prefix_cache": True},
-    {"mesh": object()}, {"faults": object()}])
+    {"page_size": 16, "prefix_cache": True}, {"prefill_chunk": 8},
+    {"prefix_cache": True}, {"mesh": object()}, {"faults": object()}])
 def test_later_slice_arguments_raise(gpt2, kwarg):
     model, params = gpt2
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
