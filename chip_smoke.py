@@ -8,13 +8,15 @@ CUDA toolkit's ``nvcc``; exits non-zero without them. Phases, each printed
 as it runs, any failure ending the run:
 
 1. build    — compile the CUDA sources of ``src/repro_torch/csrc`` (one
-              nvcc per source, started together: ``flashbias_attn.cu``
+              nvcc per source, started together: ``flashbias_attn.cu``,
+              which holds the static and the ragged attention kernels,
               and ``flash_decode.cu``, which holds the contiguous and the
               paged decode kernels) and print ptxas's register /
               shared-memory report;
-2. kernels  — each of the three kernels against its plain PyTorch version
+2. kernels  — each of the four kernels against its plain PyTorch version
               on the card, at the serving paths' shapes and off-path
-              modes, within the stated tolerances;
+              modes, within the stated tolerances (length-0 rows of the
+              ragged kernel exactly 0);
 3. serve    — GPT-2-ALiBi-1.5B at full width (48 layers, d_model 1600,
               bf16, random weights from ``--seed``) through ``ServeEngine``
               on 4 slots x 2048 positions: 8 ragged requests (prompts
@@ -35,7 +37,31 @@ as it runs, any failure ending the run:
               torch.profiler (device busy time, idle share, top kernels);
 6. times    — kernel, plain-version and library device times per call at
               the path shapes (torch.profiler), the least time the card
-              could take (bound), decode step times and end-to-end tokens/s.
+              could take (bound), decode step times and end-to-end tokens/s;
+7. pair     — Pairformer-lite at full width (16 layers, d_single 384,
+              d_pair 128, 4 heads x 96, bf16 compute, random float32
+              weights from ``--seed``) through ``ServeEngine`` on 4 slots x
+              384 residues in SVD mode: 8 complexes (n_res 96-384), 4-8
+              refinement steps each, staggered. Every request must end OK
+              with a finite (n_res, 384) result, the ragged kernel's counter
+              must equal 16 x (admission waves + refinement steps), and the
+              other kernels must not launch;
+8. pair parity — the first wave's admission and 2 steps again with the
+              plain path (impl="torch"): bf16 in SVD mode and in factor-MLP
+              mode (MLPs from ``--seed``, hidden 256), every ragged kernel
+              call held in situ against the plain version on its inputs,
+              and the final single reps' gap at most PAIR_CONTROL_MULT times
+              that of a float64-attention control; float32 in SVD mode
+              within PAIR_TOL_F32; deliberate faults of the attention, each
+              of which the bf16 check must reject; and one complex served
+              alone through a 4-slot engine bit-equal to its batched
+              result. A failed check here fails the run at its end, after
+              phase 9 has measured;
+9. pair times — the ragged kernel, its plain version and the library call
+              per call at the path shape, a refinement step of 4 full slots
+              in the three cache modes (factored SVD, dense_recompute,
+              dense) in alternating rounds, one factored step traced, and
+              the admission wave's time.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -43,7 +69,10 @@ limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -61,7 +90,37 @@ SLOTS, MAX_LEN, PROMPT_MAX, NEW_TOKENS = 4, 2048, 512, 32
 PAGE = 16                        # page size of the paged phases
 LOGIT_TOL = 0.25                 # bf16 logits, 48 layers deep (see phase 5)
 KERNELS = ("flashbias_attention_fwd", "flash_decode_fwd",
-           "flash_decode_paged_fwd")
+           "flash_decode_paged_fwd", "flashbias_attention_ragged_fwd")
+PAIR_LAYERS, PAIR_SLOTS, PAIR_MAX_LEN = 16, 4, 384
+PAIR_STEPS = 2                   # refinement steps of the parity phase
+# Pair parity, bf16. Both paths keep s in bf16 through 16 layers and three
+# passes (admission + 2 steps), so any change in where one attention output
+# rounds spreads to most elements of s: the plain path against itself with
+# its attention computed in float64 moves s by ~0.1 x RMS(s) at max |diff|.
+# A bound on that end-to-end gap alone either sits below this floor or
+# cannot tell a kernel fault from rounding, so the check has two parts:
+# 1. in situ: every ragged kernel call of the kernel path is held against
+#    the plain version on the same inputs under ``tolerance()``, the kernel
+#    phase's rule: a fault of the kernel shows there, before rounding
+#    compounds through the layers;
+# 2. end to end: the kernel path's max |diff| of s from the plain path is at
+#    most PAIR_CONTROL_MULT times the float64 control's, read in the same
+#    run and mode. The kernel's output is one bf16 rounding of a float32
+#    result and the control's one of a float64 result: drifts of one size.
+# Deliberate faults of the plain attention (PAIR_FAULTS) stand in for a wrong
+# kernel: the check must reject each of them, or the run fails.
+PAIR_CONTROL_MULT = 2.0
+# The same comparison in float32 throughout (compute dtype float32): the
+# paths then differ only in the order of float32 sums inside attention
+# (~1e-6 relative per call), which over 16 layers and three passes stays
+# orders of magnitude below 1e-3 of RMS(s). In situ, the float32 rule of
+# ``tolerance()`` holds.
+PAIR_TOL_F32 = 1e-3
+# (name, keys the attention skips, whether the bias takes the softmax
+# scale): a kv tile the block loop misses, and the bias added before the
+# scaling
+PAIR_FAULTS = (("keys 64-127 skipped", (64, 128), False),
+               ("bias scaled by the softmax scale", None, True))
 
 
 def log(phase: str, msg: str) -> None:
@@ -94,11 +153,19 @@ def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(prof) -> list:
+def device_rows(prof) -> list:
     """The device-side (kernel and copy) rows of a profile's averages."""
     from torch.autograd import DeviceType
     return [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def device_kernels(prof) -> list:
+    """The device rows of the profiled calls: all but the profiler's own
+    step annotation (``ProfilerStep#n``, which spans the step on the device
+    timeline)."""
+    return [e for e in device_rows(prof)
+            if not e.key.startswith("ProfilerStep")]
 
 
 def device_us(e) -> float:
@@ -106,25 +173,86 @@ def device_us(e) -> float:
             or getattr(e, "self_cuda_time_total", 0))
 
 
+PROFILE_TRIES = 3                # an incomplete profile is retried
+PROFILE_HEAD = 4                 # ~25 ms spin kernels of the warm-up step
+# the port's CUDA kernels as torch.profiler names them (kernels 1 and 2
+# share the attn_fwd template, kernels 3 and 4 the decode_fwd one)
+PORT_KERNEL = re.compile(r"(?<![A-Za-z0-9_])(attn_fwd|decode_fwd)<")
+
+
+def window(prof) -> str:
+    """Where a profile's device events and kernel launches lie in time
+    (us, from the first event), for the report of an incomplete one."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    t0 = min(e.time_range.start for e in events)
+    dev = [e.time_range.start - t0 for e in events
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    host = [e.time_range.start - t0 for e in events
+            if "LaunchKernel" in e.name]
+    span = (lambda t: f"{len(t)} from {min(t):.0f} to {max(t):.0f}"
+            if t else "none")
+    return f"device events {span(dev)}, launches {span(host)}"
+
+
+def profiled(fn, iters: int, uniform: bool = True):
+    """Run ``fn`` ``iters`` times under torch.profiler; returns the profile
+    and its device rows. The profiler has been seen to drop device events,
+    so a profile is taken only when it is complete by what the run knows:
+    the port's kernels recorded exactly as often as their launch counters
+    moved during it, and, where every call of ``fn`` runs the same kernels
+    (``uniform``), every device row counted a multiple of ``iters`` times.
+    The events lost were those of a tracing session's start, more of them
+    the longer the process had run, so the session opens with a warm-up
+    step, traced and discarded (PROFILE_HEAD spin kernels of ~25 ms each,
+    each behind a synchronize, and one call of ``fn``), and only the step
+    after it is kept. An incomplete profile is taken again, up to
+    PROFILE_TRIES times, before the run fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    counters = launch_counters().values()
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     acc_events=True) as prof:
+            for _ in range(PROFILE_HEAD):
+                torch.cuda._sleep(50_000_000)         # clock cycles
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = sum(c.launches for c in counters)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        launched = sum(c.launches for c in counters) - before
+        kernels = device_kernels(prof)
+        port = sum(e.count for e in kernels if PORT_KERNEL.search(e.key))
+        ragged = [(e.key[:40], e.count) for e in kernels
+                  if e.count % iters]
+        if kernels and port == launched and not (uniform and ragged):
+            return prof, kernels
+        seen.append(f"{len(kernels)} device rows, port kernels {port} of "
+                    f"{launched} launched, rows not a multiple of {iters}: "
+                    f"{ragged if uniform else 'not checked'}; "
+                    f"{window(prof)}")
+    raise AssertionError(f"torch.profiler recorded an incomplete profile in "
+                         f"{PROFILE_TRIES} tries: {seen}")
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time per call of ``fn``: the summed durations of the kernels
-    and copies it runs, from torch.profiler over ``iters`` calls — without
-    the gaps ``event_ms`` counts, which for a ~20 us decode kernel behind a
-    Python wrapper are most of the bracket."""
+    and copies it runs, from a complete torch.profiler profile over
+    ``iters`` calls — without the gaps ``event_ms`` counts, which for a
+    ~20 us decode kernel behind a Python wrapper are most of the bracket."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(device_us(e) for e in device_kernels(prof))
-    if not total:
-        raise AssertionError("the profiler saw no kernels")
-    return total / iters / 1e3
+    _, kernels = profiled(fn, iters)
+    return sum(device_us(e) for e in kernels) / iters / 1e3
 
 
 def tolerance(dtype, ref) -> float:
@@ -238,7 +366,8 @@ def phase_kernels(seed: int) -> dict:
                                                   flash_decode_paged_torch,
                                                   flash_decode_torch)
     from repro_torch.kernels.flashbias_attn import (
-        flashbias_attention_fwd, flashbias_attention_torch)
+        flashbias_attention_fwd, flashbias_attention_ragged_fwd,
+        flashbias_attention_torch)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.default_rng(seed)
     worst = {}
@@ -313,6 +442,45 @@ def phase_kernels(seed: int) -> dict:
         check(name, flash_decode_paged_fwd(q, kp, vp, lens, pt, **kw),
               flash_decode_paged_torch(q, kp, vp, lens, pt, **kw), dtype,
               path)
+
+    # ragged attention kernel (kernel 2): the Pairformer path's shape (4
+    # slots, H = KVH 4, N = M = 384, D = Dv = R = 96, bf16 q/k/v, float32
+    # factors, no mask), then off-path: float32, lengths off the 64-key
+    # tile, a whole batch at length 0, rank 8, causal, ALiBi slopes, GQA.
+    # Rows of length 0 must come out exactly 0.
+    bf, f32 = torch.bfloat16, torch.float32
+    path_lens = [PAIR_MAX_LEN, 200, 1, 0]
+    cases = [("flashbias_attention_ragged_fwd path B4 H4 N384 D96 R96 bf16 "
+              "phi", 4, 4, 4, 384, 96, 96, bf, "phi", "none", path_lens,
+              True),
+             ("flashbias_attention_ragged_fwd B4 H4 N384 D96 R96 f32 phi",
+              4, 4, 4, 384, 96, 96, f32, "phi", "none", path_lens, False),
+             ("flashbias_attention_ragged_fwd lengths 333/77/5/0 bf16 phi",
+              4, 4, 4, 384, 96, 96, bf, "phi", "none", [333, 77, 5, 0],
+              False),
+             ("flashbias_attention_ragged_fwd all lengths 0 bf16 phi", 4, 4,
+              4, 384, 96, 96, bf, "phi", "none", [0, 0, 0, 0], False),
+             ("flashbias_attention_ragged_fwd R8 D64 f32 phi", 4, 4, 4, 200,
+              64, 8, f32, "phi", "none", [200, 130, 63, 0], False),
+             ("flashbias_attention_ragged_fwd causal bf16 phi", 4, 4, 4, 384,
+              96, 96, bf, "phi", "causal", path_lens, False),
+             ("flashbias_attention_ragged_fwd GQA8:2 f32 alibi causal", 2, 8,
+              2, 130, 64, 0, f32, "alibi", "causal", [130, 65], False),
+             ("flashbias_attention_ragged_fwd GQA8:2 bf16 alibi none", 4, 8,
+              2, 256, 32, 0, bf, "alibi", "none", [256, 100, 0, 31], False)]
+    for name, b, h, kvh, n, d, r, dtype, bias, mask, lengths, path in cases:
+        q, k, v, extra = prefill_inputs(gen, b, h, kvh, n, d, dtype, bias,
+                                        r=r)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        kw = dict(scale=d ** -0.5, mask_kind=mask)
+        got = flashbias_attention_ragged_fwd(
+            q, k, v, extra.get("phi_q"), extra.get("phi_k"),
+            extra.get("slopes"), lens, **kw)
+        check(name, got, flashbias_attention_torch(q, k, v, lengths=lens,
+                                                   **kw, **extra),
+              dtype, path)
+        if bool(got[lens == 0].any()):
+            raise AssertionError(f"{name}: rows of length 0 are not 0")
     return worst
 
 
@@ -333,10 +501,12 @@ def make_requests(seed: int, vocab: int):
 def launch_counters() -> dict:
     from repro_torch.kernels.flash_decode import (flash_decode_fwd,
                                                   flash_decode_paged_fwd)
-    from repro_torch.kernels.flashbias_attn import flashbias_attention_fwd
+    from repro_torch.kernels.flashbias_attn import (
+        flashbias_attention_fwd, flashbias_attention_ragged_fwd)
     return {"flashbias_attention_fwd": flashbias_attention_fwd,
             "flash_decode_fwd": flash_decode_fwd,
-            "flash_decode_paged_fwd": flash_decode_paged_fwd}
+            "flash_decode_paged_fwd": flash_decode_paged_fwd,
+            "flashbias_attention_ragged_fwd": flashbias_attention_ragged_fwd}
 
 
 def drive_counted(engine, requests):
@@ -391,7 +561,8 @@ def phase_serve(seed: int):
     stats = engine.stats()
     want = {"flashbias_attention_fwd": N_LAYERS * stats["prefill_waves"],
             "flash_decode_fwd": N_LAYERS * stats["decode_steps"],
-            "flash_decode_paged_fwd": 0}
+            "flash_decode_paged_fwd": 0,
+            "flashbias_attention_ragged_fwd": 0}
     log("serve", f"{len(rids)} requests OK x {NEW_TOKENS} tokens in "
                  f"{wall:.2f}s ({tok_s:.1f} tok/s); "
                  f"{stats['prefill_waves']} prefill waves, "
@@ -416,7 +587,8 @@ def phase_paged(engine, requests):
     stats, pages = paged.stats(), paged.page_stats()
     want = {"flashbias_attention_fwd": N_LAYERS * stats["prefill_waves"],
             "flash_decode_fwd": 0,
-            "flash_decode_paged_fwd": N_LAYERS * stats["decode_steps"]}
+            "flash_decode_paged_fwd": N_LAYERS * stats["decode_steps"],
+            "flashbias_attention_ragged_fwd": 0}
     log("paged", f"{len(rids)} requests OK x {NEW_TOKENS} tokens in "
                  f"{wall:.2f}s ({tok_s:.1f} tok/s); "
                  f"{stats['prefill_waves']} prefill waves, "
@@ -538,7 +710,9 @@ def phase_parity(engine, requests):
 
 INDEX_KERNELS = ("index", "gather", "scatter")
 TRACE_ROUNDS, ROUND_STEPS = 6, 3
-TRACE_STEPS = TRACE_ROUNDS * ROUND_STEPS + 3      # per path, profiled too
+# steps per path: the timed rounds, then each profile try's warm-up step
+# and 3 profiled steps
+TRACE_STEPS = TRACE_ROUNDS * ROUND_STEPS + PROFILE_TRIES * (1 + 3)
 
 
 def trace_decode(model, params, tokens, paths: dict) -> dict:
@@ -550,7 +724,6 @@ def trace_decode(model, params, tokens, paths: dict) -> dict:
     durations), the kernels that hold it longest, and the indexing kernels
     (gathers and scatters of cache rows, page ids and the factor slab)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     labels = list(paths)
     caches = {label: cache for label, (cache, _) in paths.items()}
@@ -572,18 +745,12 @@ def trace_decode(model, params, tokens, paths: dict) -> dict:
             for label in (labels if r % 2 == 0 else labels[::-1]):
                 steps(label, ROUND_STEPS)
         for label in labels:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    _, caches[label] = model.decode(
-                        params, caches[label], tokens, **paths[label][1])
-                torch.cuda.synchronize()
-            kernels = device_kernels(prof)
+            def step():
+                _, caches[label] = model.decode(params, caches[label],
+                                                tokens, **paths[label][1])
+            prof, kernels = profiled(step, 3, uniform=False)
             step_ms = float(np.median(walls[label]))
             busy_ms = sum(device_us(e) for e in kernels) / 3 / 1e3
-            if not busy_ms:
-                raise AssertionError(f"the profiler saw no kernels in the "
-                                     f"{label} decode steps")
             index = [e for e in kernels
                      if any(w in e.key.lower() for w in INDEX_KERNELS)]
             traces[label] = t = {
@@ -601,8 +768,8 @@ def trace_decode(model, params, tokens, paths: dict) -> dict:
             for e in sorted(kernels, key=device_us, reverse=True)[:8]:
                 log("trace", f"  {device_us(e) / 3 / 1e3:8.3f} ms/step "
                              f"{e.count // 3:5d} calls/step  {e.key[:90]}")
-            host = [e for e in prof.key_averages()
-                    if not any(e.key == k.key for k in kernels)]
+            device = {e.key for e in device_rows(prof)}
+            host = [e for e in prof.key_averages() if e.key not in device]
             for e in sorted(host, key=lambda e: e.self_cpu_time_total,
                             reverse=True)[:6]:
                 log("trace", f"  host {e.self_cpu_time_total / 3 / 1e3:8.3f} "
@@ -729,6 +896,453 @@ def phase_times(engine, decode_lengths, card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 7-9: Pairformer serving, parity and times
+# ---------------------------------------------------------------------------
+
+def make_complexes(seed: int):
+    """8 complexes as (features, refinement steps, sampling): n_res drawn
+    in [96, 384], the first at exactly 384 and the second off the 64-residue
+    tile; 64-wide features (the ``single_in`` stub is (64, d)); 4-8 steps."""
+    from repro_torch.serve import SamplingParams
+    rng = np.random.default_rng(seed + 100)
+    lens = rng.integers(96, PAIR_MAX_LEN + 1, (8,))
+    lens[0] = PAIR_MAX_LEN
+    if lens[1] % 64 == 0:
+        lens[1] += 17 if lens[1] < 300 else -17
+    steps = rng.integers(4, 9, (8,))
+    return [(rng.standard_normal((int(n), 64)).astype(np.float32), int(t),
+             SamplingParams()) for n, t in zip(lens, steps)]
+
+
+def pair_wave(complexes):
+    """A full admission wave of the first PAIR_SLOTS complexes: features
+    padded to (PAIR_SLOTS, PAIR_MAX_LEN, 64) and their lengths, on the
+    card."""
+    import torch
+    feats = np.zeros((PAIR_SLOTS, PAIR_MAX_LEN, 64), np.float32)
+    lengths = np.zeros((PAIR_SLOTS,), np.int32)
+    for i, (f, _, _) in enumerate(complexes[:PAIR_SLOTS]):
+        feats[i, :f.shape[0]] = f
+        lengths[i] = f.shape[0]
+    return ({"feats": torch.as_tensor(feats, device="cuda")},
+            torch.as_tensor(lengths, device="cuda"))
+
+
+def phase_pair_serve(seed: int):
+    """Pairformer-lite at full width through ServeEngine (SVD mode), with
+    every launch counter set to 0 just before the drive and read after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import drive
+    from repro_torch.models import get_model, init_params
+    from repro_torch.serve import OK, ServeEngine
+
+    cfg = get_config("pairformer_lite")
+    if cfg.n_layers != PAIR_LAYERS:
+        raise AssertionError(f"config has {cfg.n_layers} layers")
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    engine = ServeEngine(get_model(cfg), params, max_len=PAIR_MAX_LEN,
+                         n_slots=PAIR_SLOTS, device="cuda")
+    del params                       # the engine holds its cast copy
+    torch.cuda.synchronize()
+    log("pair", f"{cfg.name}: {cfg.n_layers} layers, d_single "
+                f"{cfg.d_model}, d_pair {cfg.d_pair}, {cfg.n_heads} heads x "
+                f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, rank "
+                f"{cfg.bias_rank}, {cfg.dtype}; weights ready in "
+                f"{time.monotonic() - t0:.1f}s")
+    complexes = make_complexes(seed)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    rids = drive(engine, complexes)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    stats = engine.stats()
+    for rid, (f, _, _) in zip(rids, complexes):
+        rec = engine.result(rid)
+        if rec.status != OK or rec.shape != (f.shape[0], cfg.d_model):
+            raise AssertionError(f"complex {rid}: {rec.status} "
+                                 f"{rec.shape}")
+        if not np.isfinite(rec).all():
+            raise AssertionError(f"complex {rid}: non-finite result")
+    want = {name: 0 for name in counters}
+    want["flashbias_attention_ragged_fwd"] = PAIR_LAYERS * (
+        stats["prefill_waves"] + stats["decode_steps"])
+    n_steps = sum(t for _, t, _ in complexes)
+    log("pair", f"{len(rids)} complexes OK (n_res "
+                f"{[f.shape[0] for f, _, _ in complexes]}, "
+                f"{n_steps} refinement steps in all) in {wall:.2f}s; "
+                f"{stats['prefill_waves']} admission waves, "
+                f"{stats['decode_steps']} engine steps; launches {launches}")
+    if launches != want or not launches["flashbias_attention_ragged_fwd"]:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    return engine, complexes, rids, launches
+
+
+def bf16_ulp(x):
+    """The bf16 spacing at |x| (8-bit significand): 2^(floor(log2|x|) - 7)."""
+    import torch
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def ragged_attention(q, k, v, phi_q, phi_k, slopes=None, lengths=None, *,
+                     scale, mask_kind="none", window=0, acc=None, skip=None,
+                     bias_scale=1.0):
+    """The pair path's ragged attention (factor bias, no mask, key bound
+    ``lengths``) computed in ``acc``, optionally with a deliberate fault:
+    keys in ``skip = (lo, hi)`` dropped, or the bias term scaled by
+    ``bias_scale``. Takes both calling conventions of the ragged path (the
+    kernel wrapper's and the plain version's). Rows with no key give 0."""
+    import torch
+    from repro_torch.core.attention import DEFAULT_MASK_VALUE
+    if slopes is not None or mask_kind != "none":
+        raise ValueError("the pair path attends with factors only, no mask")
+    logits = (torch.einsum("bhnd,bhmd->bhnm", q.to(acc), k.to(acc)) * scale
+              + bias_scale * torch.einsum("bhnr,bhmr->bhnm", phi_q.to(acc),
+                                          phi_k.to(acc)))
+    keys = torch.arange(k.shape[2], device=q.device)
+    live = keys[None, :] < lengths.reshape(-1, 1)
+    if skip is not None:
+        live = live & ~((keys >= skip[0]) & (keys < skip[1]))[None, :]
+    live = live[:, None, None, :]
+    logits = logits.masked_fill(~live, DEFAULT_MASK_VALUE)
+    o = torch.einsum("bhnm,bhmd->bhnd", torch.softmax(logits, -1), v.to(acc))
+    return (o * live.any(-1, keepdim=True)).to(q.dtype)
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def phase_pair_parity(engine, complexes, rids, seed: int) -> list:
+    """The first wave's admission and PAIR_STEPS refinement steps through
+    the kernel path and the plain path on the card — bf16 in SVD mode and
+    in factor-MLP mode, and float32 in SVD mode — with every ragged kernel
+    call held in situ against the plain version on its inputs, and the
+    final single reps compared on valid rows against the float64 control
+    of the same mode; the check run on deliberate faults of the attention,
+    each of which it must reject; then the first complex served alone
+    through a 4-slot engine, bit-equal to its batched result. Returns the
+    failed checks (every check runs and prints; ``main`` fails the run at
+    its end if any did, after the remaining phases' measurements)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.models.common import materialize, stack_layers, tree_map
+    from repro_torch.models.pairformer import factor_mlp_template
+    from repro_torch.serve import ServeEngine
+
+    cfg, params = engine.model.cfg, engine.backend.params
+    batch, lens = pair_wave(complexes)
+    valid = (torch.arange(PAIR_MAX_LEN, device="cuda")[None, :]
+             < lens[:, None])
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    factors = materialize(stack_layers(factor_mlp_template(cfg, 256),
+                                       cfg.n_layers), gen, device="cuda")
+    params32 = tree_map(lambda x: x.float(), params)
+    plain = ops.flashbias_attention_torch
+    kernel = ops.flashbias_attention_ragged_fwd
+    scale = cfg.resolved_head_dim ** -0.5
+
+    def final_s(c, p, fac, impl):
+        m = get_model(c.replace(attn_impl=impl))
+        _, cache = m.prefill(p, batch, max_len=PAIR_MAX_LEN, lengths=lens,
+                             factors=fac)
+        for _ in range(PAIR_STEPS):
+            cache = m.decode(p, cache)
+        return cache["s"].float()[valid].flatten()
+
+    def in_situ(fn, calls):
+        """``fn`` with each call's output held against the plain version on
+        the same inputs: (max |diff|, tolerance, diff in bf16 ulps of the
+        worst element) appended to ``calls``."""
+        def call(q, k, v, phi_q, phi_k, slopes=None, lengths=None, **kw):
+            got = fn(q, k, v, phi_q, phi_k, slopes, lengths, **kw)
+            want = plain(q, k, v, phi_q, phi_k, slopes, lengths=lengths, **kw)
+            diff = (got.float() - want.float()).abs().flatten()
+            worst = int(diff.argmax())
+            ref = want.float().flatten()[worst:worst + 1]
+            calls.append((float(diff[worst]), tolerance(want.dtype, want),
+                          float(diff[worst] / bf16_ulp(ref)[0])))
+            return got
+        return call
+
+    def in_situ_log(label, calls):
+        """Logs the in-situ record of one run; True if every call was
+        within its tolerance."""
+        if len(calls) != PAIR_LAYERS * (1 + PAIR_STEPS):
+            raise AssertionError(f"{label}: {len(calls)} ragged calls seen")
+        worst = max(calls, key=lambda c: c[0] / c[1])
+        over = sum(err > tol for err, tol, _ in calls)
+        log("pair-parity", f"{label}: in situ, {len(calls)} ragged calls "
+                           f"against the plain version on their inputs: "
+                           f"worst {worst[0]:.3e} (tol {worst[1]:.1e}, "
+                           f"{worst[2]:.1f} bf16 ulps of the element); "
+                           f"{over} calls over the tolerance")
+        return over == 0
+
+    def gap(got, want):
+        diff = (got - want).abs()
+        worst = int(diff.argmax())
+        return (float(diff.max()), float(want.square().mean().sqrt()),
+                float(diff[worst] / bf16_ulp(want[worst])),
+                int((diff > 0).sum()), bool(torch.isfinite(got).all()))
+
+    def ratio(a, b):
+        return a / b if b else (0.0 if a == 0 else float("inf"))
+
+    def gap_log(label, g):
+        log("pair-parity", f"{label}: max |s gap| {g[0]:.4e} = "
+                           f"{g[0] / g[1]:.4f} x RMS(s) {g[1]:.4f} "
+                           f"({g[2]:.1f} bf16 ulps of the worst element); "
+                           f"elements differing {g[3]}"
+                           f"{'' if g[4] else '; NON-FINITE values'}")
+
+    failed, floor = [], {}
+    with torch.no_grad():
+        for label, fac in (("bf16 svd", None), ("bf16 mlp", factors)):
+            want = final_s(cfg, params, fac, "torch")
+            calls = []
+            with patched(ops, "flashbias_attention_ragged_fwd",
+                         in_situ(kernel, calls)):
+                got = final_s(cfg, params, fac, "cuda")
+            with patched(ops, "flashbias_attention_torch", functools.partial(
+                    ragged_attention, acc=torch.float64)):
+                control = final_s(cfg, params, fac, "torch")
+            ok = in_situ_log(f"{label} kernel path", calls)
+            g, gc = gap(got, want), gap(control, want)
+            gap_log(f"{label} kernel path vs plain path", g)
+            gap_log(f"{label} control: plain path with float64 attention vs "
+                    f"plain path", gc)
+            ok_e2e = g[4] and g[0] <= PAIR_CONTROL_MULT * gc[0]
+            log("pair-parity", f"{label}: kernel gap / control gap "
+                               f"{ratio(g[0], gc[0]):.3f} (at most "
+                               f"{PAIR_CONTROL_MULT}); in situ "
+                               f"{'ok' if ok else 'FAIL'}, end to end "
+                               f"{'ok' if ok_e2e else 'FAIL'}")
+            if not (ok and ok_e2e):
+                failed.append(f"pair parity {label}: in situ ok {ok}, gap "
+                              f"{g[0]:.4e} vs {PAIR_CONTROL_MULT} x control "
+                              f"{gc[0]:.4e}")
+            floor[label] = (want, gc[0])
+        want = final_s(cfg.replace(dtype="float32"), params32, None, "torch")
+        calls = []
+        with patched(ops, "flashbias_attention_ragged_fwd",
+                     in_situ(kernel, calls)):
+            got = final_s(cfg.replace(dtype="float32"), params32, None,
+                          "cuda")
+        ok = in_situ_log("f32 svd kernel path", calls)
+        g = gap(got, want)
+        gap_log("f32 svd kernel path vs plain path", g)
+        if not (ok and g[4] and g[0] <= PAIR_TOL_F32 * g[1]):
+            log("pair-parity", "f32 svd: FAIL")
+            failed.append(f"pair parity f32 svd: in situ ok {ok}, gap "
+                          f"{g[0]:.4e} > {PAIR_TOL_F32} x RMS(s) {g[1]:.4e}")
+        # the check on deliberate faults of the plain attention (bf16, SVD
+        # mode): each must be rejected, in situ or end to end
+        want, control_gap = floor["bf16 svd"]
+        for name, skip, scaled in PAIR_FAULTS:
+            calls = []
+            fault = functools.partial(
+                ragged_attention, acc=torch.float32, skip=skip,
+                bias_scale=scale if scaled else 1.0)
+            with patched(ops, "flashbias_attention_torch",
+                         in_situ(fault, calls)):
+                got = final_s(cfg, params, None, "torch")
+            seen = not in_situ_log(f"fault '{name}'", calls)
+            g = gap(got, want)
+            gap_log(f"fault '{name}' vs plain path", g)
+            seen_e2e = not (g[4] and g[0] <= PAIR_CONTROL_MULT * control_gap)
+            log("pair-parity", f"fault '{name}': rejected in situ {seen}, "
+                               f"end to end {seen_e2e} (gap / control gap "
+                               f"{ratio(g[0], control_gap):.3f})")
+            if not (seen or seen_e2e):
+                failed.append(f"pair parity check passes the fault '{name}'")
+    torch.cuda.empty_cache()
+    feats, steps, _ = complexes[0]
+    alone = ServeEngine(engine.model, params, max_len=PAIR_MAX_LEN,
+                        n_slots=PAIR_SLOTS, device="cuda")
+    rid = alone.submit(feats, steps)
+    alone.run()
+    got, want = alone.result(rid), engine.result(rids[0])
+    same = bool(np.array_equal(got, want))
+    log("pair-parity", f"complex 0 (n_res {feats.shape[0]}, {steps} steps) "
+                       f"alone through a {PAIR_SLOTS}-slot engine: "
+                       f"{'bit-equal' if same else 'DIFFERS'} to its batched "
+                       f"result (max |gap| "
+                       f"{float(np.abs(got - want).max()):.3e})")
+    if not same:
+        failed.append("pair batched != alone at the same slot count")
+    del alone
+    torch.cuda.empty_cache()
+    return failed
+
+
+STEP_MODES = {"factored": "flashbias", "dense_recompute": "dense_recompute",
+              "dense": "dense"}
+PAIR_ROUNDS, PAIR_ROUND_STEPS = 4, 2
+
+
+def profile_steps(fn, n: int):
+    """Run ``fn`` n times under torch.profiler (every call runs the same
+    kernels); returns (device busy ms per call, the device rows of the
+    profile)."""
+    _, kernels = profiled(fn, n)
+    return sum(device_us(e) for e in kernels) / n / 1e3, kernels
+
+
+def phase_pair_times(engine, complexes, card: str) -> dict:
+    """Kernel 2 against its plain version and the library call at the path
+    shape; the admission wave; a refinement step of 4 full slots in the
+    three cache modes, in alternating rounds; one factored step traced."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flashbias_attn import (
+        flashbias_attention_ragged_fwd, flashbias_attention_torch)
+    from repro_torch.models import get_model
+
+    cfg, params = engine.model.cfg, engine.backend.params
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf = torch.bfloat16
+    b, h, n, d = PAIR_SLOTS, cfg.n_heads, PAIR_MAX_LEN, cfg.resolved_head_dim
+    r = min(cfg.bias_rank, n)
+    scale = d ** -0.5
+    lengths = [f.shape[0] for f, _, _ in complexes[:PAIR_SLOTS]]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(bf)
+               for _ in range(3))
+    pq, pk = (torch.randn((b, h, n, r), generator=gen, device="cuda")
+              for _ in range(2))
+    # library: the bias materialized from the float32 factors the kernel
+    # reads, with the length mask folded in (one baddbmm into an additive
+    # 0 / -inf key mask), cast once to the attention's bf16, then SDPA with
+    # that float mask — the paper's "attention with bias" baseline, three
+    # calls
+    kpos = torch.arange(n, device="cuda")
+    keymask = torch.zeros((b, h, 1, n), device="cuda").masked_fill(
+        kpos >= lens[:, None, None, None], -torch.inf)
+    keymask = keymask.reshape(b * h, 1, n).contiguous()
+    pq3 = pq.reshape(b * h, n, r)
+    pk3t = pk.reshape(b * h, n, r).transpose(1, 2)
+
+    def library():
+        mask = torch.baddbmm(keymask, pq3, pk3t).view(b, h, n, n)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask.to(bf),
+                                              scale=scale)
+
+    live = sum(lengths)
+    bytes_ = (2 * b * h * n * d * 2 + 2 * live * h * d * 2 + live * h * r * 4
+              + b * h * n * r * 4 + b * 4)
+    flops = n * live * h * 2 * (d + r + d)
+    kernel = (lambda: flashbias_attention_ragged_fwd(
+        q, k, v, pq, pk, None, lens, scale=scale))
+    out = dict(ms=device_ms(kernel),
+               plain_ms=device_ms(lambda: flashbias_attention_torch(
+                   q, k, v, pq, pk, scale=scale, lengths=lens)),
+               library_ms=device_ms(library), **bound(bytes_, flops))
+    log("pair-times", f"flashbias_attention_ragged_fwd (device time per "
+                      f"call, B{b} H{h} N=M{n} D=Dv=R{d}, lengths "
+                      f"{lengths}): kernel {out['ms']:.4f} ms, plain "
+                      f"{out['plain_ms']:.4f} ms, library (float32 bias "
+                      f"baddbmm, cast to bf16, SDPA with that float mask, "
+                      f"three calls) "
+                      f"{out['library_ms']:.4f} ms, bound "
+                      f"{out['bound_ms']:.4f} ms ({out['bound_by']}); "
+                      f"kernel between CUDA events, host gaps included, "
+                      f"{event_ms(kernel):.4f} ms [{card}]")
+    del q, k, v, pq, pk, pq3, pk3t
+    torch.cuda.empty_cache()
+
+    # four full slots (n_res 384 each): the admission wave, then one slot
+    # cache per mode
+    rng = np.random.default_rng(3)
+    feats = rng.standard_normal((b, n, 64)).astype(np.float32)
+    batch = {"feats": torch.as_tensor(feats, device="cuda")}
+    full = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    models = {label: get_model(cfg.replace(bias_mode=mode))
+              for label, mode in STEP_MODES.items()}
+    caches = {}
+    with torch.no_grad():
+        for label, m in models.items():
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            _, wave = m.prefill(params, batch, max_len=n, lengths=full)
+            torch.cuda.synchronize()
+            wave_ms = (time.monotonic() - t0) * 1e3
+            cache = m.insert_cache(m.init_cache(b, n, device="cuda"), wave,
+                                   np.arange(b))
+            caches[label] = cache
+            del wave
+            torch.cuda.empty_cache()
+            log("pair-times", f"{label}: admission wave of {b} x {n} "
+                              f"residues {wave_ms:.1f} ms on the host clock "
+                              f"[{card}]")
+        fm = models["factored"]
+        busy, kernels = profile_steps(
+            lambda: fm.prefill(params, batch, max_len=n, lengths=full), 1)
+        log("pair-times", f"factored admission wave: device busy "
+                          f"{busy:.1f} ms; top kernels:")
+        for e in sorted(kernels, key=device_us, reverse=True)[:6]:
+            log("pair-times", f"  {device_us(e) / 1e3:9.3f} ms {e.count:6d} "
+                              f"calls  {e.key[:80]}")
+        torch.cuda.empty_cache()
+
+        walls = {label: [] for label in models}
+
+        def steps(label, count):
+            for _ in range(count):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                caches[label] = models[label].decode(params, caches[label])
+                torch.cuda.synchronize()
+                walls[label].append((time.monotonic() - t0) * 1e3)
+
+        labels = list(models)
+        for label in labels:                       # warm-up
+            steps(label, 1)
+        for label in labels:
+            walls[label].clear()
+        for rnd in range(PAIR_ROUNDS):
+            for label in (labels if rnd % 2 == 0 else labels[::-1]):
+                steps(label, PAIR_ROUND_STEPS)
+        step = {}
+        for label in labels:
+            busy, kernels = profile_steps(
+                lambda: caches.__setitem__(label, models[label].decode(
+                    params, caches[label])), 3)
+            wall = float(np.median(walls[label]))
+            step[label] = {"step_ms": wall, "busy_ms": busy,
+                           "idle_share": 1 - busy / wall}
+            log("pair-times", f"{label} refinement step ({b} x {n}, "
+                              f"{cfg.n_layers} layers): "
+                              f"{wall:.3f} ms on the host clock (median of "
+                              f"{len(walls[label])}, rounds alternating "
+                              f"between the modes); device busy {busy:.3f} "
+                              f"ms/step, idle share "
+                              f"{1 - busy / wall:.3f} [{card}]")
+            if label == "factored":
+                for e in sorted(kernels, key=device_us, reverse=True)[:8]:
+                    log("pair-times", f"  {device_us(e) / 3 / 1e3:8.3f} "
+                                      f"ms/step {e.count // 3:5d} calls/step"
+                                      f"  {e.key[:80]}")
+    del caches
+    torch.cuda.empty_cache()
+    return out
+
+
 def bound(bytes_: int, flops: int) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -754,7 +1368,7 @@ def main(argv=None) -> int:
                   f"{torch.cuda.device_count()}; torch {torch.__version__}, "
                   f"CUDA {torch.version.cuda}; TF32 off; [{card}]")
 
-    t0 = time.monotonic()
+    t_start = t0 = time.monotonic()
     report = build.build()
     log("build", f"{sorted(report)} built in {time.monotonic() - t0:.1f}s")
     for name, rep in report.items():
@@ -774,23 +1388,41 @@ def main(argv=None) -> int:
                      f"48 layers), device idle share {t['idle_share']:.3f}; "
                      f"end to end {rate:.1f} tok/s [{card}]")
     times = phase_times(engine, decode_lengths, card)
+    del engine
+    torch.cuda.empty_cache()
+
+    pair, complexes, rids, pair_launches = phase_pair_serve(args.seed)
+    launches["flashbias_attention_ragged_fwd"] = \
+        pair_launches["flashbias_attention_ragged_fwd"]
+    failed = phase_pair_parity(pair, complexes, rids, args.seed)
+    times["flashbias_attention_ragged_fwd"] = phase_pair_times(
+        pair, complexes, card)
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"
                                            "flashbias_attn.py:149",
                 "flash_decode_fwd": "src/repro/kernels/flash_decode.py:121",
                 "flash_decode_paged_fwd": "src/repro/kernels/"
-                                          "flash_decode.py:195"}
+                                          "flash_decode.py:195",
+                "flashbias_attention_ragged_fwd": "src/repro/kernels/"
+                                                  "flashbias_attn.py:139"}
     sources = {"flashbias_attention_fwd": "src/repro_torch/csrc/"
                                           "flashbias_attn.cu",
                "flash_decode_fwd": "src/repro_torch/csrc/flash_decode.cu",
                "flash_decode_paged_fwd": "src/repro_torch/csrc/"
-                                         "flash_decode.cu"}
+                                         "flash_decode.cu",
+               "flashbias_attention_ragged_fwd": "src/repro_torch/csrc/"
+                                                 "flashbias_attn.cu"}
     kernels = [{"name": name, "route": "cuda", "source": sources[name],
                 "replaces": replaces[name], "launches": launches[name],
                 "max_abs_err": errors[name], **times[name]}
                for name in KERNELS]
+    log("done", f"every phase ran in {time.monotonic() - t_start:.0f}s, "
+                f"the build included")
     print(json.dumps({"kernels": kernels}))
     print(card)
+    if failed:
+        print(f"chip_smoke: FAILED: {failed}", file=sys.stderr)
+        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

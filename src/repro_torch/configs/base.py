@@ -37,8 +37,9 @@ class ArchConfig:
     head_dim: int = 0             # 0 -> d_model // n_heads
 
     # --- attention bias / positional (the paper's technique) ---
-    bias_kind: str = "alibi"      # "alibi" | "none"
-    bias_mode: str = "flashbias"  # "flashbias" (factored) | "dense" (baseline)
+    bias_kind: str = "alibi"      # "alibi" | "none" | "pair"
+    bias_mode: str = "flashbias"  # "flashbias" (factored) | "dense" |
+                                  # "dense_recompute" (Pairformer baselines)
     rope: bool = False
     window: int = 0               # sliding-window size; 0 = full attention
 
@@ -142,8 +143,8 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The architectures this slice of the port serves (dense family).
-ARCH_IDS = ["gpt2_alibi_15b", "stablelm_12b"]
+# The architectures the port serves: the dense family and the Pairformer.
+ARCH_IDS = ["gpt2_alibi_15b", "stablelm_12b", "pairformer_lite"]
 
 
 def _module(arch_id: str):

@@ -1,2 +1,2 @@
-"""Core math: the ALiBi factorization (``bias``) and biased attention
-(``attention``)."""
+"""Core math: the ALiBi factorization (``bias``), biased attention
+(``attention``) and truncated-SVD bias factors (``decomp``)."""

@@ -2,7 +2,14 @@
 //
 // Replaces: repro/kernels/flashbias_attn.py::flashbias_attention_fwd (body
 // _attn_kernel), the Pallas TPU kernel that prefill reaches through
-// ops.flash_attention. Same function: per (b, h) an online float32 softmax
+// ops.flash_attention, and its ragged variant _attn_kernel_ragged, which the
+// Pairformer serve path reaches through ops.flash_attention(lengths=). The
+// TPU's ragged kernel is the static body with a traced bound, and so is this
+// one: a null `lengths` bounds every row by the static kv_len
+// (flashbias_attn_fwd), a pointer bounds row b by lengths[b]
+// (flashbias_attn_ragged_fwd), read by the block itself in place of the
+// TPU's scalar prefetch and clamped into [0, M], so that a row skips the kv
+// tiles past its length. Same function: per (b, h) an online float32 softmax
 // over kv tiles of  s = q.k^T * scale + bias,  where the bias is
 //   phi   : phi_q . phi_k^T           (rank-R factors, read as float32)
 //   alibi : slope[h] * (k_pos - q_pos) (generated in the kernel, no bias IO)
@@ -14,9 +21,12 @@
 // What bounds it on the H100: at the prefill shape of GPT-2-ALiBi-1.5B
 // (B=4, H=64, N=M=512, D=32, bf16, causal) the bytes that must move are
 // q, k, v and o once (~34 MB, ~10 us at 3.35 TB/s), and the causal work is
-// ~4.3 GFLOP (~4.4 us on the bf16 tensor cores). Both bounds are tiny; this
-// kernel is instead bound by its own arithmetic: it runs on the float32 FMA
-// units from shared memory, without tensor cores.
+// ~4.3 GFLOP (~4.4 us on the bf16 tensor cores). At the Pairformer's pair
+// shape (B=4 slots, H=4, N=M=384, D=Dv=R=96, bf16 q/k/v, float32 factors)
+// the bytes are ~4.7 MB (~1.4 us) and the work of the live rows a few
+// GFLOP. Both bounds are tiny; this kernel is instead bound by its own
+// arithmetic: it runs on the float32 FMA units from shared memory, without
+// tensor cores, and at the pair shape on 96 blocks, fewer than the 132 SMs.
 //
 // Design, simple first: one block of 8 warps per (b, h, 64-row q tile). The
 // q tile, one 64-key k/v tile (and the phi tiles) are staged in shared memory
@@ -57,7 +67,8 @@ struct AttnArgs {
   float scale;
   int mask_kind;        // 0 none, 1 causal, 2 local
   int window;
-  int kv_len;
+  int kv_len;           // static key bound, when lengths is null
+  const int* lengths;   // (B,) per-row key bound (ragged), or null
 };
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -113,6 +124,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(AttnArgs a) {
   const float* pqb = R ? a.phi_q + (bh * N + q0) * R : nullptr;
   const float* pkb = R ? a.phi_k + bh * M * R : nullptr;
   const float slope = a.slopes ? a.slopes[h] : 0.f;
+  const int kv_len = a.lengths ? min(max(a.lengths[b], 0), M) : a.kv_len;
 
   for (int i = tid; i < kBQ * D; i += kThreads)
     sQ[i] = (i / D) < q_rows ? load_f32(qb + i) : 0.f;
@@ -121,7 +133,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(AttnArgs a) {
 
   // The kv tiles this q tile can see (replaces pl.when block pruning).
   const int q_last = q0 + q_rows - 1;
-  int k_hi = min(a.kv_len, M);
+  int k_hi = min(kv_len, M);
   int k_lo = 0;
   if (a.mask_kind != 0) k_hi = min(k_hi, q_last + 1);
   if (a.mask_kind == 2) k_lo = max(0, q0 - (a.window - 1));
@@ -173,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(AttnArgs a) {
             x += bias;
           }
           if (a.slopes) x += slope * (float)(k_pos - q_pos);
-          bool ok = k_pos < a.kv_len;
+          bool ok = k_pos < kv_len;
           if (a.mask_kind != 0) ok = ok && q_pos >= k_pos;
           if (a.mask_kind == 2) ok = ok && (q_pos - k_pos) < a.window;
           s[t] = ok ? x : kMaskValue;
@@ -256,6 +268,14 @@ cudaError_t dispatch(const AttnArgs& a, cudaStream_t stream) {
   }
 }
 
+int run(const AttnArgs& a, int dtype, void* stream) {
+  if (a.B == 0 || a.H == 0 || a.N == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float>(a, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(a, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. Returns the cudaError_t of the launch.
@@ -267,12 +287,23 @@ extern "C" int flashbias_attn_fwd(const void* q, const void* k, const void* v,
                                   void* stream) {
   AttnArgs a{q, k, v, static_cast<const float*>(phi_q),
              static_cast<const float*>(phi_k), static_cast<const float*>(slopes),
-             out, B, H, KVH, N, M, D, Dv, R, scale, mask_kind, window, kv_len};
-  if (B == 0 || H == 0 || N == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, s);
-  return cudaErrorInvalidValue;
+             out, B, H, KVH, N, M, D, Dv, R, scale, mask_kind, window, kv_len,
+             nullptr};
+  return run(a, dtype, stream);
+}
+
+// The ragged kernel: lengths is a (B,) int32 device array, row b's key bound.
+extern "C" int flashbias_attn_ragged_fwd(const void* q, const void* k, const void* v,
+                                         const void* phi_q, const void* phi_k,
+                                         const void* slopes, const void* lengths,
+                                         void* out, int dtype, int B, int H, int KVH,
+                                         int N, int M, int D, int Dv, int R, float scale,
+                                         int mask_kind, int window, void* stream) {
+  AttnArgs a{q, k, v, static_cast<const float*>(phi_q),
+             static_cast<const float*>(phi_k), static_cast<const float*>(slopes),
+             out, B, H, KVH, N, M, D, Dv, R, scale, mask_kind, window, M,
+             static_cast<const int*>(lengths)};
+  return run(a, dtype, stream);
 }
 
 // Dynamic shared memory one launch needs, for the wrapper's size check.

@@ -5,8 +5,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import flash_decode_fwd, flash_decode_torch
 from repro_torch.kernels.flashbias_attn import (
     flashbias_attention_fwd,
+    flashbias_attention_ragged_fwd,
     flashbias_attention_torch,
 )
 
 __all__ = ["ops", "flash_decode_fwd", "flash_decode_torch",
-           "flashbias_attention_fwd", "flashbias_attention_torch"]
+           "flashbias_attention_fwd", "flashbias_attention_ragged_fwd",
+           "flashbias_attention_torch"]

@@ -1,15 +1,23 @@
-"""Flash attention forward with a FlashBias bias: the Hopper CUDA kernel
-(``csrc/flashbias_attn.cu``) and its plain PyTorch version.
+"""Flash attention forward with a FlashBias bias: the Hopper CUDA kernels
+(``csrc/flashbias_attn.cu``) and their plain PyTorch version.
 
-Port of ``repro.kernels.flashbias_attn.flashbias_attention_fwd``. Layout is
-head-major: q ``(B, H, N, D)``, k ``(B, KVH, M, D)``, v ``(B, KVH, M, Dv)``,
-``phi_q (B, H, N, R)``, ``phi_k (B, H, M, R)``, ``slopes (H,)``; the output
-is ``(B, H, N, Dv)`` in q's dtype. Exactly one of {phi_q + phi_k, slopes,
-neither} selects the bias mode (factored / in-kernel ALiBi / none).
+Port of ``repro.kernels.flashbias_attn.flashbias_attention_fwd`` and of its
+ragged variant ``_attn_kernel_ragged``. Layout is head-major: q ``(B, H, N,
+D)``, k ``(B, KVH, M, D)``, v ``(B, KVH, M, Dv)``, ``phi_q (B, H, N, R)``,
+``phi_k (B, H, M, R)``, ``slopes (H,)``; the output is ``(B, H, N, Dv)`` in
+q's dtype. Exactly one of {phi_q + phi_k, slopes, neither} selects the bias
+mode (factored / in-kernel ALiBi / none).
 
-``flashbias_attention_fwd`` is the wrapper: on a CUDA tensor it launches the
-kernel (or raises); on a CPU tensor it runs ``flashbias_attention_torch``.
-``flashbias_attention_fwd.launches`` counts kernel launches.
+Two wrappers, each with its own launch counter (``.launches``), both on the
+one CUDA source:
+
+- ``flashbias_attention_fwd`` (kernel 1): keys bounded by a static
+  ``kv_len``;
+- ``flashbias_attention_ragged_fwd`` (kernel 2): row ``b`` bounded by its
+  own ``lengths[b]``, which stays on the device (the kernel reads it).
+
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
+it runs ``flashbias_attention_torch``.
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ from repro_torch.core.attention import DEFAULT_MASK_VALUE
 from repro_torch.kernels import build
 
 __all__ = ["flashbias_attention_torch", "flashbias_attention_fwd",
-           "MASK_KINDS"]
+           "flashbias_attention_ragged_fwd", "MASK_KINDS"]
 
 MASK_KINDS = {"none": 0, "causal": 1, "local": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,13 +57,19 @@ def flashbias_attention_torch(
     slopes: Optional[torch.Tensor] = None,
     *, scale: float, mask_kind: str = "none", window: int = 0,
     kv_len: Optional[int] = None,
+    lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the kernel: dense float32 logits and softmax.
+    """Plain version of the kernels: dense float32 logits and softmax.
 
-    Differentiable (the ``ops`` backward recomputes through it). A row with
-    no allowed key outputs 0, as the kernel's ``l == 0`` rows do."""
+    ``lengths (B,)`` (the ragged kernel's bound) masks row ``b``'s keys at
+    positions ``>= lengths[b]`` in place of the static ``kv_len``, combined
+    with the ``mask_kind`` mask. Differentiable (the ``ops`` backward
+    recomputes through it). A row with no allowed key outputs 0, as the
+    kernels' ``l == 0`` rows do."""
     b, h, n, _ = q.shape
     kvh, m = k.shape[1], k.shape[2]
+    if lengths is not None and kv_len is not None:
+        raise ValueError("pass kv_len or lengths, not both")
     kv_len = m if kv_len is None else kv_len
     g = h // kvh
     kf = k.float().repeat_interleave(g, dim=1) if g > 1 else k.float()
@@ -68,49 +82,46 @@ def flashbias_attention_torch(
         rel = (torch.arange(m, device=q.device)[None, :]
                - torch.arange(n, device=q.device)[:, None]).float()
         s = s + slopes.float()[:, None, None] * rel
-    allowed = _allowed(n, m, mask_kind, window, kv_len, q.device)
+    allowed = _allowed(n, m, mask_kind, window, kv_len, q.device)  # (N, M)
+    if lengths is not None:
+        in_range = (torch.arange(m, device=q.device)[None, :]
+                    < lengths.to(q.device).reshape(-1, 1))          # (B, M)
+        allowed = (allowed[None] & in_range[:, None, :])[:, None]  # B1NM
     s = torch.where(allowed, s, torch.full_like(s, DEFAULT_MASK_VALUE))
     o = torch.einsum("bhnm,bhmd->bhnd", torch.softmax(s, dim=-1), vf)
-    o = o * allowed.any(dim=-1)[:, None]
+    o = o * allowed.any(dim=-1, keepdim=True)
     return o.to(q.dtype)
 
 
 @functools.cache
 def _kernel():
-    """The launch and shared-memory functions of the built library,
-    bound once (building it on first use)."""
+    """The static and ragged launch functions and the shared-memory size
+    function of the built library, bound once (building it on first use)."""
     lib = build.load("flashbias_attn")
     fn = lib.flashbias_attn_fwd
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    ragged = lib.flashbias_attn_ragged_fwd
+    ragged.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+    ragged.restype = ctypes.c_int
     smem = lib.flashbias_attn_smem_bytes
     smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_longlong
-    return fn, smem
+    return fn, ragged, smem
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def flashbias_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    phi_q: Optional[torch.Tensor] = None,
-    phi_k: Optional[torch.Tensor] = None,
-    slopes: Optional[torch.Tensor] = None,
-    *, scale: float, mask_kind: str = "none", window: int = 0,
-    kv_len: Optional[int] = None,
-) -> torch.Tensor:
-    """Kernel wrapper: launches ``flashbias_attn.cu`` on CUDA tensors, runs
-    the plain version on CPU tensors. Forward only."""
-    if q.device.type == "cpu":
-        return flashbias_attention_torch(
-            q, k, v, phi_q, phi_k, slopes, scale=scale, mask_kind=mask_kind,
-            window=window, kv_len=kv_len)
+def _checked(q, k, v, phi_q, phi_k, slopes, mask_kind, window, name):
+    """Validate a CUDA launch's inputs; returns the dims, the float32
+    contiguous factors and slopes, and the output tensor."""
     if q.device.type != "cuda":
-        raise ValueError(f"flashbias_attention_fwd: no kernel for device "
-                         f"{q.device}")
+        raise ValueError(f"{name}: no kernel for device {q.device}")
     b, h, n, d = q.shape
     if k.ndim != 4 or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k shape {tuple(k.shape)} does not match q "
@@ -126,9 +137,6 @@ def flashbias_attention_fwd(
                          f"the kernel takes float32 or bfloat16, all alike")
     if mask_kind not in MASK_KINDS or (mask_kind == "local" and window < 1):
         raise ValueError(f"mask {mask_kind!r} window {window}")
-    kv_len = m if kv_len is None else int(kv_len)
-    if not 0 <= kv_len <= m:
-        raise ValueError(f"kv_len {kv_len} outside [0, {m}]")
     if not 1 <= d <= 256 or not 1 <= dv <= 256:
         raise ValueError(f"head dims {d}/{dv}: the kernel takes 1..256")
     r = 0
@@ -147,19 +155,42 @@ def flashbias_attention_fwd(
         slopes = slopes.float().contiguous()
     tensors = [t for t in (q, k, v, phi_q, phi_k, slopes) if t is not None]
     if any(t.device != q.device for t in tensors):
-        raise ValueError("flashbias_attention_fwd: inputs on several devices")
+        raise ValueError(f"{name}: inputs on several devices")
     if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flashbias_attention_fwd takes contiguous q, k, v")
-    fn, smem = _kernel()
-    if smem(d, dv, r) > _SMEM_LIMIT:
+        raise ValueError(f"{name} takes contiguous q, k, v")
+    if _kernel()[2](d, dv, r) > _SMEM_LIMIT:
         raise ValueError(f"head dims {d}/{dv} with rank {r} exceed the "
                          f"kernel's shared memory")
     out = torch.empty((b, h, n, dv), dtype=q.dtype, device=q.device)
+    return (b, h, kvh, n, m, d, dv, r), phi_q, phi_k, slopes, out
+
+
+def flashbias_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    phi_q: Optional[torch.Tensor] = None,
+    phi_k: Optional[torch.Tensor] = None,
+    slopes: Optional[torch.Tensor] = None,
+    *, scale: float, mask_kind: str = "none", window: int = 0,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Kernel 1's wrapper: launches ``flashbias_attn.cu`` on CUDA tensors,
+    runs the plain version on CPU tensors. Forward only."""
+    if q.device.type == "cpu":
+        return flashbias_attention_torch(
+            q, k, v, phi_q, phi_k, slopes, scale=scale, mask_kind=mask_kind,
+            window=window, kv_len=kv_len)
+    dims, phi_q, phi_k, slopes, out = _checked(
+        q, k, v, phi_q, phi_k, slopes, mask_kind, window,
+        "flashbias_attention_fwd")
+    m = dims[4]
+    kv_len = m if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= m:
+        raise ValueError(f"kv_len {kv_len} outside [0, {m}]")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(phi_q),
-             _ptr(phi_k), _ptr(slopes), out.data_ptr(), _DTYPES[q.dtype],
-             b, h, kvh, n, m, d, dv, r, float(scale), MASK_KINDS[mask_kind],
-             int(window), kv_len, stream)
+    err = _kernel()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(phi_q),
+                       _ptr(phi_k), _ptr(slopes), out.data_ptr(),
+                       _DTYPES[q.dtype], *dims, float(scale),
+                       MASK_KINDS[mask_kind], int(window), kv_len, stream)
     if err != 0:
         raise RuntimeError(f"flashbias_attn.cu launch failed: CUDA error "
                            f"{err}")
@@ -168,3 +199,41 @@ def flashbias_attention_fwd(
 
 
 flashbias_attention_fwd.launches = 0
+
+
+def flashbias_attention_ragged_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    phi_q: Optional[torch.Tensor], phi_k: Optional[torch.Tensor],
+    slopes: Optional[torch.Tensor], lengths: torch.Tensor,
+    *, scale: float, mask_kind: str = "none", window: int = 0,
+) -> torch.Tensor:
+    """Kernel 2's wrapper: row ``b`` attends to keys at positions
+    ``< lengths[b]`` (combined with ``mask_kind``); a row with no allowed
+    key outputs 0. ``lengths (B,)`` is never read back to the host: the
+    kernel clamps it into ``[0, M]`` itself. Launches the ragged entry of
+    ``flashbias_attn.cu`` on CUDA tensors, runs the plain version on CPU
+    tensors. Forward only."""
+    if q.device.type == "cpu":
+        return flashbias_attention_torch(
+            q, k, v, phi_q, phi_k, slopes, scale=scale, mask_kind=mask_kind,
+            window=window, lengths=lengths)
+    dims, phi_q, phi_k, slopes, out = _checked(
+        q, k, v, phi_q, phi_k, slopes, mask_kind, window,
+        "flashbias_attention_ragged_fwd")
+    if lengths.shape != (dims[0],):
+        raise ValueError(f"lengths shape {tuple(lengths.shape)} != "
+                         f"({dims[0]},)")
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(phi_q),
+                       _ptr(phi_k), _ptr(slopes), lengths.data_ptr(),
+                       out.data_ptr(), _DTYPES[q.dtype], *dims, float(scale),
+                       MASK_KINDS[mask_kind], int(window), stream)
+    if err != 0:
+        raise RuntimeError(f"flashbias_attn.cu ragged launch failed: CUDA "
+                           f"error {err}")
+    flashbias_attention_ragged_fwd.launches += 1
+    return out
+
+
+flashbias_attention_ragged_fwd.launches = 0

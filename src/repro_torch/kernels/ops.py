@@ -20,7 +20,10 @@ constraints.
 ``flash_attention`` is differentiable: a ``torch.autograd.Function`` whose
 backward recomputes the forward through the plain path and differentiates
 that (flash-style recompute, as the reference's ``_bwd`` does with its XLA
-path). There is no backward kernel, as there is none on the TPU.
+path). There is no backward kernel, as there is none on the TPU. With
+``lengths`` (the ragged batch of the Pairformer serve path) the call runs
+outside that Function, as the reference's ``_flash_attention_ragged`` does:
+the plain path is differentiable by itself, the ragged kernel forward only.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from repro_torch.kernels.flash_decode import (
 )
 from repro_torch.kernels.flashbias_attn import (
     flashbias_attention_fwd,
+    flashbias_attention_ragged_fwd,
     flashbias_attention_torch,
 )
 
@@ -95,6 +99,7 @@ def flash_attention(
     scale: Optional[float] = None,
     impl: str = "auto",
     layout: str = "bshd",
+    lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """FlashBias attention.
 
@@ -105,6 +110,12 @@ def flash_attention(
     Exactly one of {phi_q+phi_k, slopes ``(H,)``, neither} selects the bias
     mode (factored / in-kernel ALiBi / none). Differentiable in q, k, v and
     the factors.
+
+    ``lengths (B,)`` takes the ragged path: row b attends only to keys at
+    positions ``< lengths[b]`` (the serve engine's padded wave of
+    variable-length requests); rows with length 0 output zeros. The
+    ``"cuda"`` impl is then forward only and raises if an input requires
+    grad; ``lengths`` is never read back to the host.
     """
     if layout not in ("bshd", "bhsd"):
         raise ValueError(f"layout {layout!r}")
@@ -124,10 +135,33 @@ def flash_attention(
                 raise ValueError(f"phi_k heads {phi_k.shape[1]} vs {h}")
             phi_k = phi_k.repeat_interleave(h // phi_k.shape[1], dim=1)
         phi_k = phi_k.expand(b, h, m, r)
+    if lengths is not None:
+        o = _flash_attention_ragged(q, k, v, phi_q, phi_k, slopes, lengths,
+                                    mask_kind, window, scale, impl)
+        return o.transpose(1, 2) if layout == "bshd" else o
     o = _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                               phi_q, phi_k, slopes, mask_kind, window, scale,
                               impl)
     return o.transpose(1, 2) if layout == "bshd" else o
+
+
+def _flash_attention_ragged(q, k, v, phi_q, phi_k, slopes, lengths,
+                            mask_kind, window, scale, impl):
+    """The ragged path (head-major inputs): the plain version, or kernel 2
+    forward only."""
+    lengths = torch.as_tensor(lengths, device=q.device).to(torch.int32)
+    kw = {"scale": scale, "mask_kind": mask_kind, "window": window}
+    if impl == "torch":
+        return flashbias_attention_torch(q, k, v, phi_q, phi_k, slopes,
+                                         lengths=lengths, **kw)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, phi_q, phi_k, slopes)):
+        raise RuntimeError("the ragged attention kernel is forward only: "
+                           "use impl='torch' to differentiate")
+    return flashbias_attention_ragged_fwd(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), phi_q, phi_k,
+                                          slopes, lengths, **kw)
 
 
 def _static_page_cap(lengths: torch.Tensor, ps: int, width: int,

@@ -1,5 +1,5 @@
 """Uniform Model interface consumed by the server (port of
-``repro.models.api``, dense LM family).
+``repro.models.api``: the dense LM family and the Pairformer).
 
 ``get_model(cfg)`` returns a ``Model`` with:
 
@@ -16,15 +16,21 @@
   pages into the pool and its table rows into the slots,
 - ``grow_page_table(dst, slots, tables)``  — rewrite the table rows of
   slots that grew a page.
+
+The three paged entries are the LM family's; the Pairformer's ``Model``
+leaves them None. Its ``prefill`` is the admission trunk pass (with the
+factor MLPs as ``factors=``), its ``decode`` one refinement iteration over
+the slot batch, and its ``init_cache`` takes ``factors=`` to size the
+factor cache.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, pairformer
 
 __all__ = ["Model", "get_model"]
 
@@ -37,12 +43,30 @@ class Model:
     decode: Callable
     init_cache: Callable
     insert_cache: Callable
-    init_paged_cache: Callable
-    insert_paged: Callable
-    grow_page_table: Callable
+    init_paged_cache: Optional[Callable] = None
+    insert_paged: Optional[Callable] = None
+    grow_page_table: Optional[Callable] = None
+
+
+def _pairformer_model(cfg: ArchConfig) -> Model:
+    return Model(
+        cfg=cfg,
+        template=lambda: pairformer.pairformer_template(cfg),
+        prefill=lambda p, batch, max_len=None, lengths=None, factors=None:
+            pairformer.serve_prefill(p, batch, cfg, factors,
+                                     max_len=max_len, lengths=lengths),
+        decode=lambda p, cache, tokens=None, max_pages=None:
+            pairformer.serve_step(p, cache, cfg),
+        init_cache=lambda b, max_len, device="cuda", length=0, factors=None:
+            pairformer.init_serve_cache(cfg, b, max_len, factors,
+                                        device=device),
+        insert_cache=pairformer.insert_serve_cache_at_slots,
+    )
 
 
 def get_model(cfg: ArchConfig) -> Model:
+    if cfg.family == "pairformer":
+        return _pairformer_model(cfg)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "

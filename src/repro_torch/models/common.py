@@ -16,7 +16,8 @@ import torch.nn.functional as F
 from repro_torch.core.bias import alibi_slopes
 
 __all__ = ["PDef", "stack_layers", "materialize", "init_params",
-           "tree_map", "rmsnorm", "swiglu", "embed_lookup", "unembed_logits"]
+           "tree_map", "rmsnorm", "swiglu", "gelu_mlp", "embed_lookup",
+           "unembed_logits"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +90,13 @@ def swiglu(x: torch.Tensor, wi_fused: torch.Tensor,
     d, f, _ = wi_fused.shape
     h2 = (x @ wi_fused.reshape(d, 2 * f)).unflatten(-1, (f, 2))
     return (F.silu(h2[..., 0]) * h2[..., 1]) @ wo
+
+
+def gelu_mlp(x: torch.Tensor, wi: torch.Tensor,
+             wo: torch.Tensor) -> torch.Tensor:
+    """GELU FFN. ``jax.nn.gelu`` defaults to the tanh approximation, so the
+    port asks for it by name (torch's default is the exact erf form)."""
+    return F.gelu(x @ wi, approximate="tanh") @ wo
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

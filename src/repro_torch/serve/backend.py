@@ -1,9 +1,17 @@
-"""Serve backend for the token-decoding LM path: what a workload owns
-(device state, the admit/step programs, per-slot sampling state, retire and
-preemption snapshots) versus what the engine core owns (requests,
-scheduling, slots, lifecycle).
+"""Serve backends: what a workload owns (device state, the admit/step
+programs, per-slot state, retire and preemption snapshots) versus what the
+engine core owns (requests, scheduling, slots, lifecycle).
 
-Port of ``repro.serve.backend.TokenDecodeBackend``, in two KV modes:
+Port of ``repro.serve.backend``: the ``Backend`` protocol with the
+reference's defaults, and two backends.
+
+``PairBatchBackend`` serves batched Pairformer inference (the paper's
+Sec. 4.4 workload): a request is one complex, admission runs the trunk once
+and caches its per-layer pair-bias factors (or the dense bias, for the A/B
+baselines), and every step is one refinement iteration of single-rep
+attention over the padded slot batch, masked per slot at its own ``n_res``.
+
+``TokenDecodeBackend`` is the autoregressive LM path, in two KV modes:
 
 - contiguous: each slot owns a ``max_len`` segment of a kernel-layout
   cache ``(L, n_slots, KVH, max_len, hd)``;
@@ -19,11 +27,13 @@ Chunked prefill, prefix caching and mesh sharding wait for later slices.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.models import pairformer
 from repro_torch.models.api import Model
 from repro_torch.models.common import tree_map
 from repro_torch.models.lm import cast_layers
@@ -32,10 +42,99 @@ from repro_torch.serve.pages import PagePool
 from repro_torch.serve.sampling import sample_tokens, sample_tokens_guarded
 from repro_torch.serve.scheduler import Request
 
-__all__ = ["TokenDecodeBackend"]
+__all__ = ["Backend", "TokenDecodeBackend", "PairBatchBackend"]
 
 
-class TokenDecodeBackend:
+class Backend:
+    """Protocol between the engine core and a workload backend.
+
+    ``admit``/``step`` return ``(emissions, mask)``: ``mask[slot]`` marks
+    slots that advanced one budget unit this call; ``emissions`` is a
+    per-slot int array of emitted token ids, or None for backends that
+    emit nothing incrementally (the engine then collects the result via
+    ``fetch_result`` when the budget drains). Slot registration, budget
+    accounting and retirement stay in the engine core."""
+
+    paged: bool = False        # admission gated on page accounting
+    lazy: bool = False         # pages grow mid-flight (may force preemption)
+    guards: bool = True        # host-side non-finite guards
+
+    def ensure_state(self) -> None:
+        """Allocate device state on first use (idempotent)."""
+        raise NotImplementedError
+
+    def validate(self, req: Request) -> None:
+        """Submit-time bounds check (raises on an inadmissible request)."""
+        raise NotImplementedError
+
+    def admit(self, wave: List[Request], slots: List[int]):
+        """Prefill ``wave`` into ``slots``; returns (emissions, mask)."""
+        raise NotImplementedError
+
+    def step(self, live):
+        """Advance every live slot one budget unit."""
+        raise NotImplementedError
+
+    def fetch_result(self, slot: int, st) -> Optional[np.ndarray]:
+        """Final non-incremental result for a finishing slot (or None)."""
+        return None
+
+    def stream_result(self, slot: int, st) -> Optional[np.ndarray]:
+        """Per-step streaming payload for non-emitting backends (the engine
+        passes it to a request's ``on_token`` sink when ``emissions`` is
+        None). Token backends stream the emitted id instead."""
+        return None
+
+    def release(self, slot: int) -> None:
+        """Retire a finished slot: freeze its cache row, free resources."""
+        raise NotImplementedError
+
+    def snapshot(self, slot: int, st, emitted) -> Request:
+        """Preempt: freeze + free the slot, return the resumable Request."""
+        raise NotImplementedError
+
+    def snapshot_request(self, slot: int, st, emitted) -> Request:
+        """The resumable Request ``snapshot`` would return, without freezing
+        or freeing anything."""
+        raise NotImplementedError
+
+    def take_guard_faults(self) -> Dict[int, str]:
+        """Drain {slot: detail} for slots whose last admit/step tripped a
+        non-finite guard. The engine drains after every backend call that
+        can emit and quarantines the listed slots."""
+        bad = getattr(self, "_guard_bad", None)
+        if not bad:
+            return {}
+        self._guard_bad = {}
+        return bad
+
+    def admission_units(self, req: Request) -> int:
+        """Resource units (pages) reserved when ``req`` is admitted."""
+        return 0
+
+    def units_free(self) -> int:
+        return 0
+
+    def growth_pending(self, live) -> List[int]:
+        """Slots whose next step needs a resource grown first."""
+        return []
+
+    def grow_slots(self, growing: List[int]) -> None:
+        raise NotImplementedError
+
+    def page_cap(self, live) -> Optional[int]:
+        """Static page bound for this step (None for unpaged backends)."""
+        return None
+
+    def page_stats(self) -> dict:
+        """Pool accounting (empty for unpaged backends)."""
+        return {}
+
+    def stats(self) -> dict:
+        return {}
+
+
+class TokenDecodeBackend(Backend):
     """Autoregressive LM decode over a contiguous slot cache or a shared
     page pool (``page_size``; see the module docstring).
 
@@ -51,8 +150,6 @@ class TokenDecodeBackend:
     slots that advanced one budget unit; ``emissions`` holds the emitted
     token ids per slot. Parameters are cast to the compute dtype once, here.
     """
-
-    guards: bool = True        # host-side non-finite guards
 
     def __init__(self, model: Model, params: dict, max_len: int,
                  n_slots: int, prefill_len: Optional[int] = None,
@@ -293,12 +390,6 @@ class TokenDecodeBackend:
             self._last_tok = torch.where(keep, toks[:, None], self._last_tok)
         return toks_h
 
-    def take_guard_faults(self) -> Dict[int, str]:
-        """Drain {slot: detail} for slots whose last admit/step tripped the
-        non-finite guard."""
-        bad, self._guard_bad = self._guard_bad, {}
-        return bad
-
     # -- retire / preempt ------------------------------------------------
 
     def release(self, slot: int) -> None:
@@ -340,3 +431,142 @@ class TokenDecodeBackend:
         return {"prefill_waves": self.n_waves, "decode_steps": self.n_steps,
                 **self.page_stats()}
 
+
+
+class PairBatchBackend(Backend):
+    """Batched Pairformer inference (FlashBias Sec. 4.4).
+
+    A request is ONE COMPLEX: its payload is a float ``(n_res, F)`` residue
+    feature array, its budget ``max_new_tokens`` the number of refinement
+    iterations, and its result the final single representation ``(n_res,
+    d_model)``. Admission runs the full trunk once and caches each layer's
+    pair-bias state per slot: factor-MLP ``phi_q``/``phi_k`` when
+    ``factors`` is given (Eq. 5), truncated-SVD factors of the projected
+    bias when not (Sec. 4.3), or the dense bias / the pair rep under
+    ``cfg.bias_mode="dense"`` / ``"dense_recompute"`` (the A/B baselines).
+    Steps then run attention + transition over the single rep only.
+
+    Every wave pads to ``max_len`` residues and attention masks each slot
+    at its own ``n_res`` (factor-MLP biases are nonzero at padded residues,
+    so the mask is load-bearing). Preemption restarts a complex from
+    scratch: nothing is emitted incrementally, so the snapshot carries no
+    device state. Parameters are cast to the compute dtype once, here."""
+
+    def __init__(self, model: Model, params: dict, max_len: int,
+                 n_slots: int, factors: Optional[dict] = None,
+                 device="cuda"):
+        self.model = model
+        self.device = torch.device(device)
+        self.params = pairformer.cast_params(
+            tree_map(lambda x: x.to(self.device), params), model.cfg)
+        self.factors = (None if factors is None else
+                        tree_map(lambda x: x.to(self.device), factors))
+        self.max_len, self.n_slots = max_len, n_slots
+        self._guard_bad: Dict[int, str] = {}
+        self._cache = None                        # allocated on first use
+        self.n_waves = 0                          # admission waves run
+        self.n_steps = 0                          # refinement steps run
+
+    def ensure_state(self) -> None:
+        if self._cache is None:
+            self._cache = self.model.init_cache(
+                self.n_slots, self.max_len, device=self.device,
+                factors=self.factors)
+
+    def validate(self, req: Request) -> None:
+        if req.tokens.dtype != np.float32 or req.tokens.ndim != 2:
+            raise AdmissionRejected(
+                "pair request payload must be a float (n_res, F) feature "
+                "array")
+        if req.tokens.shape[0] > self.max_len:
+            raise AdmissionRejected(
+                f"complex has {req.tokens.shape[0]} residues; slot batch "
+                f"is padded to max_len={self.max_len}")
+        if req.frontend is not None:
+            raise AdmissionRejected("pair requests carry no frontend")
+
+    def admit(self, wave: List[Request], slots: List[int]):
+        """Trunk pass over the padded wave; copy the per-layer bias state
+        into the slot cache. Emits nothing (mask all-False): the budget
+        counts refinement STEPS, and admission is step 0."""
+        ns, w = self.n_slots, len(wave)
+        f = wave[0].tokens.shape[1]
+        feats = np.zeros((ns, self.max_len, f), np.float32)
+        lengths = np.zeros((ns,), np.int32)
+        for i, r in enumerate(wave):
+            feats[i, :r.tokens.shape[0]] = r.tokens
+            lengths[i] = r.tokens.shape[0]
+        with torch.no_grad():
+            _, wave_cache = self.model.prefill(
+                self.params, {"feats": torch.as_tensor(feats,
+                                                       device=self.device)},
+                max_len=self.max_len,
+                lengths=torch.as_tensor(lengths, device=self.device),
+                factors=self.factors)
+            if self.guards:
+                # the admission-time guard of the reference, checking the
+                # same leaves: floating leaves whose LEADING axis is the
+                # slot batch. A NaN/Inf in the frozen state poisons every
+                # step of the request, so it is caught now, per wave row.
+                flags = [torch.isfinite(leaf).flatten(1).all(dim=1)
+                         for leaf in wave_cache.values()
+                         if leaf.is_floating_point() and leaf.dim() >= 1
+                         and leaf.shape[0] == ns]
+                if flags:
+                    ok = functools.reduce(torch.logical_and,
+                                          flags).cpu().numpy()
+                    for i in range(w):
+                        if not ok[i]:
+                            self._guard_bad[slots[i]] = (
+                                f"non-finite factor cache at admission of "
+                                f"slot {slots[i]} (trunk produced NaN/Inf "
+                                f"from the complex features)")
+            slot_ids = np.full((ns,), ns, np.int64)  # padding rows dropped
+            slot_ids[:w] = slots
+            self._cache = self.model.insert_cache(self._cache, wave_cache,
+                                                  slot_ids)
+        self.n_waves += 1
+        return None, np.zeros((ns,), bool)
+
+    def step(self, live):
+        """One refinement iteration over every slot (retired slots are
+        frozen by their zero length)."""
+        with torch.no_grad():
+            self._cache = self.model.decode(self.params, self._cache)
+        self.n_steps += 1
+        mask = np.zeros((self.n_slots,), bool)
+        mask[list(live)] = True
+        return None, mask
+
+    def fetch_result(self, slot: int, st) -> np.ndarray:
+        """A float32 host copy of the slot's single rep (a copy even on the
+        CPU, where the cache is later written in place)."""
+        n = st.req.tokens.shape[0]
+        return self._cache["s"][slot, :n].to("cpu", torch.float32,
+                                             copy=True).numpy()
+
+    def stream_result(self, slot: int, st) -> np.ndarray:
+        """Per-iteration single rep for streaming sinks: the pair backend
+        emits no tokens, so ``on_token`` subscribers get the current
+        ``(n_res, d_model)`` state after every refinement step."""
+        return self.fetch_result(slot, st)
+
+    def release(self, slot: int) -> None:
+        self._cache["length"][slot] = 0
+
+    def snapshot_request(self, slot: int, st, emitted) -> Request:
+        """Preemption = restart: the resume request is the ORIGINAL with its
+        full budget (no incremental output was emitted, so the re-run is
+        deterministic by construction)."""
+        req = st.req
+        return Request(req.rid, req.tokens, req.max_new_tokens,
+                       req.sampling, req.frontend, priority=req.priority,
+                       on_token=req.on_token)
+
+    def snapshot(self, slot: int, st, emitted) -> Request:
+        resumed = self.snapshot_request(slot, st, emitted)
+        self.release(slot)
+        return resumed
+
+    def stats(self) -> dict:
+        return {"prefill_waves": self.n_waves, "decode_steps": self.n_steps}

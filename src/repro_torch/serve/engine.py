@@ -3,9 +3,16 @@
 The engine owns ``n_slots`` lanes and everything REQUEST-shaped: request
 ids, the scheduler and admission waves, the slot free-list and live map,
 result/done bookkeeping, budget accounting, the preemption victim policy
-and the request lifecycle. Everything DEVICE-shaped — the KV cache, the
-sampling state, the prefill/decode programs — lives in the
-``TokenDecodeBackend``.
+and the request lifecycle. Everything DEVICE-shaped — the caches, the
+sampling state, the prefill/decode programs — lives in a backend, chosen
+by the model's family:
+
+- ``TokenDecodeBackend`` (the dense LM family): autoregressive decode over
+  a contiguous or paged KV cache; a request's result is its token ids;
+- ``PairBatchBackend`` (``cfg.family == "pairformer"``): batched Pairformer
+  inference, where a request is one complex, admission caches its
+  per-layer pair-bias factors, every step is one refinement iteration, and
+  the result is the final float ``(n_res, d_model)`` single rep.
 
 A FIFO scheduler (with priority classes — higher admits first, preempts
 last) fills freed slots; each admission wave is padded to ``n_slots`` and
@@ -16,7 +23,9 @@ vector.
 Determinism contract: every per-slot computation is batch-row independent
 and sampling streams are per-request, so a request's output is identical
 whether it runs alone or packed with strangers — provided the padded
-prompt length is pinned (``prefill_len``).
+prompt length is pinned (``prefill_len``; the pair backend pins its
+padding at ``max_len``) and the slot count is the same: across slot
+counts the batch shapes differ and results agree at float tolerance.
 
 Fault tolerance: every request carries a lifecycle record (``QUEUED ->
 RUNNING -> OK / FAILED / TIMED_OUT / CANCELLED / REJECTED``); ``result``
@@ -47,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.api import Model
-from repro_torch.serve.backend import TokenDecodeBackend
+from repro_torch.serve.backend import PairBatchBackend, TokenDecodeBackend
 from repro_torch.serve.lifecycle import (
     CANCELLED, FAILED, OK, QUEUED, REJECTED, RUNNING, TERMINAL_STATUSES,
     TIMED_OUT, AdmissionRejected, EngineStalled, PoolExhausted,
@@ -99,10 +108,12 @@ class ServeEngine:
 
     Args:
         model: a serve-capable ``Model`` (prefill/decode/init_cache/
-            insert_cache).
+            insert_cache). ``cfg.family == "pairformer"`` gets the batched
+            pair-inference backend, every other family the token backend.
         params: parameter tree (cast to the compute dtype and moved to
             ``device`` once, at construction).
-        max_len: per-slot cache segment length.
+        max_len: per-slot cache segment length. For the pair backend this
+            is the pinned residue padding (the largest admissible n_res).
         eos_id: generation stops when this id is sampled (kept in the
             output). -1 never matches.
         n_slots: fixed batch — the number of concurrent requests.
@@ -114,11 +125,14 @@ class ServeEngine:
         stall_limit: ``run()`` raises ``EngineStalled`` after this many
             consecutive steps with work outstanding but no progress.
         page_size / n_pages / pages_per_slot / page_reservation: paged
-            KV, forwarded to the backend: page size in tokens, pool size
-            (default: ``n_slots`` max_len segments), page-table row width,
-            and ``"lazy"`` (prompt pages at admission, growth on demand,
-            preemption when the pool is dry) or ``"whole"`` (the full
-            footprint at admission; decode never allocates).
+            KV, forwarded to the token backend: page size in tokens, pool
+            size (default: ``n_slots`` max_len segments), page-table row
+            width, and ``"lazy"`` (prompt pages at admission, growth on
+            demand, preemption when the pool is dry) or ``"whole"`` (the
+            full footprint at admission; decode never allocates). Ignored
+            by the pair backend.
+        factors: fitted pair-bias factor MLP params (pair backend only;
+            None serves truncated-SVD factors).
         device: where the engine runs; None means the CUDA device.
         prefill_chunk, prefix_cache, mesh, faults: later slices of the
             port; passing any raises ``NotImplementedError``.
@@ -138,6 +152,7 @@ class ServeEngine:
                  guards: bool = True,
                  faults=None,
                  stall_limit: int = 64,
+                 factors: Optional[dict] = None,
                  device=None):
         if prefill_chunk is not None:
             raise _deferred("prefill_chunk (chunked prefill)", "12")
@@ -153,11 +168,16 @@ class ServeEngine:
         self.model = model
         self.max_len, self.eos_id = max_len, eos_id
         self.n_slots, self.prefill_len = n_slots, prefill_len
-        self.backend = TokenDecodeBackend(
-            model, params, max_len=max_len, n_slots=n_slots,
-            prefill_len=prefill_len, page_size=page_size, n_pages=n_pages,
-            pages_per_slot=pages_per_slot,
-            page_reservation=page_reservation, device=self.device)
+        if model.cfg.family == "pairformer":
+            self.backend = PairBatchBackend(
+                model, params, max_len=max_len, n_slots=n_slots,
+                factors=factors, device=self.device)
+        else:
+            self.backend = TokenDecodeBackend(
+                model, params, max_len=max_len, n_slots=n_slots,
+                prefill_len=prefill_len, page_size=page_size,
+                n_pages=n_pages, pages_per_slot=pages_per_slot,
+                page_reservation=page_reservation, device=self.device)
         if self.backend.paged:
             self.page_size = self.backend.page_size
             self.n_pages = self.backend.n_pages
@@ -171,7 +191,7 @@ class ServeEngine:
         self.n_faults_contained = 0     # pool exhaustions at growth
         self.scheduler = FIFOScheduler(policy=scheduler_policy)
         self._next_rid = 0
-        self._results: Dict[int, list] = {}     # rid -> [ids]
+        self._results: Dict[int, object] = {}   # rid -> [ids] | ndarray
         self._done: Dict[int, bool] = {}
         self._meta: Dict[int, _ReqMeta] = {}    # rid -> lifecycle record
         self._live: Dict[int, _Slot] = {}       # slot -> _Slot
@@ -190,7 +210,10 @@ class ServeEngine:
         """Queue one request; returns its request id.
 
         ``priority``: higher admits first and preempts last. ``on_token``
-        is called with each emitted token id. ``deadline_steps``: the
+        is called once per budget unit the request advances, with the
+        emitted token id (token backend) or the backend's per-step
+        ``stream_result`` (pair backend: the current single rep); it rides
+        the request, so it survives preemption. ``deadline_steps``: the
         request ends ``TIMED_OUT`` (keeping its partial result) if still
         incomplete after this many further engine steps. ``max_retries``:
         quarantine retries before a guard-tripping request ends ``FAILED``.
@@ -225,13 +248,17 @@ class ServeEngine:
         return rid
 
     def result(self, rid: int) -> RequestRecord:
-        """The ``(status, tokens, error)`` record for ``rid``: the generated
-        ids so far (complete iff ``is_done``)."""
+        """The ``(status, result, error)`` record for ``rid``: the generated
+        int32 ids so far for the token backend, the final float ``(n_res,
+        d_model)`` single rep for the pair backend (complete iff
+        ``is_done``)."""
         if rid not in self._results:
             raise RequestNotLive(f"unknown request id {rid}")
+        res = self._results[rid]
         meta = self._meta[rid]
-        return RequestRecord(np.asarray(self._results[rid], np.int32),
-                             status=meta.status, error=meta.error)
+        if not isinstance(res, np.ndarray):
+            res = np.asarray(res, np.int32)
+        return RequestRecord(res, status=meta.status, error=meta.error)
 
     def status(self, rid: int) -> str:
         if rid not in self._meta:
@@ -437,7 +464,12 @@ class ServeEngine:
                  sampling: Optional[SamplingParams] = None) -> np.ndarray:
         """Batch convenience wrapper: prompts is a (B, T) array or a list of
         1-D ragged prompts. Returns (B, max_new_tokens) generated ids; rows
-        that stop early at ``eos_id`` pad with ``eos_id``."""
+        that stop early at ``eos_id`` pad with ``eos_id``. Token backends
+        only: pair requests go through ``submit``/``result``."""
+        if not isinstance(self.backend, TokenDecodeBackend):
+            raise TypeError(
+                "generate() is a token-emitting API; submit()/result() "
+                "serve pair requests")
         rows = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
         rids = [self.submit(row, max_new_tokens, sampling=sampling)
                 for row in rows]
@@ -511,7 +543,7 @@ class ServeEngine:
         self._finish(rid, FAILED, error)
         return [rid]
 
-    def _commit_guarded(self, emissions: np.ndarray,
+    def _commit_guarded(self, emissions: Optional[np.ndarray],
                         mask: np.ndarray) -> List[int]:
         """Drain the backend's guard verdicts BEFORE committing: a slot that
         tripped the guard has its emission withheld and is quarantined."""
@@ -538,18 +570,30 @@ class ServeEngine:
     # Internals
     # ------------------------------------------------------------------
 
-    def _commit(self, emissions: np.ndarray, mask: np.ndarray) -> List[int]:
-        """Record this step's emissions and retire finished requests."""
+    def _commit(self, emissions: Optional[np.ndarray],
+                mask: np.ndarray) -> List[int]:
+        """Record this step's emissions and retire finished requests.
+
+        ``mask`` marks slots that advanced one budget unit; ``emissions``
+        is per-slot token ids (token backend) or None (pair backend:
+        nothing is emitted incrementally; the result is fetched from the
+        backend when the budget drains)."""
         finished = []
         for slot in [s for s in self._live if mask[s]]:
             st = self._live[slot]
-            t = int(emissions[slot])
-            self._results[st.req.rid].append(t)
+            t = None if emissions is None else int(emissions[slot])
+            if t is not None:
+                self._results[st.req.rid].append(t)
             st.generated += 1
             self._advanced += 1
             if st.req.on_token is not None:
-                st.req.on_token(t)
-            if t == self.eos_id or st.generated >= st.req.max_new_tokens:
+                st.req.on_token(t if t is not None
+                                else self.backend.stream_result(slot, st))
+            if ((t is not None and t == self.eos_id)
+                    or st.generated >= st.req.max_new_tokens):
+                res = self.backend.fetch_result(slot, st)
+                if res is not None:
+                    self._results[st.req.rid] = res
                 self._finish(st.req.rid, OK)
                 finished.append(st.req.rid)
                 del self._live[slot]

@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_decode import (
 )
 from repro_torch.kernels.flashbias_attn import (
     flashbias_attention_fwd,
+    flashbias_attention_ragged_fwd,
     flashbias_attention_torch,
 )
 
@@ -320,3 +321,123 @@ def test_flash_decode_paged_kernel_matches_plain_on_card(cuda, bias, dtype,
     tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * 4
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
     assert not got[0].any()
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: the ragged batch (per-row key bound ``lengths``)
+# ---------------------------------------------------------------------------
+
+RAGGED_LENGTHS = [40, 17, 0, 33]      # full, not a tile multiple, empty
+
+
+def _ragged_case(rng, bias, h=4, kvh=2):
+    b = len(RAGGED_LENGTHS)
+    q, k, v = _rand(rng, b, h, N, D), _rand(rng, b, kvh, N, D), \
+        _rand(rng, b, kvh, N, D)
+    phi_q = phi_k = slopes = None
+    if bias == "phi":
+        phi_q, phi_k = _rand(rng, b, h, N, R), _rand(rng, b, h, N, R)
+    elif bias == "alibi":
+        slopes = tbias.alibi_slopes(h).numpy()
+    lengths = np.asarray(RAGGED_LENGTHS, np.int32)
+    return q, k, v, phi_q, phi_k, slopes, lengths
+
+
+def _ragged_plain(q, k, v, phi_q, phi_k, slopes, lengths, mask):
+    return flashbias_attention_torch(
+        _t(q), _t(k), _t(v), _t(phi_q), _t(phi_k), _t(slopes),
+        scale=D ** -0.5, mask_kind=mask, lengths=_t(lengths))
+
+
+@pytest.mark.parametrize("mask", ["none", "causal"])
+@pytest.mark.parametrize("bias", ["phi", "alibi", "none"])
+def test_ragged_plain_matches_pallas(jx, bias, mask):
+    """The plain ragged version against the reference's ragged Pallas
+    kernel (interpret mode). Without a mask every row is compared, the
+    length-0 row included: both give 0 there. Under ``causal`` the
+    reference kernel still visits the kv blocks the causal bound reaches
+    for a length-0 row and returns the mean of v over its first block (its
+    block pruning skips on the causal bound, not on the length), where the
+    port gives 0 as for every row with no allowed key; that row is left
+    out there (the serve path runs without a mask)."""
+    rng = np.random.default_rng(11)
+    case = _ragged_case(rng, bias)
+    want = np.asarray(jx.ops.flash_attention(
+        *case[:6], mask_kind=mask, impl="pallas_interpret", layout="bhsd",
+        block_q=16, block_k=16, lengths=jx.jnp.asarray(case[6])))
+    got = _ragged_plain(*case, mask).numpy()
+    rows = case[6] > 0 if mask == "causal" else slice(None)
+    _close(got[rows], want[rows])
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("mask", ["none", "causal"])
+@pytest.mark.parametrize("bias", ["phi", "alibi", "none"])
+def test_ragged_plain_matches_xla_on_live_rows(jx, bias, mask):
+    """The same against the reference's XLA path, through both packages'
+    ``flash_attention(lengths=)`` in the canonical layout. Rows with length
+    0 are left out: there the XLA path returns the mean of v, the kernels 0
+    (no result of the serve path depends on such a row)."""
+    rng = np.random.default_rng(12)
+    q, k, v, phi_q, phi_k, slopes, lengths = _ragged_case(rng, bias)
+    bshd = [None if x is None else np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+            for x in (q, k, v, phi_q, phi_k)]
+    want = np.asarray(jx.ops.flash_attention(
+        *bshd, slopes, mask_kind=mask, impl="xla",
+        lengths=jx.jnp.asarray(lengths)))
+    got = tops.flash_attention(*[_t(x) for x in bshd], _t(slopes),
+                               mask_kind=mask, impl="torch",
+                               lengths=_t(lengths)).numpy()
+    live = lengths > 0
+    _close(got[live], want[live])
+    plain = _ragged_plain(q, k, v, phi_q, phi_k, slopes, lengths, mask)
+    _close(plain.transpose(1, 2)[live], want[live])
+
+
+def test_ragged_wrapper_and_dispatch_on_cpu():
+    """On CPU tensors the ragged wrapper runs the plain version (its own
+    counter does not move, nor kernel 1's), ``impl="cuda"`` refuses inputs
+    that require grad (the kernel is forward only), and the plain path is
+    differentiable."""
+    rng = np.random.default_rng(13)
+    q, k, v, phi_q, phi_k, _, lengths = _ragged_case(rng, "phi")
+    args = [_t(x) for x in (q, k, v, phi_q, phi_k)]
+    before = (flashbias_attention_ragged_fwd.launches,
+              flashbias_attention_fwd.launches)
+    got = flashbias_attention_ragged_fwd(*args, None, _t(lengths),
+                                         scale=D ** -0.5)
+    torch.testing.assert_close(got, flashbias_attention_torch(
+        *args, scale=D ** -0.5, lengths=_t(lengths)), rtol=0, atol=0)
+    assert (flashbias_attention_ragged_fwd.launches,
+            flashbias_attention_fwd.launches) == before
+    qg = args[0].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        tops.flash_attention(qg, *args[1:], impl="cuda", layout="bhsd",
+                             lengths=_t(lengths))
+    out = tops.flash_attention(qg, *args[1:], impl="torch", layout="bhsd",
+                               lengths=_t(lengths))
+    out.square().sum().backward()
+    assert torch.isfinite(qg.grad).all() and qg.grad.abs().sum() > 0
+    with pytest.raises(ValueError, match="not both"):
+        flashbias_attention_torch(*args, scale=1.0, kv_len=3,
+                                  lengths=_t(lengths))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", ["none", "causal"])
+@pytest.mark.parametrize("bias", ["phi", "alibi", "none"])
+def test_ragged_kernel_matches_plain_on_card(cuda, bias, mask, dtype):
+    rng = np.random.default_rng(14)
+    case = [None if x is None else _t(x).to(cuda)
+            for x in _ragged_case(rng, bias)]
+    case[:3] = [x.to(dtype) for x in case[:3]]
+    kw = dict(scale=D ** -0.5, mask_kind=mask)
+    before = flashbias_attention_ragged_fwd.launches
+    got = flashbias_attention_ragged_fwd(*case, **kw)
+    want = flashbias_attention_torch(*case[:6], lengths=case[6], **kw)
+    torch.cuda.synchronize()
+    assert flashbias_attention_ragged_fwd.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * 4
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert not got[2].any()
