@@ -10,13 +10,13 @@ as it runs, any failure ending the run:
 1. build    — compile the CUDA sources of ``src/repro_torch/csrc`` (one
               nvcc per source, started together: ``flashbias_attn.cu``,
               which holds the static and the ragged attention kernels,
-              and ``flash_decode.cu``, which holds the contiguous and the
-              paged decode kernels) and print ptxas's register /
-              shared-memory report;
-2. kernels  — each of the four kernels against its plain PyTorch version
-              on the card, at the serving paths' shapes and off-path
-              modes, within the stated tolerances (length-0 rows of the
-              ragged kernel exactly 0);
+              ``flash_decode.cu``, which holds the contiguous and the
+              paged decode kernels, and ``ssd_scan.cu``, the SSD chunk
+              scan) and print ptxas's register / shared-memory report;
+2. kernels  — each of the four attention kernels against its plain
+              PyTorch version on the card, at the serving paths' shapes
+              and off-path modes, within the stated tolerances (length-0
+              rows of the ragged kernel exactly 0);
 3. serve    — GPT-2-ALiBi-1.5B at full width (48 layers, d_model 1600,
               bf16, random weights from ``--seed``) through ``ServeEngine``
               on 4 slots x 2048 positions: 8 ragged requests (prompts
@@ -61,7 +61,32 @@ as it runs, any failure ending the run:
               per call at the path shape, a refinement step of 4 full slots
               in the three cache modes (factored SVD, dense_recompute,
               dense) in alternating rounds, one factored step traced, and
-              the admission wave's time.
+              the admission wave's time;
+10. ssm kernel — the SSD chunk-scan kernel against its plain version on y
+              and the final state: at the SSM path's shape (4 x 4096
+              positions, 32 heads x 64, state 128, float32, one b/c group,
+              through the model's strided layout), then S off the chunk,
+              S shorter than a chunk, a nonzero h0, b/c per head, a dt
+              that would overflow an unmasked exp, bf16 x, under
+              ``ssd_tolerance``;
+11. ssm serve — mamba2-130m at full width (24 layers, d_model 768, 32 SSM
+              heads x 64, state 128, bf16, random weights from ``--seed``)
+              through ``ServeEngine`` on 4 slots, max_len 2048: 8 requests
+              with prompts of 4096 (longer than max_len), 3000, 1024, 2048,
+              512, 777, 1500 and 256 tokens, 32 new tokens each, 6 greedy
+              and 2 sampled, staggered. Every request ends OK with 32
+              tokens; the SSD kernel launches 24 x admission waves and the
+              attention kernels never. An engine built with page_size=16
+              serves the same mix with the same greedy streams and reports
+              that it does not page;
+12. ssm parity and times — the first wave's prefill and 4 decode steps
+              again with the plain path (impl="torch"): every SSD kernel
+              call held in situ against the plain version on its inputs,
+              the logits within SSM_LOGIT_TOL, and a deliberate fault (the
+              state not carried across chunks) that the check must reject;
+              then the kernel, its plain version and its bound per call at
+              the path shape, the admission wave, the decode step of 4
+              slots (device busy, idle share) and end-to-end tokens/s.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -90,7 +115,8 @@ SLOTS, MAX_LEN, PROMPT_MAX, NEW_TOKENS = 4, 2048, 512, 32
 PAGE = 16                        # page size of the paged phases
 LOGIT_TOL = 0.25                 # bf16 logits, 48 layers deep (see phase 5)
 KERNELS = ("flashbias_attention_fwd", "flash_decode_fwd",
-           "flash_decode_paged_fwd", "flashbias_attention_ragged_fwd")
+           "flash_decode_paged_fwd", "flashbias_attention_ragged_fwd",
+           "ssd_scan_fwd")
 PAIR_LAYERS, PAIR_SLOTS, PAIR_MAX_LEN = 16, 4, 384
 PAIR_STEPS = 2                   # refinement steps of the parity phase
 # Pair parity, bf16. Both paths keep s in bf16 through 16 layers and three
@@ -121,6 +147,21 @@ PAIR_TOL_F32 = 1e-3
 # scaling
 PAIR_FAULTS = (("keys 64-127 skipped", (64, 128), False),
                ("bias scaled by the softmax scale", None, True))
+SSM_LAYERS, SSM_SLOTS, SSM_MAX_LEN = 24, 4, 2048
+SSM_PROMPTS = (4096, 3000, 1024, 2048, 512, 777, 1500, 256)
+SSM_DECODE_STEPS = 4             # decode steps of the parity phase
+# SSM parity, bf16 compute. The scan runs in float32 on both paths (the
+# model casts x, b, c to float32 and keeps dt, a and the state there), so
+# the paths differ only in the order of float32 sums inside the scan,
+# ~1e-6 relative. Such a difference shows in the bf16 model only where it
+# flips the rounding of an element (1 bf16 ulp, 2^-8 relative) after the
+# gated norm, and spreads through 24 layers as the attention kernels'
+# roundings spread through the LM's 48 (phase 5: within 0.125 of the plain
+# path's logits, tolerance 0.25). Logits here are bf16 of magnitude up to
+# ~4, whose ulp is 2^-6 = 0.0156: the bound is 8 such ulps, 0.125. In situ,
+# every kernel call is held against the plain version on its own inputs
+# under ``ssd_tolerance``: a fault of the kernel shows there first.
+SSM_LOGIT_TOL = 0.125
 
 
 def log(phase: str, msg: str) -> None:
@@ -163,9 +204,10 @@ def device_rows(prof) -> list:
 def device_kernels(prof) -> list:
     """The device rows of the profiled calls: all but the profiler's own
     step annotation (``ProfilerStep#n``, which spans the step on the device
-    timeline)."""
+    timeline) and the spin kernels that open the kept step."""
     return [e for e in device_rows(prof)
-            if not e.key.startswith("ProfilerStep")]
+            if not e.key.startswith("ProfilerStep")
+            and SPIN_KERNEL not in e.key]
 
 
 def device_us(e) -> float:
@@ -174,10 +216,14 @@ def device_us(e) -> float:
 
 
 PROFILE_TRIES = 3                # an incomplete profile is retried
-PROFILE_HEAD = 4                 # ~25 ms spin kernels of the warm-up step
+PROFILE_HEAD = 4                 # ~25 ms spin kernels opening the warm-up
+                                 # step and the kept step, doubled at every
+                                 # retry
+SPIN_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
 # the port's CUDA kernels as torch.profiler names them (kernels 1 and 2
-# share the attn_fwd template, kernels 3 and 4 the decode_fwd one)
-PORT_KERNEL = re.compile(r"(?<![A-Za-z0-9_])(attn_fwd|decode_fwd)<")
+# share the attn_fwd template, kernels 3 and 4 the decode_fwd one; kernel
+# 5 is ssd_fwd)
+PORT_KERNEL = re.compile(r"(?<![A-Za-z0-9_])(attn_fwd|decode_fwd|ssd_fwd)<")
 
 
 def window(prof) -> str:
@@ -196,8 +242,8 @@ def window(prof) -> str:
 
 
 def profiled(fn, iters: int, uniform: bool = True):
-    """Run ``fn`` ``iters`` times under torch.profiler; returns the profile
-    and its device rows. The profiler has been seen to drop device events,
+    """Run ``fn`` ``iters`` times under torch.profiler; returns the
+    profile's device rows (``device_kernels``). The profiler has been seen to drop device events,
     so a profile is taken only when it is complete by what the run knows:
     the port's kernels recorded exactly as often as their launch counters
     moved during it, and, where every call of ``fn`` runs the same kernels
@@ -206,22 +252,31 @@ def profiled(fn, iters: int, uniform: bool = True):
     the longer the process had run, so the session opens with a warm-up
     step, traced and discarded (PROFILE_HEAD spin kernels of ~25 ms each,
     each behind a synchronize, and one call of ``fn``), and only the step
-    after it is kept. An incomplete profile is taken again, up to
+    after it is kept. Late in the run the kept step still lost its own
+    first 1-36 ms (the SSD kernel's 20 calls of 4.4 ms, however long the
+    warm-up), so the kept step opens with PROFILE_HEAD spin kernels too,
+    left out of every sum (``device_kernels``), and waits for them before
+    the calls, which then start on an idle device. The kept step's host
+    rows hold that wait: a host breakdown comes from ``host_ops``. An
+    incomplete profile is taken again with twice the spins, up to
     PROFILE_TRIES times, before the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     counters = launch_counters().values()
     seen = []
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
                      acc_events=True) as prof:
-            for _ in range(PROFILE_HEAD):
+            for _ in range(PROFILE_HEAD << attempt):
                 torch.cuda._sleep(50_000_000)         # clock cycles
                 torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
             prof.step()
+            for _ in range(PROFILE_HEAD << attempt):
+                torch.cuda._sleep(50_000_000)
+            torch.cuda.synchronize()
             before = sum(c.launches for c in counters)
             for _ in range(iters):
                 fn()
@@ -233,13 +288,37 @@ def profiled(fn, iters: int, uniform: bool = True):
         ragged = [(e.key[:40], e.count) for e in kernels
                   if e.count % iters]
         if kernels and port == launched and not (uniform and ragged):
-            return prof, kernels
+            return kernels
         seen.append(f"{len(kernels)} device rows, port kernels {port} of "
                     f"{launched} launched, rows not a multiple of {iters}: "
                     f"{ragged if uniform else 'not checked'}; "
                     f"{window(prof)}")
     raise AssertionError(f"torch.profiler recorded an incomplete profile in "
                          f"{PROFILE_TRIES} tries: {seen}")
+
+
+def host_ops(fn, iters: int, top: int = 6) -> list:
+    """The ``top`` host-side rows (by self CPU time) of ``iters`` calls of
+    ``fn`` under torch.profiler, in a profile of their own that queues
+    nothing ahead of the calls: after a traced and discarded warm-up call
+    and a synchronize, the calls start on an idle device, as between
+    serving steps, and end with one synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    device = {e.key for e in device_rows(prof)}
+    host = [e for e in prof.key_averages() if e.key not in device]
+    return sorted(host, key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:top]
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -251,7 +330,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    _, kernels = profiled(fn, iters)
+    kernels = profiled(fn, iters)
     return sum(device_us(e) for e in kernels) / iters / 1e3
 
 
@@ -503,10 +582,12 @@ def launch_counters() -> dict:
                                                   flash_decode_paged_fwd)
     from repro_torch.kernels.flashbias_attn import (
         flashbias_attention_fwd, flashbias_attention_ragged_fwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
     return {"flashbias_attention_fwd": flashbias_attention_fwd,
             "flash_decode_fwd": flash_decode_fwd,
             "flash_decode_paged_fwd": flash_decode_paged_fwd,
-            "flashbias_attention_ragged_fwd": flashbias_attention_ragged_fwd}
+            "flashbias_attention_ragged_fwd": flashbias_attention_ragged_fwd,
+            "ssd_scan_fwd": ssd_scan_fwd}
 
 
 def drive_counted(engine, requests):
@@ -562,7 +643,7 @@ def phase_serve(seed: int):
     want = {"flashbias_attention_fwd": N_LAYERS * stats["prefill_waves"],
             "flash_decode_fwd": N_LAYERS * stats["decode_steps"],
             "flash_decode_paged_fwd": 0,
-            "flashbias_attention_ragged_fwd": 0}
+            "flashbias_attention_ragged_fwd": 0, "ssd_scan_fwd": 0}
     log("serve", f"{len(rids)} requests OK x {NEW_TOKENS} tokens in "
                  f"{wall:.2f}s ({tok_s:.1f} tok/s); "
                  f"{stats['prefill_waves']} prefill waves, "
@@ -588,7 +669,7 @@ def phase_paged(engine, requests):
     want = {"flashbias_attention_fwd": N_LAYERS * stats["prefill_waves"],
             "flash_decode_fwd": 0,
             "flash_decode_paged_fwd": N_LAYERS * stats["decode_steps"],
-            "flashbias_attention_ragged_fwd": 0}
+            "flashbias_attention_ragged_fwd": 0, "ssd_scan_fwd": 0}
     log("paged", f"{len(rids)} requests OK x {NEW_TOKENS} tokens in "
                  f"{wall:.2f}s ({tok_s:.1f} tok/s); "
                  f"{stats['prefill_waves']} prefill waves, "
@@ -748,7 +829,7 @@ def trace_decode(model, params, tokens, paths: dict) -> dict:
             def step():
                 _, caches[label] = model.decode(params, caches[label],
                                                 tokens, **paths[label][1])
-            prof, kernels = profiled(step, 3, uniform=False)
+            kernels = profiled(step, 3, uniform=False)
             step_ms = float(np.median(walls[label]))
             busy_ms = sum(device_us(e) for e in kernels) / 3 / 1e3
             index = [e for e in kernels
@@ -768,10 +849,7 @@ def trace_decode(model, params, tokens, paths: dict) -> dict:
             for e in sorted(kernels, key=device_us, reverse=True)[:8]:
                 log("trace", f"  {device_us(e) / 3 / 1e3:8.3f} ms/step "
                              f"{e.count // 3:5d} calls/step  {e.key[:90]}")
-            device = {e.key for e in device_rows(prof)}
-            host = [e for e in prof.key_averages() if e.key not in device]
-            for e in sorted(host, key=lambda e: e.self_cpu_time_total,
-                            reverse=True)[:6]:
+            for e in host_ops(step, 3):
                 log("trace", f"  host {e.self_cpu_time_total / 3 / 1e3:8.3f} "
                              f"ms/step {e.count // 3:5d} calls/step  "
                              f"{e.key[:70]}")
@@ -1200,7 +1278,7 @@ def profile_steps(fn, n: int):
     """Run ``fn`` n times under torch.profiler (every call runs the same
     kernels); returns (device busy ms per call, the device rows of the
     profile)."""
-    _, kernels = profiled(fn, n)
+    kernels = profiled(fn, n)
     return sum(device_us(e) for e in kernels) / n / 1e3, kernels
 
 
@@ -1343,6 +1421,394 @@ def phase_pair_times(engine, complexes, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: Mamba2 SSM serving, parity and times
+# ---------------------------------------------------------------------------
+
+def ssd_tolerance(dtype, ref) -> float:
+    """float32: the order of float32 sums of up to chunk x N terms, 1e-4 at
+    the output's scale. bfloat16 y: both sides round one float32 result
+    once, so 2 bf16 ulps at the output's scale."""
+    import torch
+    scale = max(1.0, float(ref.float().abs().max()))
+    return (1e-4 if dtype == torch.float32 else 2.0 ** -6) * scale
+
+
+def ssd_inputs(gen, b, s, h, p, n, dtype, per_head=False, dt_shift=0.0,
+               with_h0=False):
+    """Inputs of the SSD kernel as the model hands them over: x and dt as
+    (B, H, S, *) views of (B, S, H, *) tensors, b and c one group sliced from
+    a (B, S, 2N) tensor and seen as (B, 1, S, N) (or per head, (B, H, S,
+    N)), a < 0; then h0 (B, H, P, N) or None."""
+    import torch
+    import torch.nn.functional as F
+    dev = "cuda"
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+    a = -torch.exp(0.3 * torch.randn((h,), generator=gen, device=dev))
+    if per_head:
+        bm, cm = (torch.randn((b, h, s, n), generator=gen, device=dev)
+                  for _ in range(2))
+    else:
+        bc = torch.randn((b, s, 2 * n), generator=gen, device=dev)
+        bm, cm = bc[:, None, :, :n], bc[:, None, :, n:]
+    h0 = (torch.randn((b, h, p, n), generator=gen, device=dev)
+          if with_h0 else None)
+    return (x.transpose(1, 2), (dt + dt_shift).transpose(1, 2), a, bm,
+            cm), h0
+
+
+def phase_ssm_kernel(seed: int) -> float:
+    """Kernel 5 against its plain version on y and the final state: the SSM
+    path's shape, then off-path cases. Returns the path case's worst
+    error."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    f32, bf = torch.float32, torch.bfloat16
+    # (name, B, S, H, P, N, chunk, x dtype, b/c per head, dt shift, h0, path)
+    cases = [
+        ("ssd_scan_fwd path B4 H32 S4096 P64 N128 chunk256 f32 b/c shared",
+         4, 4096, 32, 64, 128, 256, f32, False, 0.0, False, True),
+        ("ssd_scan_fwd path shape bf16 x", 4, 4096, 32, 64, 128, 256, bf,
+         False, 0.0, False, False),
+        ("ssd_scan_fwd S1000 (off the chunk) h0", 2, 1000, 8, 64, 128, 256,
+         f32, False, 0.0, True, False),
+        ("ssd_scan_fwd S100 (one short chunk) h0", 2, 100, 8, 64, 128, 256,
+         f32, False, 0.0, True, False),
+        ("ssd_scan_fwd S777 b/c per head h0", 2, 777, 8, 64, 128, 256, f32,
+         True, 0.0, True, False),
+        ("ssd_scan_fwd S600 dt + 20 (an unmasked exp overflows)", 2, 600, 8,
+         64, 128, 256, f32, False, 20.0, False, False),
+        ("ssd_scan_fwd S600 bf16 x b/c per head h0", 2, 600, 8, 64, 128,
+         256, bf, True, 0.0, True, False),
+        ("ssd_scan_fwd P32 N64 chunk128 S333 b/c per head h0", 3, 333, 3,
+         32, 64, 128, f32, True, 0.0, True, False),
+    ]
+    worst = None
+    for name, b, s, h, p, n, chunk, dtype, per_head, shift, with_h0, path \
+            in cases:
+        args, h0 = ssd_inputs(gen, b, s, h, p, n, dtype, per_head, shift,
+                              with_h0)
+        y, hf = ssd_scan_fwd(*args, chunk=chunk, h0=h0)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ssd_scan_torch(*args, chunk=chunk, h0=h0)
+        err_y = float((y.float() - y_ref.float()).abs().max())
+        err_h = float((hf - h_ref).abs().max())
+        tol_y, tol_h = ssd_tolerance(dtype, y_ref), ssd_tolerance(f32, h_ref)
+        ok = (bool(torch.isfinite(y).all() and torch.isfinite(hf).all())
+              and y.dtype == dtype and err_y <= tol_y and err_h <= tol_h)
+        log("ssm-kernel", f"{name}: y max_abs_err {err_y:.3e} (tol "
+                          f"{tol_y:.1e}), h_fin {err_h:.3e} (tol "
+                          f"{tol_h:.1e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version")
+        if path:
+            worst = max(err_y, err_h)
+        del args, h0, y, hf, y_ref, h_ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def make_ssm_requests(seed: int, vocab: int):
+    """The SSM mix: SSM_PROMPTS tokens each (the first longer than
+    SSM_MAX_LEN), NEW_TOKENS new tokens, requests 2 and 6 sampled."""
+    from repro_torch.serve import SamplingParams
+    rng = np.random.default_rng(seed + 200)
+    sampled = {2, 6}
+    return [(rng.integers(0, vocab, (n,)).astype(np.int32), NEW_TOKENS,
+             SamplingParams(0.8, 40, seed=seed + i) if i in sampled
+             else SamplingParams()) for i, n in enumerate(SSM_PROMPTS)]
+
+
+def phase_ssm_serve(seed: int):
+    """mamba2-130m at full width through ServeEngine, every launch counter
+    set to 0 just before the drive and read after; then the same mix
+    through an engine built with page_size, which must not page and must
+    give the same greedy streams."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("mamba2_130m")
+    if cfg.n_layers != SSM_LAYERS:
+        raise AssertionError(f"config has {cfg.n_layers} layers")
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    engine = ServeEngine(get_model(cfg), params, max_len=SSM_MAX_LEN,
+                         n_slots=SSM_SLOTS, device="cuda")
+    del params                       # the engine holds its bf16 copy
+    torch.cuda.synchronize()
+    log("ssm", f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+               f"{cfg.ssm_heads_padded} SSM heads x {cfg.ssm_head_dim}, "
+               f"state {cfg.ssm_state}, conv {cfg.conv_width}, chunk "
+               f"{cfg.ssd_chunk}, vocab {cfg.vocab_padded}, {cfg.dtype}; "
+               f"weights ready in {time.monotonic() - t0:.1f}s")
+    requests = make_ssm_requests(seed, cfg.vocab)
+    rids, launches, tok_s, wall = drive_counted(engine, requests)
+    stats = engine.stats()
+    want = {name: 0 for name in launches}
+    want["ssd_scan_fwd"] = SSM_LAYERS * stats["prefill_waves"]
+    log("ssm", f"{len(rids)} requests OK x {NEW_TOKENS} tokens (prompts "
+               f"{list(SSM_PROMPTS)}, max_len {SSM_MAX_LEN}) in {wall:.2f}s "
+               f"({tok_s:.1f} tok/s); {stats['prefill_waves']} admission "
+               f"waves, {stats['decode_steps']} decode steps; launches "
+               f"{launches}")
+    if launches != want or not launches["ssd_scan_fwd"]:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+
+    paged = ServeEngine(engine.model, engine.backend.params,
+                        max_len=SSM_MAX_LEN, n_slots=SSM_SLOTS,
+                        page_size=PAGE, device="cuda")
+    if paged.backend.paged or paged.page_stats():
+        raise AssertionError(f"an SSM engine built with page_size={PAGE} "
+                             f"pages: {paged.page_stats()}")
+    prids, plaunches, _, pwall = drive_counted(paged, requests)
+    same = [bool(np.array_equal(engine.result(a), paged.result(b)))
+            for a, b in zip(rids, prids)]
+    greedy = [i for i, (_, _, sp) in enumerate(requests)
+              if sp.temperature == 0]
+    log("ssm", f"page_size={PAGE} engine: pages {paged.backend.paged}, "
+               f"page stats {paged.page_stats()}; {len(prids)} requests OK in "
+               f"{pwall:.2f}s; streams equal to the first engine's: greedy "
+               f"{sum(same[i] for i in greedy)}/{len(greedy)}, all "
+               f"{sum(same)}/{len(same)}; launches {plaunches}")
+    if not all(same[i] for i in greedy):
+        raise AssertionError("page_size changed an SSM greedy stream")
+    if plaunches["ssd_scan_fwd"] != SSM_LAYERS * paged.stats()[
+            "prefill_waves"]:
+        raise AssertionError(f"page_size engine launches {plaunches}")
+    del paged
+    torch.cuda.empty_cache()
+    return engine, requests, launches, tok_s
+
+
+def ssd_no_carry(x, dt, a, b, c, *, chunk, h0=None):
+    """The deliberate fault: the plain version with the state reset to zero
+    at every chunk (the final state is the last chunk's alone)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_torch
+    ys, h = [], None
+    for s0 in range(0, x.shape[2], chunk):
+        part = slice(s0, s0 + chunk)
+        y, h = ssd_scan_torch(x[:, :, part], dt[:, :, part], a,
+                              b[:, :, part], c[:, :, part], chunk=chunk)
+        ys.append(y)
+    return torch.cat(ys, dim=2), h
+
+
+def ssm_wave(requests):
+    """The first admission wave: SSM_SLOTS prompts right-padded to the
+    longest, on the card, with their lengths."""
+    import torch
+    wave = [p for p, _, _ in requests[:SSM_SLOTS]]
+    toks = np.zeros((SSM_SLOTS, max(p.size for p in wave)), np.int64)
+    for i, p in enumerate(wave):
+        toks[i, :p.size] = p
+    lengths = np.array([p.size for p in wave], np.int32)
+    return ({"tokens": torch.as_tensor(toks, device="cuda")},
+            torch.as_tensor(lengths, device="cuda"))
+
+
+def phase_ssm_parity(engine, requests) -> list:
+    """The first wave's prefill and SSM_DECODE_STEPS decode steps through
+    the kernel path (every SSD kernel call held in situ against the plain
+    version on its inputs) and the plain path, fed the kernel path's greedy
+    tokens; the logits compared; then the check run on the deliberate
+    fault, which it must reject. Returns the failed checks."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_torch
+    from repro_torch.models import get_model
+
+    cfg, params = engine.model.cfg, engine.backend.params
+    batch, lens = ssm_wave(requests)
+    models = {impl: get_model(cfg.replace(attn_impl=impl))
+              for impl in ("cuda", "torch")}
+
+    def in_situ(fn, calls):
+        def call(x, dt, a, b, c, *, chunk, h0=None):
+            got = fn(x, dt, a, b, c, chunk=chunk, h0=h0)
+            want = ssd_scan_torch(x, dt, a, b, c, chunk=chunk, h0=h0)
+            calls.append((float((got[0].float() - want[0].float()).abs()
+                                .max()), ssd_tolerance(want[0].dtype,
+                                                       want[0]),
+                          float((got[1] - want[1]).abs().max()),
+                          ssd_tolerance(torch.float32, want[1])))
+            return got
+        return call
+
+    def run(model, fed=None):
+        """Prefill and decode steps; the (B, vocab) float32 logits of each
+        and the tokens fed (the run's own greedy picks unless ``fed``)."""
+        logits, cache = model.prefill(params, batch, lengths=lens)
+        out, tokens = [], []
+        for step in range(SSM_DECODE_STEPS + 1):
+            out.append(logits[:, 0, :cfg.vocab].float())
+            if step == SSM_DECODE_STEPS:
+                return out, tokens
+            nxt = fed[step] if fed else out[-1].argmax(-1)[:, None]
+            tokens.append(nxt)
+            logits, cache = model.decode(params, cache, nxt)
+
+    def in_situ_ok(label, calls) -> bool:
+        if len(calls) != SSM_LAYERS:
+            raise AssertionError(f"{label}: {len(calls)} SSD calls seen")
+        over = sum(ey > ty or eh > th for ey, ty, eh, th in calls)
+        wy = max(calls, key=lambda c: c[0] / c[1])
+        wh = max(calls, key=lambda c: c[2] / c[3])
+        log("ssm-parity", f"{label}: in situ, {len(calls)} SSD calls against "
+                          f"the plain version on their inputs: worst y "
+                          f"{wy[0]:.3e} (tol {wy[1]:.1e}), worst h_fin "
+                          f"{wh[2]:.3e} (tol {wh[3]:.1e}); {over} calls over "
+                          f"the tolerance")
+        return over == 0
+
+    def gaps(got, want):
+        return [float((g - w).abs().max()) for g, w in zip(got, want)]
+
+    failed = []
+    with torch.no_grad():
+        calls = []
+        with patched(ops, "ssd_scan_fwd", in_situ(ssd_scan_fwd, calls)):
+            got, fed = run(models["cuda"])
+        want, _ = run(models["torch"], fed)
+        fault_calls = []
+        with patched(ops, "ssd_scan_fwd", in_situ(ssd_no_carry, fault_calls)):
+            fault, _ = run(models["cuda"], fed)
+    ok = in_situ_ok("kernel path", calls)
+    g = gaps(got, want)
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    ok_e2e = finite and max(g) <= SSM_LOGIT_TOL
+    log("ssm-parity", f"kernel path vs plain path, prefill of "
+                      f"{lens.tolist()} tokens then {SSM_DECODE_STEPS} "
+                      f"decode steps: max |logits gap| per step "
+                      f"{', '.join(f'{x:.3e}' for x in g)} (tol "
+                      f"{SSM_LOGIT_TOL}); greedy agreement {agree}/"
+                      f"{len(got) * SSM_SLOTS}; logit RMS "
+                      f"{float(want[0].square().mean().sqrt()):.3f}, max "
+                      f"|logit| {float(want[0].abs().max()):.3f}; in situ "
+                      f"{'ok' if ok else 'FAIL'}, end to end "
+                      f"{'ok' if ok_e2e else 'FAIL'}")
+    if not (ok and ok_e2e):
+        failed.append(f"ssm parity: in situ ok {ok}, logits gap {max(g):.3e}"
+                      f" vs {SSM_LOGIT_TOL}")
+    seen = not in_situ_ok("fault 'state not carried across chunks'",
+                          fault_calls)
+    gf = gaps(fault, want)
+    seen_e2e = max(gf) > SSM_LOGIT_TOL
+    log("ssm-parity", f"fault 'state not carried across chunks': max |logits "
+                      f"gap| per step {', '.join(f'{x:.3e}' for x in gf)}; "
+                      f"rejected in situ {seen}, end to end {seen_e2e}")
+    if not (seen or seen_e2e):
+        failed.append("ssm parity check passes the fault 'state not carried'")
+    del got, want, fault
+    torch.cuda.empty_cache()
+    return failed
+
+
+def phase_ssm_times(engine, requests, tok_s: float, card: str) -> dict:
+    """Kernel 5 and its plain version per call at the path shape, with the
+    bound; the admission wave of the first wave's 4 prompts; the decode
+    step of 4 slots x 24 layers, its device busy time and idle share; and
+    the serve phase's end-to-end tokens/s."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_torch
+
+    cfg, params, model = engine.model.cfg, engine.backend.params, \
+        engine.model
+    batch, lens = ssm_wave(requests)
+    b, s = batch["tokens"].shape
+    h, p, n, q = (cfg.ssm_heads_padded, cfg.ssm_head_dim, cfg.ssm_state,
+                  cfg.ssd_chunk)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    args, _ = ssd_inputs(gen, b, s, h, p, n, torch.float32)
+    chunks = [min(q, s - s0) for s0 in range(0, s, q)]
+    flops = b * h * sum(ln * (ln + 1) // 2 * (2 * n + 2 * p)
+                        + 4 * ln * n * p for ln in chunks)
+    bytes_ = (2 * b * s * h * p * 4 + 2 * b * s * n * 4 + b * s * h * 4
+              + h * 4 + b * h * p * n * 4)
+    kernel = (lambda: ssd_scan_fwd(*args, chunk=q))
+    out = dict(ms=device_ms(kernel),
+               plain_ms=device_ms(lambda: ssd_scan_torch(*args, chunk=q)),
+               library_ms=None,
+               **bound(bytes_, flops))
+    log("ssm-times", f"ssd_scan_fwd (device time per call, B{b} H{h} S{s} "
+                     f"P{p} N{n} chunk {q}, float32): kernel "
+                     f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+                     f"library none (no PyTorch call computes the SSD "
+                     f"scan), bound {out['bound_ms']:.4f} ms "
+                     f"({out['bound_by']}: {bytes_ / 1e9:.3f} GB at 3.35 "
+                     f"TB/s, {flops / 1e9:.2f} GFLOP at 989 TFLOP/s "
+                     f"{flops / BF16_FLOP_PER_S * 1e3:.4f} ms; as float32 "
+                     f"FMAs at 67 TFLOP/s, the kernel's own arithmetic, "
+                     f"{flops / 67e12 * 1e3:.4f} ms); kernel "
+                     f"between CUDA events, host gaps included, "
+                     f"{event_ms(kernel, iters=10):.4f} ms [{card}]")
+    del args
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            _, cache = model.prefill(params, batch, lengths=lens)
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+            del cache
+        wave_ms = float(np.median(walls[1:]))
+        busy, kernels = profile_steps(
+            lambda: model.prefill(params, batch, lengths=lens), 1)
+        log("ssm-times", f"admission wave ({b} x {s} positions, prompts "
+                         f"{lens.tolist()}): {wave_ms:.1f} ms on the host "
+                         f"clock (median of 3 after a warm-up); device busy "
+                         f"{busy:.1f} ms; top kernels: [{card}]")
+        for e in sorted(kernels, key=device_us, reverse=True)[:6]:
+            log("ssm-times", f"  {device_us(e) / 1e3:9.3f} ms {e.count:6d} "
+                             f"calls  {e.key[:80]}")
+
+        logits, cache = model.prefill(params, batch, lengths=lens)
+        tokens = logits[:, 0, :cfg.vocab].argmax(-1)[:, None]
+        step_walls = []
+
+        def step():
+            model.decode(params, cache, tokens)
+
+        for _ in range(13):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            step()
+            torch.cuda.synchronize()
+            step_walls.append((time.monotonic() - t0) * 1e3)
+        step_ms = float(np.median(step_walls[1:]))
+        kernels = profiled(step, 3)
+        busy = sum(device_us(e) for e in kernels) / 3 / 1e3
+        log("ssm-times", f"decode step ({SSM_SLOTS} slots, {cfg.n_layers} "
+                         f"layers): {step_ms:.3f} ms on the host clock "
+                         f"(median of 12 after a warm-up); device busy "
+                         f"{busy:.3f} ms/step, idle share "
+                         f"{1 - busy / step_ms:.3f}; end to end (serve "
+                         f"phase) {tok_s:.1f} tok/s [{card}]")
+        for e in sorted(kernels, key=device_us, reverse=True)[:6]:
+            log("ssm-times", f"  {device_us(e) / 3 / 1e3:8.3f} ms/step "
+                             f"{e.count // 3:5d} calls/step  {e.key[:80]}")
+        log("ssm-times", f"decode step: {sum(e.count for e in kernels) // 3}"
+                         f" device calls per step; top host ops:")
+        for e in host_ops(step, 3):
+            log("ssm-times", f"  host {e.self_cpu_time_total / 3 / 1e3:8.3f} "
+                             f"ms/step {e.count // 3:5d} calls/step  "
+                             f"{e.key[:70]}")
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def bound(bytes_: int, flops: int) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -1397,6 +1863,17 @@ def main(argv=None) -> int:
     failed = phase_pair_parity(pair, complexes, rids, args.seed)
     times["flashbias_attention_ragged_fwd"] = phase_pair_times(
         pair, complexes, card)
+    del pair
+    torch.cuda.empty_cache()
+
+    errors["ssd_scan_fwd"] = phase_ssm_kernel(args.seed)
+    ssm, ssm_requests, ssm_launches, ssm_tok_s = phase_ssm_serve(args.seed)
+    launches["ssd_scan_fwd"] = ssm_launches["ssd_scan_fwd"]
+    failed += phase_ssm_parity(ssm, ssm_requests)
+    times["ssd_scan_fwd"] = phase_ssm_times(ssm, ssm_requests, ssm_tok_s,
+                                            card)
+    del ssm
+    torch.cuda.empty_cache()
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"
                                            "flashbias_attn.py:149",
@@ -1404,14 +1881,16 @@ def main(argv=None) -> int:
                 "flash_decode_paged_fwd": "src/repro/kernels/"
                                           "flash_decode.py:195",
                 "flashbias_attention_ragged_fwd": "src/repro/kernels/"
-                                                  "flashbias_attn.py:139"}
+                                                  "flashbias_attn.py:139",
+                "ssd_scan_fwd": "src/repro/kernels/ssd_scan.py:78"}
     sources = {"flashbias_attention_fwd": "src/repro_torch/csrc/"
                                           "flashbias_attn.cu",
                "flash_decode_fwd": "src/repro_torch/csrc/flash_decode.cu",
                "flash_decode_paged_fwd": "src/repro_torch/csrc/"
                                          "flash_decode.cu",
                "flashbias_attention_ragged_fwd": "src/repro_torch/csrc/"
-                                                 "flashbias_attn.cu"}
+                                                 "flashbias_attn.cu",
+               "ssd_scan_fwd": "src/repro_torch/csrc/ssd_scan.cu"}
     kernels = [{"name": name, "route": "cuda", "source": sources[name],
                 "replaces": replaces[name], "launches": launches[name],
                 "max_abs_err": errors[name], **times[name]}

@@ -143,8 +143,10 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The architectures the port serves: the dense family and the Pairformer.
-ARCH_IDS = ["gpt2_alibi_15b", "stablelm_12b", "pairformer_lite"]
+# The architectures the port serves: the dense family, the SSM family and
+# the Pairformer.
+ARCH_IDS = ["gpt2_alibi_15b", "stablelm_12b", "mamba2_130m",
+            "pairformer_lite"]
 
 
 def _module(arch_id: str):

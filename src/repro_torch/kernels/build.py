@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 __all__ = ["KERNELS", "build", "load", "library_path"]
 
-KERNELS = ("flashbias_attn", "flash_decode")
+KERNELS = ("flashbias_attn", "flash_decode", "ssd_scan")
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"

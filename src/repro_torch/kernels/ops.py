@@ -1,5 +1,6 @@
-"""Public attention entry points the models call: ``flash_attention``
-(prefill / training) and ``flash_decode`` (one token against a KV cache).
+"""Public entry points the models call: ``flash_attention`` (prefill /
+training), ``flash_decode`` (one token against a KV cache) and ``ssd_scan``
+(the Mamba2 SSD chunk scan of an SSM prefill).
 
 Port of ``repro.kernels.ops``. Implementations:
 
@@ -9,6 +10,9 @@ Port of ``repro.kernels.ops``. Implementations:
 - ``"torch"`` (the reference's ``"xla"``): the plain PyTorch versions, on
   any device. On a CUDA tensor this is taken only when asked for by name.
 - ``"auto"``: ``"cuda"`` for a CUDA tensor, ``"torch"`` for a CPU tensor.
+
+``ssd_scan`` is stricter: ``"cuda"`` on a tensor that is not on the card
+raises, as the kernel has no CPU form.
 
 Cache layout contract (the decode hot path): caches are stored kv-head-major
 per layer (the reference's ``kv_layout="bhsd"``) — contiguous ``(B, KVH, S,
@@ -43,8 +47,10 @@ from repro_torch.kernels.flashbias_attn import (
     flashbias_attention_ragged_fwd,
     flashbias_attention_torch,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
-__all__ = ["flash_attention", "flash_decode", "resolve_impl", "IMPLS"]
+__all__ = ["flash_attention", "flash_decode", "ssd_scan", "resolve_impl",
+           "IMPLS"]
 
 IMPLS = ("torch", "cuda")
 
@@ -236,3 +242,27 @@ def flash_decode(
         o = flash_decode_paged_fwd(qg, k_cache, v_cache, lengths, pt, pq,
                                    phi_k, sl, scale=scale)
     return o.reshape(b, 1, h, v_cache.shape[-1])
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 256,
+             h0: Optional[torch.Tensor] = None, impl: str = "auto"):
+    """Mamba2 SSD chunk scan in the model's layout: x ``(B, S, H, P)``, dt
+    ``(B, S, H)``, a ``(H,)``, b / c ``(B, S, N)`` (one group), h0 ``(B, H,
+    P, N)`` or None. Returns ``(y (B, S, H, P), h_fin (B, H, P, N))``.
+
+    ``"torch"`` runs ``models.ssd.ssd_scan`` (the reference's algorithm);
+    ``"cuda"`` launches kernel 5 on transposed views of x and y and a
+    head-broadcast view of b and c, so nothing is copied, and raises for a
+    tensor that is not on the card."""
+    impl = resolve_impl(impl, x.device)
+    if impl == "torch":
+        # imported here: the models package imports this module
+        from repro_torch.models import ssd
+        return ssd.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan impl='cuda' needs a CUDA tensor, got "
+                         f"{x.device}")
+    y, h_fin = ssd_scan_fwd(x.transpose(1, 2), dt.transpose(1, 2), a,
+                            b[:, None], c[:, None], chunk=chunk, h0=h0)
+    return y.transpose(1, 2), h_fin

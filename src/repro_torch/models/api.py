@@ -1,5 +1,5 @@
 """Uniform Model interface consumed by the server (port of
-``repro.models.api``: the dense LM family and the Pairformer).
+``repro.models.api``: the dense and SSM LM families and the Pairformer).
 
 ``get_model(cfg)`` returns a ``Model`` with:
 
@@ -17,11 +17,11 @@
 - ``grow_page_table(dst, slots, tables)``  — rewrite the table rows of
   slots that grew a page.
 
-The three paged entries are the LM family's; the Pairformer's ``Model``
-leaves them None. Its ``prefill`` is the admission trunk pass (with the
-factor MLPs as ``factors=``), its ``decode`` one refinement iteration over
-the slot batch, and its ``init_cache`` takes ``factors=`` to size the
-factor cache.
+The three paged entries are the dense LM family's; the SSM family's
+``Model`` (constant-size caches) and the Pairformer's leave them None. The
+Pairformer's ``prefill`` is the admission trunk pass (with the factor MLPs
+as ``factors=``), its ``decode`` one refinement iteration over the slot
+batch, and its ``init_cache`` takes ``factors=`` to size the factor cache.
 """
 from __future__ import annotations
 
@@ -67,10 +67,11 @@ def _pairformer_model(cfg: ArchConfig) -> Model:
 def get_model(cfg: ArchConfig) -> Model:
     if cfg.family == "pairformer":
         return _pairformer_model(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "
             f"items 7-8)")
+    paged = cfg.family == "dense"
     return Model(
         cfg=cfg,
         template=lambda: lm.lm_template(cfg),
@@ -81,7 +82,8 @@ def get_model(cfg: ArchConfig) -> Model:
         init_cache=lambda b, max_len, device="cuda", length=0: lm.init_cache(
             cfg, b, max_len, device=device, length=length),
         insert_cache=lm.insert_cache_at_slots,
-        init_paged_cache=functools.partial(lm.init_paged_cache, cfg),
-        insert_paged=lm.insert_paged_cache_at_slots,
-        grow_page_table=lm.grow_page_tables_at_slots,
+        init_paged_cache=(functools.partial(lm.init_paged_cache, cfg)
+                          if paged else None),
+        insert_paged=lm.insert_paged_cache_at_slots if paged else None,
+        grow_page_table=lm.grow_page_tables_at_slots if paged else None,
     )

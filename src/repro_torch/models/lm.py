@@ -1,11 +1,13 @@
-"""Decoder LM, dense family: FlashBias-ALiBi attention + SwiGLU MLP.
+"""Decoder LM, dense and SSM families: FlashBias-ALiBi attention + SwiGLU
+MLP (dense), or the Mamba2 SSD block alone (ssm).
 
-Port of the dense paths of ``repro.models.lm``. The parameter tree has the
-reference's nested keys and stacked leading-``L`` shapes (``lm_template``),
-so the reference's parameters carry across as a dict copy. Layers run as a
-Python loop in place of ``jax.lax.scan``; each layer's weights are cast to
-the compute dtype as they are used (an already-cast tree passes through
-untouched, which is how the serve backend avoids re-casting every step).
+Port of the dense and SSM paths of ``repro.models.lm``. The parameter tree
+has the reference's nested keys and stacked leading-``L`` shapes
+(``lm_template``), so the reference's parameters carry across as a dict
+copy. Layers run as a Python loop in place of ``jax.lax.scan``; each
+layer's weights are cast to the compute dtype as they are used (an
+already-cast tree passes through untouched, which is how the serve backend
+avoids re-casting every step).
 
 Entry points:
 
@@ -22,7 +24,14 @@ Entry points:
   every slot, per-slot page tables, and the float32 ALiBi key-factor slab
   ``pages_phi``. ``decode_step`` takes either cache.
 
-Sliding-window (ring) caches and the other families wait for later slices.
+The SSM family (``mamba2_130m``) caches a constant-size state per slot:
+``ssm_h (L, B, Hs, P, N)`` in float32 and the causal-conv tails ``conv_x``
+and ``conv_bc`` in the compute dtype. Its prefill runs the SSD chunk scan
+through ``ops.ssd_scan`` (kernel 5 on the card); its decode step updates
+the state and the tails IN PLACE for active rows, as k/v are.
+
+Sliding-window (ring) caches, MoE and the hybrid family wait for later
+slices.
 """
 from __future__ import annotations
 
@@ -30,9 +39,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.models import ssd
 from repro_torch.models.common import (
     PDef,
     embed_lookup,
@@ -55,7 +66,7 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "
             f"item 7)")
@@ -72,25 +83,56 @@ def _check_supported(cfg: ArchConfig) -> None:
 # Template
 # ---------------------------------------------------------------------------
 
-def _layer_template(cfg: ArchConfig) -> dict:
+def _attn_template(cfg: ArchConfig) -> dict:
     d, hp, kvp = cfg.d_model, cfg.heads_padded, cfg.kv_heads_padded
-    hd, f = cfg.resolved_head_dim, cfg.d_ff
+    hd = cfg.resolved_head_dim
     sd, sd_out = 0.02, 0.02 / np.sqrt(2 * cfg.n_layers)
     return {
-        "ln1": PDef((d,), ("zeros",)),
-        "attn": {
-            "wq": PDef((d, hp, hd), ("normal", sd)),
-            "wk": PDef((d, kvp, hd), ("normal", sd)),
-            "wv": PDef((d, kvp, hd), ("normal", sd)),
-            "wo": PDef((hp, hd, d), ("normal", sd_out)),
-            "slopes": PDef((hp,), ("slopes", cfg.n_heads)),
-        },
-        "mlp": {
-            "wi": PDef((d, f, 2), ("normal", sd)),
-            "wo": PDef((f, d), ("normal", sd_out)),
-        },
-        "ln2": PDef((d,), ("zeros",)),
+        "wq": PDef((d, hp, hd), ("normal", sd)),
+        "wk": PDef((d, kvp, hd), ("normal", sd)),
+        "wv": PDef((d, kvp, hd), ("normal", sd)),
+        "wo": PDef((hp, hd, d), ("normal", sd_out)),
+        "slopes": PDef((hp,), ("slopes", cfg.n_heads)),
     }
+
+
+def _mlp_template(cfg: ArchConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wi": PDef((d, f, 2), ("normal", 0.02)),
+        "wo": PDef((f, d), ("normal", 0.02 / np.sqrt(2 * cfg.n_layers))),
+    }
+
+
+def _ssm_template(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    hs, p, n = cfg.ssm_heads_padded, cfg.ssm_head_dim, cfg.ssm_state
+    w, sd = cfg.conv_width, 0.02
+    return {
+        "in_x": PDef((d, hs, p), ("normal", sd)),
+        "in_z": PDef((d, hs, p), ("normal", sd)),
+        "in_b": PDef((d, n), ("normal", sd)),
+        "in_c": PDef((d, n), ("normal", sd)),
+        "in_dt": PDef((d, hs), ("normal", sd)),
+        "conv_w": PDef((w, hs, p), ("normal", 0.2)),
+        "conv_bc_w": PDef((w, 2 * n), ("normal", 0.2)),
+        "a_log": PDef((hs,), ("zeros",)),
+        "dt_bias": PDef((hs,), ("zeros",)),
+        "d_skip": PDef((hs,), ("ones",)),
+        "gate_norm": PDef((hs, p), ("zeros",)),
+        "out": PDef((hs, p, d), ("normal", sd / np.sqrt(2 * cfg.n_layers))),
+    }
+
+
+def _layer_template(cfg: ArchConfig) -> dict:
+    layer = {"ln1": PDef((cfg.d_model,), ("zeros",))}
+    if cfg.family == "ssm":
+        layer["ssm"] = _ssm_template(cfg)
+        return layer
+    layer["attn"] = _attn_template(cfg)
+    layer["mlp"] = _mlp_template(cfg)
+    layer["ln2"] = PDef((cfg.d_model,), ("zeros",))
+    return layer
 
 
 def lm_template(cfg: ArchConfig) -> dict:
@@ -227,6 +269,111 @@ def _mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# SSM branch (Mamba2 SSD)
+# ---------------------------------------------------------------------------
+
+def _ssm_proj(sp: dict, x: torch.Tensor):
+    """The five input projections, in the compute dtype."""
+    return (_project(x, sp["in_x"]), _project(x, sp["in_z"]),
+            x @ sp["in_b"], x @ sp["in_c"], x @ sp["in_dt"])
+
+
+def _causal_conv(seq: torch.Tensor, w: torch.Tensor,
+                 tail: Optional[torch.Tensor] = None,
+                 lengths: Optional[torch.Tensor] = None):
+    """Depthwise causal conv. seq: (B, S, ...) w: (W, ...); tail: (B, W-1,
+    ...). Returns (out, new_tail).
+
+    With ``lengths`` (B,) the returned tail holds the last W-1 inputs at or
+    before position ``lengths[b]-1`` (ragged right-padded prefill): position
+    ``p`` lives at index ``p + W-1`` of the padded buffer, so the tail spans
+    indices ``lengths[b] .. lengths[b]+W-2``."""
+    width = w.shape[0]
+    if tail is None:
+        tail = torch.zeros((seq.shape[0], width - 1) + seq.shape[2:],
+                           dtype=seq.dtype, device=seq.device)
+    full = torch.cat([tail, seq], dim=1)
+    s = seq.shape[1]
+    out = full[:, :s] * w[0]
+    for i in range(1, width):
+        out = out + full[:, i:i + s] * w[i]
+    if width == 1:
+        new_tail = tail
+    elif lengths is None:
+        new_tail = full[:, -(width - 1):]
+    else:
+        idx = (lengths.long()[:, None]
+               + torch.arange(width - 1, device=seq.device))
+        idx = idx.reshape(idx.shape + (1,) * (full.dim() - 2))
+        new_tail = torch.gather(full, 1, idx.expand(
+            (-1, -1) + full.shape[2:]))
+    return out, new_tail
+
+
+def _ssm_gate_out(sp: dict, y: torch.Tensor, xs: torch.Tensor,
+                  z: torch.Tensor, dt_: torch.dtype) -> torch.Tensor:
+    """Skip term, SiLU gate and gated norm in float32, cast back to the
+    compute dtype before the output projection. y, xs, z: (..., Hs, P)."""
+    y = y + sp["d_skip"].float()[:, None] * xs.float()
+    y = y * F.silu(z.float())
+    return _out_proj(rmsnorm(y, sp["gate_norm"]).to(dt_), sp["out"])
+
+
+def _ssm_conv_inputs(sp: dict, x: torch.Tensor, cfg: ArchConfig,
+                     tail_x=None, tail_bc=None, lengths=None):
+    """Projections and both causal convs: (xs, z, b, c, dt_raw, tail_x,
+    tail_bc), xs / b / c after the conv and SiLU."""
+    xs, z, bmat, cmat, dt = _ssm_proj(sp, x)
+    xs, tail_x = _causal_conv(xs, sp["conv_w"], tail_x, lengths)
+    xs = F.silu(xs)
+    bc = torch.cat([bmat, cmat], dim=-1)
+    bc, tail_bc = _causal_conv(bc, sp["conv_bc_w"], tail_bc, lengths)
+    bc = F.silu(bc)
+    n = cfg.ssm_state
+    return xs, z, bc[..., :n], bc[..., n:], dt, tail_x, tail_bc
+
+
+def _ssm_dt_a(sp: dict, dt: torch.Tensor):
+    dt = F.softplus(dt.float() + sp["dt_bias"].float())
+    return dt, -torch.exp(sp["a_log"].float())
+
+
+def _ssm_forward(sp: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                 lengths: Optional[torch.Tensor] = None):
+    """Full-sequence SSD. Returns (y (B, S, D), h_fin, tail_x, tail_bc).
+
+    ``lengths`` (B,) marks the valid prefix of a right-padded batch: padded
+    positions get dt = 0, which makes their state update the identity, so
+    ``h_fin`` and the conv tails are the state after position
+    ``lengths[b]-1``."""
+    xs, z, bmat, cmat, dt, tail_x, tail_bc = _ssm_conv_inputs(
+        sp, x, cfg, lengths=lengths)
+    dt, a = _ssm_dt_a(sp, dt)
+    if lengths is not None:
+        keep = (torch.arange(x.shape[1], device=x.device)[None, :]
+                < lengths[:, None])
+        dt = torch.where(keep[:, :, None], dt,
+                         torch.zeros((), device=x.device))
+    y, h_fin = ops.ssd_scan(xs.float(), dt, a, bmat.float(), cmat.float(),
+                            chunk=cfg.ssd_chunk, impl=cfg.attn_impl)
+    return _ssm_gate_out(sp, y, xs, z, x.dtype), h_fin, tail_x, tail_bc
+
+
+def _ssm_decode(sp: dict, x: torch.Tensor, h: torch.Tensor,
+                tail_x: torch.Tensor, tail_bc: torch.Tensor,
+                cfg: ArchConfig):
+    """One-token SSD update; x (B, 1, D). Returns (y, h, tail_x,
+    tail_bc)."""
+    xs, z, bmat, cmat, dt, tail_x, tail_bc = _ssm_conv_inputs(
+        sp, x, cfg, tail_x, tail_bc)
+    dt, a = _ssm_dt_a(sp, dt)
+    y1, h = ssd.ssd_decode_step(h, xs[:, 0].float(), dt[:, 0], a,
+                                bmat[:, 0].float(), cmat[:, 0].float())
+    out = _ssm_gate_out(sp, y1, xs[:, 0], z[:, 0], x.dtype)
+    return out[:, None], h, tail_x, tail_bc
+
+
+# ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
@@ -253,6 +400,8 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *,
     _check_supported(cfg)
     if batch.get("frontend") is not None:
         raise NotImplementedError("frontend embeddings are not ported yet")
+    if cfg.family == "ssm":
+        return _ssm_prefill(params, batch["tokens"], cfg, lengths)
     tokens = batch["tokens"]
     b, s = tokens.shape
     max_len = max_len or s
@@ -280,6 +429,53 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *,
     return _logits(params, last, cfg), cache
 
 
+def _ssm_prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                 lengths: Optional[torch.Tensor]):
+    """SSM prefill: the last valid position's logits and the constant-size
+    cache (state and conv tails frozen at ``lengths[b]-1``)."""
+    b, s = tokens.shape
+    dt, dev = _dtype(cfg), tokens.device
+    if lengths is not None:
+        lengths = lengths.to(device=dev, dtype=torch.int32)
+    x = _embed_in(params, tokens, cfg)
+    states, tails_x, tails_bc = [], [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i, dt)
+        y, h_fin, tail_x, tail_bc = _ssm_forward(
+            lp["ssm"], rmsnorm(x, lp["ln1"]), cfg, lengths=lengths)
+        states.append(h_fin)
+        tails_x.append(tail_x)
+        tails_bc.append(tail_bc)
+        x = x + y
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    last = x[torch.arange(b, device=dev), (lengths - 1).long()][:, None]
+    cache = {"length": lengths, "ssm_h": torch.stack(states),
+             "conv_x": torch.stack(tails_x), "conv_bc": torch.stack(tails_bc)}
+    return _logits(params, last, cfg), cache
+
+
+def _ssm_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                     cfg: ArchConfig):
+    """SSM decode: state and conv tails of active rows updated in place;
+    rows with length 0 keep theirs bit-identical."""
+    active = cache["length"] > 0
+    lengths = cache["length"] + active.to(torch.int32)
+    dt = _dtype(cfg)
+    x = _embed_in(params, tokens, cfg)
+    keep4 = active[:, None, None, None]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i, dt)
+        h, tx, tbc = cache["ssm_h"][i], cache["conv_x"][i], cache["conv_bc"][i]
+        y, h_new, tx_new, tbc_new = _ssm_decode(
+            lp["ssm"], rmsnorm(x, lp["ln1"]), h, tx, tbc, cfg)
+        h.copy_(torch.where(keep4, h_new, h))
+        tx.copy_(torch.where(keep4, tx_new, tx))
+        tbc.copy_(torch.where(active[:, None, None], tbc_new, tbc))
+        x = x + y
+    return _logits(params, x, cfg), {**cache, "length": lengths}
+
+
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 cfg: ArchConfig, *, max_pages: Optional[int] = None):
     """One decode step: ``tokens (B, 1)`` land at position
@@ -294,6 +490,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     and bounds the plain path's gather. The new position's factor row
     ``[1, pos]`` is written to the slab once, outside the layer loop."""
     _check_supported(cfg)
+    if cfg.family == "ssm":
+        return _ssm_decode_step(params, cache, tokens, cfg)
     active = cache["length"] > 0
     lengths = cache["length"] + active.to(torch.int32)
     dt = _dtype(cfg)
@@ -327,16 +525,28 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda",
                length: int = 0) -> dict:
-    """Zeroed kernel-layout cache ``(L, B, KVH, max_len, hd)``."""
+    """Zeroed cache: kernel-layout k/v ``(L, B, KVH, max_len, hd)``, or for
+    the SSM family the constant-size ``ssm_h (L, B, Hs, P, N)`` float32
+    state and the conv tails ``conv_x (L, B, W-1, Hs, P)`` and ``conv_bc
+    (L, B, W-1, 2N)`` (``max_len`` does not size them)."""
     _check_supported(cfg)
-    shape = (cfg.n_layers, batch, cfg.kv_heads_padded, max_len,
-             cfg.resolved_head_dim)
-    return {
-        "length": torch.full((batch,), length, dtype=torch.int32,
-                             device=device),
-        "k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
-        "v": torch.zeros(shape, dtype=_dtype(cfg), device=device),
-    }
+    cache = {"length": torch.full((batch,), length, dtype=torch.int32,
+                                  device=device)}
+    l, dt = cfg.n_layers, _dtype(cfg)
+    if cfg.family == "ssm":
+        hs, p, n = cfg.ssm_heads_padded, cfg.ssm_head_dim, cfg.ssm_state
+        w = cfg.conv_width
+        cache["ssm_h"] = torch.zeros((l, batch, hs, p, n),
+                                     dtype=torch.float32, device=device)
+        cache["conv_x"] = torch.zeros((l, batch, w - 1, hs, p), dtype=dt,
+                                      device=device)
+        cache["conv_bc"] = torch.zeros((l, batch, w - 1, 2 * n), dtype=dt,
+                                       device=device)
+        return cache
+    shape = (l, batch, cfg.kv_heads_padded, max_len, cfg.resolved_head_dim)
+    cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+    cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    return cache
 
 
 def insert_cache_at_slots(dst: dict, src: dict, slots) -> dict:
@@ -344,8 +554,9 @@ def insert_cache_at_slots(dst: dict, src: dict, slots) -> dict:
 
     ``slots[i]`` is the destination slot of wave row ``i``; out-of-range
     entries (``>= n_slots``) are dropped, so a fixed-size wave can carry
-    padding rows. A wave cache shorter than the slot cache fills the slot's
-    leading positions and zeroes the rest."""
+    padding rows. Every layer-major ``(L, B, ...)`` leaf is copied; a k/v
+    wave cache shorter than the slot cache fills the slot's leading
+    positions and zeroes the rest."""
     n_slots = dst["length"].shape[0]
     pairs = [(i, int(s)) for i, s in enumerate(slots) if 0 <= int(s) < n_slots]
     if not pairs:
@@ -353,11 +564,16 @@ def insert_cache_at_slots(dst: dict, src: dict, slots) -> dict:
     dev = dst["length"].device
     src_rows = torch.tensor([i for i, _ in pairs], device=dev)
     dst_rows = torch.tensor([s for _, s in pairs], device=dev)
-    s_len = src["k"].shape[3]
-    if s_len > dst["k"].shape[3]:
-        raise ValueError(f"wave cache length {s_len} exceeds the slot "
-                         f"cache's {dst['k'].shape[3]}")
-    for key in ("k", "v"):
+    for key in dst:
+        if key == "length":
+            continue
+        if key not in ("k", "v"):
+            dst[key][:, dst_rows] = src[key][:, src_rows]
+            continue
+        s_len = src[key].shape[3]
+        if s_len > dst[key].shape[3]:
+            raise ValueError(f"wave cache length {s_len} exceeds the slot "
+                             f"cache's {dst[key].shape[3]}")
         dst[key][:, dst_rows, :, :s_len] = src[key][:, src_rows]
         dst[key][:, dst_rows, :, s_len:] = 0
     dst["length"][dst_rows] = src["length"][src_rows]
@@ -387,6 +603,8 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
     128-lane pads are Pallas TPU tile constraints, and the Hopper kernel
     reads rows of any width."""
     _check_supported(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.family} caches are constant-size: no pages")
     shape = (cfg.n_layers, cfg.kv_heads_padded, n_pages, page_size,
              cfg.resolved_head_dim)
     cache = {

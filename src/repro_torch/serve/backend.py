@@ -23,6 +23,10 @@ attention over the padded slot batch, masked per slot at its own ``n_res``.
   ``max_len`` bound on prompt + budget does not apply: the page table and
   the pool bound a request instead.
 
+The SSM family's cache is constant-size per slot: it accepts prompts of
+any length, and ``page_size`` is a no-op for it (the backend does not
+page), as in the reference.
+
 Chunked prefill, prefix caching and mesh sharding wait for later slices.
 """
 from __future__ import annotations
@@ -169,7 +173,10 @@ class TokenDecodeBackend(Backend):
         self.prefill_len = prefill_len
         self._vocab = model.cfg.vocab
         self._guard_bad: Dict[int, str] = {}
-        self.paged = page_size is not None
+        # full-KV caches must fit prompt + budget inside the slot segment
+        # (contiguous) or the page pool (paged); SSM state is constant-size
+        self._bounded_cache = model.cfg.family == "dense"
+        self.paged = page_size is not None and self._bounded_cache
         self.lazy = self.paged and page_reservation == "lazy"
         if self.paged:
             self.page_size = page_size
@@ -226,7 +233,8 @@ class TokenDecodeBackend(Backend):
                     f"{self.page_size})) exceeds {cap} (page-table row "
                     f"width {self.pages_per_slot}, pool {self.n_pages} "
                     f"pages)")
-        elif req.prompt_len + req.max_new_tokens > self.max_len:
+        elif (self._bounded_cache
+              and req.prompt_len + req.max_new_tokens > self.max_len):
             raise AdmissionRejected(
                 f"contiguous mode: prompt {req.prompt_len} + budget "
                 f"{req.max_new_tokens} exceeds the per-slot segment "

@@ -7,8 +7,10 @@ and the request lifecycle. Everything DEVICE-shaped — the caches, the
 sampling state, the prefill/decode programs — lives in a backend, chosen
 by the model's family:
 
-- ``TokenDecodeBackend`` (the dense LM family): autoregressive decode over
-  a contiguous or paged KV cache; a request's result is its token ids;
+- ``TokenDecodeBackend`` (the dense and SSM LM families): autoregressive
+  decode over a contiguous or paged KV cache, or a constant-size SSM state
+  (which accepts prompts longer than ``max_len`` and ignores
+  ``page_size``); a request's result is its token ids;
 - ``PairBatchBackend`` (``cfg.family == "pairformer"``): batched Pairformer
   inference, where a request is one complex, admission caches its
   per-layer pair-bias factors, every step is one refinement iteration, and
@@ -130,7 +132,8 @@ class ServeEngine:
             width, and ``"lazy"`` (prompt pages at admission, growth on
             demand, preemption when the pool is dry) or ``"whole"`` (the
             full footprint at admission; decode never allocates). Ignored
-            by the pair backend.
+            by the pair backend and by SSM models (``page_stats()`` is
+            then empty).
         factors: fitted pair-bias factor MLP params (pair backend only;
             None serves truncated-SVD factors).
         device: where the engine runs; None means the CUDA device.
