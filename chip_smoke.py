@@ -13,22 +13,30 @@ as it runs, any failure ending the run:
               ``flash_decode.cu``, which holds the contiguous and the
               paged decode kernels, and ``ssd_scan.cu``, the SSD chunk
               scan) and print ptxas's register / shared-memory report;
+              count the HGMMA (wgmma) instructions of every kernel function
+              of the attention library in its SASS (``cuobjdump -sass``):
+              the run fails if a bf16 (tensor-core) body has none;
 2. kernels  — each of the four attention kernels against its plain
               PyTorch version on the card, at the serving paths' shapes
-              and off-path modes, within the stated tolerances (length-0
-              rows of the ragged kernel exactly 0);
+              and off-path modes (N off the 64-row tile, head dims and
+              ranks off 16), within the stated tolerances (length-0 rows
+              of the ragged kernel exactly 0); every bf16 call of kernels
+              1 and 2 takes the tensor-core body, every float32 call the
+              CUDA-core one;
 3. serve    — GPT-2-ALiBi-1.5B at full width (48 layers, d_model 1600,
               bf16, random weights from ``--seed``) through ``ServeEngine``
               on 4 slots x 2048 positions: 8 ragged requests (prompts
               64-512 tokens, 32 new tokens each, 6 greedy and 2 sampled),
               staggered as the launcher does. Every request must end OK
               with 32 tokens, and the kernels' launch counters must equal
-              48 x prefill waves and 48 x decode steps;
+              48 x prefill waves and 48 x decode steps, every prefill
+              launch on the tensor-core body;
 4. paged    — the same 8 requests through a paged engine (page size 16,
               lazy reservation) whose pool is sized from the mix so that
               it grows pages and preempts; every request OK with 32
               tokens, the paged decode kernel launched 48 x decode steps
-              and the contiguous one never, every page free at the end;
+              and the contiguous one never, every prefill launch on the
+              tensor-core body, every page free at the end;
 5. parity   — the first wave's prefill and 4 decode steps again, with the
               plain path (impl="torch") on the card, logits compared, on
               the contiguous cache and on a paged cache (whose kernel path
@@ -44,8 +52,9 @@ as it runs, any failure ending the run:
               384 residues in SVD mode: 8 complexes (n_res 96-384), 4-8
               refinement steps each, staggered. Every request must end OK
               with a finite (n_res, 384) result, the ragged kernel's counter
-              must equal 16 x (admission waves + refinement steps), and the
-              other kernels must not launch;
+              must equal 16 x (admission waves + refinement steps), each
+              launch on the tensor-core body, and the other kernels must
+              not launch;
 8. pair parity — the first wave's admission and 2 steps again with the
               plain path (impl="torch"): bf16 in SVD mode and in factor-MLP
               mode (MLPs from ``--seed``, hidden 256), every ragged kernel
@@ -98,6 +107,7 @@ import contextlib
 import functools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -221,9 +231,12 @@ PROFILE_HEAD = 4                 # ~25 ms spin kernels opening the warm-up
                                  # retry
 SPIN_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
 # the port's CUDA kernels as torch.profiler names them (kernels 1 and 2
-# share the attn_fwd template, kernels 3 and 4 the decode_fwd one; kernel
-# 5 is ssd_fwd)
-PORT_KERNEL = re.compile(r"(?<![A-Za-z0-9_])(attn_fwd|decode_fwd|ssd_fwd)<")
+# share the attn_fwd_tc template in bf16 and attn_fwd in float32, kernels 3
+# and 4 the decode_fwd one; kernel 5 is ssd_fwd)
+PORT_KERNEL = re.compile(
+    r"(?<![A-Za-z0-9_])(attn_fwd|attn_fwd_tc|decode_fwd|ssd_fwd)<")
+# the two attention wrappers, which also count their tensor-core launches
+ATTENTION = ("flashbias_attention_fwd", "flashbias_attention_ragged_fwd")
 
 
 def window(prof) -> str:
@@ -343,6 +356,53 @@ def tolerance(dtype, ref) -> float:
     return 2.0 ** -6 * max(1.0, float(ref.float().abs().max()))
 
 
+def sass_hgmma() -> None:
+    """HGMMA instructions per kernel function of the built attention
+    library, from ``cuobjdump -sass``; fails unless every tensor-core body
+    (``attn_fwd_tc<Dv>``) has some."""
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass",
+                           str(build.library_path("flashbias_attn"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : \S*?\d(attn_fwd(?:_tc)?)I(\w+?)EE",
+                         line)
+        if head:
+            fn = f"{head.group(1)}<{head.group(2)}>"
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    tc = {k: n for k, n in counts.items() if k.startswith("attn_fwd_tc")}
+    log("build", f"HGMMA instructions per function in the SASS of "
+                 f"libflashbias_attn: {counts}")
+    if not tc or not all(tc.values()):
+        raise AssertionError(f"a tensor-core body without HGMMA: {counts}")
+
+
+def check_tensor_core(phase: str) -> None:
+    """Every launch of the attention wrappers since their counters were
+    set to 0 took the tensor-core body."""
+    counters = launch_counters()
+    got = {name: (counters[name].tensor_core_launches,
+                  counters[name].launches) for name in ATTENTION}
+    log(phase, f"tensor-core launches / launches: {got}")
+    if any(tc != n for tc, n in got.values()):
+        raise AssertionError(f"{phase}: attention launches off the "
+                             f"tensor-core body: {got}")
+
+
+def reset_counters() -> dict:
+    """Every launch counter set to 0; returns the counted wrappers."""
+    counters = launch_counters()
+    for name, fn in counters.items():
+        fn.launches = 0
+        if name in ATTENTION:
+            fn.tensor_core_launches = 0
+    return counters
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -451,8 +511,12 @@ def phase_kernels(seed: int) -> dict:
     rng = np.random.default_rng(seed)
     worst = {}
 
-    def check(name, got, want, dtype, path=False):
+    def check(name, got, want, dtype, path=False, wrapper=None, before=0):
         torch.cuda.synchronize()
+        if wrapper is not None:
+            tc = wrapper.tensor_core_launches - before
+            if tc != (dtype == torch.bfloat16):
+                raise AssertionError(f"{name}: {tc} tensor-core launches")
         err = float((got.float() - want.float()).abs().max())
         tol = tolerance(dtype, want)
         ok = bool(torch.isfinite(got).all()) and err <= tol
@@ -476,11 +540,26 @@ def phase_kernels(seed: int) -> dict:
                               200, 160, dtype, bias, mask, False))
     cases.append(("flashbias_attention_fwd GQA8:2 N130 D64 f32 alibi local",
                   1, 8, 2, 130, 64, torch.float32, "alibi", "local", False))
+    # the bf16 body off its tiles: N off the 64-row tile at the path's D,
+    # D 40 (k-steps of 16 zero-padded, v's 32-column panel cut) and rank 4;
+    # grids under 264 blocks split each block's kv tiles over two
+    # warpgroups, larger ones take one
+    cases += [("flashbias_attention_fwd N130 D32 bf16 alibi causal", 2, 8,
+               8, 130, 32, torch.bfloat16, "alibi", "causal", False),
+              ("flashbias_attention_fwd GQA4:2 N200 D40 bf16 phi local", 2,
+               4, 2, 200, 40, torch.bfloat16, "phi", "local", False),
+              ("flashbias_attention_fwd N77 D40 bf16 alibi none", 2, 4, 4,
+               77, 40, torch.bfloat16, "alibi", "none", False),
+              # a grid of 512 blocks: one warpgroup per block, with phi
+              ("flashbias_attention_fwd B4 H16 N512 D64 bf16 phi causal", 4,
+               16, 16, 512, 64, torch.bfloat16, "phi", "causal", False)]
     for name, b, h, kvh, n, d, dtype, bias, mask, path in cases:
         q, k, v, extra = prefill_inputs(gen, b, h, kvh, n, d, dtype, bias)
         kw = dict(scale=d ** -0.5, mask_kind=mask, window=48, **extra)
+        before = flashbias_attention_fwd.tensor_core_launches
         check(name, flashbias_attention_fwd(q, k, v, **kw),
-              flashbias_attention_torch(q, k, v, **kw), dtype, path)
+              flashbias_attention_torch(q, k, v, **kw), dtype, path,
+              flashbias_attention_fwd, before)
 
     # decode kernel: the serving path's shape, then phi mode and GQA
     cases = [("flash_decode_fwd path B4 KVH64 G1 S2048 D32 bf16 alibi",
@@ -552,12 +631,13 @@ def phase_kernels(seed: int) -> dict:
                                         r=r)
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         kw = dict(scale=d ** -0.5, mask_kind=mask)
+        before = flashbias_attention_ragged_fwd.tensor_core_launches
         got = flashbias_attention_ragged_fwd(
             q, k, v, extra.get("phi_q"), extra.get("phi_k"),
             extra.get("slopes"), lens, **kw)
         check(name, got, flashbias_attention_torch(q, k, v, lengths=lens,
                                                    **kw, **extra),
-              dtype, path)
+              dtype, path, flashbias_attention_ragged_fwd, before)
         if bool(got[lens == 0].any()):
             raise AssertionError(f"{name}: rows of length 0 are not 0")
     return worst
@@ -596,9 +676,7 @@ def drive_counted(engine, requests):
     import torch
     from repro_torch.launch.serve import drive
     from repro_torch.serve import OK
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = reset_counters()
     t0 = time.monotonic()
     rids = drive(engine, requests)
     torch.cuda.synchronize()
@@ -650,6 +728,7 @@ def phase_serve(seed: int):
                  f"{stats['decode_steps']} decode steps; launches {launches}")
     if launches != want or not launches["flash_decode_fwd"]:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    check_tensor_core("serve")
     return engine, requests, launches, tok_s
 
 
@@ -677,6 +756,7 @@ def phase_paged(engine, requests):
                  f"{launches}; pages {pages}")
     if launches != want or not launches["flash_decode_paged_fwd"]:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    check_tensor_core("paged")
     if pages["grown"] < 1 or pages["preemptions"] < 1:
         raise AssertionError(f"the pool of {pages['n_pages']} pages neither "
                              f"grew and preempted: {pages}")
@@ -1032,9 +1112,7 @@ def phase_pair_serve(seed: int):
                 f"{cfg.bias_rank}, {cfg.dtype}; weights ready in "
                 f"{time.monotonic() - t0:.1f}s")
     complexes = make_complexes(seed)
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = reset_counters()
     t0 = time.monotonic()
     rids = drive(engine, complexes)
     torch.cuda.synchronize()
@@ -1059,6 +1137,7 @@ def phase_pair_serve(seed: int):
                 f"{stats['decode_steps']} engine steps; launches {launches}")
     if launches != want or not launches["flashbias_attention_ragged_fwd"]:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    check_tensor_core("pair")
     return engine, complexes, rids, launches
 
 
@@ -1838,9 +1917,15 @@ def main(argv=None) -> int:
     report = build.build()
     log("build", f"{sorted(report)} built in {time.monotonic() - t0:.1f}s")
     for name, rep in report.items():
+        fn = name
         for line in rep["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '\S*?\d([a-z_]+)I"
+                              r"(\w+?)EE", line)
+            if entry:
+                fn = f"{name} {entry.group(1)}<{entry.group(2)}>"
+            elif "Used " in line or "spill" in line:
+                log("build", f"{fn}: {line.strip()}")
+    sass_hgmma()
 
     errors = phase_kernels(args.seed)
     engine, requests, launches, tok_s = phase_serve(args.seed)

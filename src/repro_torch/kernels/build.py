@@ -3,8 +3,10 @@
 Each ``<name>.cu`` exposes a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``.
 Libraries land in ``build/kernels/`` at the repository root, named by a
-digest of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing is built at import time: the first launch
+digest of the source, every ``csrc/*.cuh`` header and the flags, so an
+edited source or header rebuilds and an unchanged one is reused. A library
+links only the CUDA runtime: driver functions (``cuTensorMapEncodeTiled``)
+are fetched through ``cudaGetDriverEntryPoint``, with no ``-lcuda``. Nothing is built at import time: the first launch
 (or an explicit ``build``) compiles.
 """
 from __future__ import annotations
@@ -42,8 +44,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

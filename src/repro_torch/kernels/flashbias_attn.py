@@ -16,6 +16,14 @@ one CUDA source:
 - ``flashbias_attention_ragged_fwd`` (kernel 2): row ``b`` bounded by its
   own ``lengths[b]``, which stays on the device (the kernel reads it).
 
+The source has two bodies, chosen by dtype: bf16 runs on the tensor cores
+(wgmma, TMA loads), float32 on the CUDA cores. Each wrapper also counts the
+launches that took the tensor-core body (``.tensor_core_launches``), as
+the library reports the dtype's body. For the bf16 body the TMA loads need
+row strides of 16 bytes: a head dim that is not a multiple of 8, or a rank
+that is not a multiple of 4, is zero-padded here (which changes no logit),
+and the output's padded columns are cut off.
+
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs ``flashbias_attention_torch``.
 """
@@ -26,6 +34,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.attention import DEFAULT_MASK_VALUE
 from repro_torch.kernels import build
@@ -36,6 +45,7 @@ __all__ = ["flashbias_attention_torch", "flashbias_attention_fwd",
 MASK_KINDS = {"none": 0, "causal": 1, "local": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232_448          # dynamic shared memory a block may use (H100)
+_MAX_RANK_TC = 256             # a TMA box holds at most 256 factor columns
 
 
 def _allowed(n: int, m: int, mask_kind: str, window: int, kv_len: int,
@@ -96,7 +106,8 @@ def flashbias_attention_torch(
 @functools.cache
 def _kernel():
     """The static and ragged launch functions and the shared-memory size
-    function of the built library, bound once (building it on first use)."""
+    function of the built library, bound once (building it on first use),
+    and the dtypes its dispatch sends to the tensor-core body."""
     lib = build.load("flashbias_attn")
     fn = lib.flashbias_attn_fwd
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
@@ -108,18 +119,35 @@ def _kernel():
                        + [ctypes.c_void_p])
     ragged.restype = ctypes.c_int
     smem = lib.flashbias_attn_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 3
+    smem.argtypes = [ctypes.c_int] * 4
     smem.restype = ctypes.c_longlong
-    return fn, ragged, smem
+    body = lib.flashbias_attn_tensor_core
+    body.argtypes = [ctypes.c_int]
+    body.restype = ctypes.c_int
+    tensor_core = {dt for dt, code in _DTYPES.items() if body(code)}
+    return fn, ragged, smem, tensor_core
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _pad_last(t: Optional[torch.Tensor], mult: int):
+    """``t`` with its last dim zero-padded to a multiple of ``mult``."""
+    if t is None or t.shape[-1] % mult == 0:
+        return t
+    return F.pad(t, (0, -t.shape[-1] % mult))
+
+
+def _aligned(t: Optional[torch.Tensor]):
+    """``t``, copied where its data does not start on 16 bytes (TMA)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _checked(q, k, v, phi_q, phi_k, slopes, mask_kind, window, name):
-    """Validate a CUDA launch's inputs; returns the dims, the float32
-    contiguous factors and slopes, and the output tensor."""
+    """Validate a CUDA launch's inputs; returns the dims, the (padded) q, k,
+    v, the float32 contiguous factors and slopes, the output tensor and the
+    output's true head dim."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     b, h, n, d = q.shape
@@ -158,11 +186,27 @@ def _checked(q, k, v, phi_q, phi_k, slopes, mask_kind, window, name):
         raise ValueError(f"{name}: inputs on several devices")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name} takes contiguous q, k, v")
-    if _kernel()[2](d, dv, r) > _SMEM_LIMIT:
+    dv_out = dv
+    if q.dtype == torch.bfloat16:
+        if r > _MAX_RANK_TC:
+            raise ValueError(f"rank {r} > {_MAX_RANK_TC}: the bf16 kernel "
+                             f"loads a factor row in one box")
+        q, k, v = (_aligned(_pad_last(t, 8)) for t in (q, k, v))
+        phi_q, phi_k = _pad_last(phi_q, 4), _aligned(_pad_last(phi_k, 4))
+        d, dv = q.shape[-1], v.shape[-1]
+        r = 0 if phi_q is None else phi_q.shape[-1]
+    if _kernel()[2](d, dv, r, _DTYPES[q.dtype]) > _SMEM_LIMIT:
         raise ValueError(f"head dims {d}/{dv} with rank {r} exceed the "
                          f"kernel's shared memory")
     out = torch.empty((b, h, n, dv), dtype=q.dtype, device=q.device)
-    return (b, h, kvh, n, m, d, dv, r), phi_q, phi_k, slopes, out
+    return (b, h, kvh, n, m, d, dv, r), (q, k, v), phi_q, phi_k, slopes, out, \
+        dv_out
+
+
+def _count(wrapper, dtype) -> None:
+    wrapper.launches += 1
+    if dtype in _kernel()[3]:
+        wrapper.tensor_core_launches += 1
 
 
 def flashbias_attention_fwd(
@@ -179,7 +223,7 @@ def flashbias_attention_fwd(
         return flashbias_attention_torch(
             q, k, v, phi_q, phi_k, slopes, scale=scale, mask_kind=mask_kind,
             window=window, kv_len=kv_len)
-    dims, phi_q, phi_k, slopes, out = _checked(
+    dims, (q, k, v), phi_q, phi_k, slopes, out, dv = _checked(
         q, k, v, phi_q, phi_k, slopes, mask_kind, window,
         "flashbias_attention_fwd")
     m = dims[4]
@@ -194,11 +238,12 @@ def flashbias_attention_fwd(
     if err != 0:
         raise RuntimeError(f"flashbias_attn.cu launch failed: CUDA error "
                            f"{err}")
-    flashbias_attention_fwd.launches += 1
-    return out
+    _count(flashbias_attention_fwd, q.dtype)
+    return out[..., :dv].contiguous() if out.shape[-1] != dv else out
 
 
 flashbias_attention_fwd.launches = 0
+flashbias_attention_fwd.tensor_core_launches = 0
 
 
 def flashbias_attention_ragged_fwd(
@@ -217,7 +262,7 @@ def flashbias_attention_ragged_fwd(
         return flashbias_attention_torch(
             q, k, v, phi_q, phi_k, slopes, scale=scale, mask_kind=mask_kind,
             window=window, lengths=lengths)
-    dims, phi_q, phi_k, slopes, out = _checked(
+    dims, (q, k, v), phi_q, phi_k, slopes, out, dv = _checked(
         q, k, v, phi_q, phi_k, slopes, mask_kind, window,
         "flashbias_attention_ragged_fwd")
     if lengths.shape != (dims[0],):
@@ -232,8 +277,9 @@ def flashbias_attention_ragged_fwd(
     if err != 0:
         raise RuntimeError(f"flashbias_attn.cu ragged launch failed: CUDA "
                            f"error {err}")
-    flashbias_attention_ragged_fwd.launches += 1
-    return out
+    _count(flashbias_attention_ragged_fwd, q.dtype)
+    return out[..., :dv].contiguous() if out.shape[-1] != dv else out
 
 
 flashbias_attention_ragged_fwd.launches = 0
+flashbias_attention_ragged_fwd.tensor_core_launches = 0

@@ -252,10 +252,13 @@ def test_flashbias_kernel_matches_plain_on_card(cuda, bias, mask, dtype):
     args[:3] = [x.to(dtype) for x in args[:3]]
     kw = dict(scale=D ** -0.5, mask_kind=mask, window=WINDOW)
     before = flashbias_attention_fwd.launches
+    tc = flashbias_attention_fwd.tensor_core_launches
     got = flashbias_attention_fwd(*args, **kw)
     want = flashbias_attention_torch(*args, **kw)
     torch.cuda.synchronize()
     assert flashbias_attention_fwd.launches == before + 1
+    assert (flashbias_attention_fwd.tensor_core_launches - tc
+            == (dtype == torch.bfloat16))
     tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * 4
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
@@ -434,10 +437,97 @@ def test_ragged_kernel_matches_plain_on_card(cuda, bias, mask, dtype):
     case[:3] = [x.to(dtype) for x in case[:3]]
     kw = dict(scale=D ** -0.5, mask_kind=mask)
     before = flashbias_attention_ragged_fwd.launches
+    tc = flashbias_attention_ragged_fwd.tensor_core_launches
     got = flashbias_attention_ragged_fwd(*case, **kw)
     want = flashbias_attention_torch(*case[:6], lengths=case[6], **kw)
     torch.cuda.synchronize()
     assert flashbias_attention_ragged_fwd.launches == before + 1
+    assert (flashbias_attention_ragged_fwd.tensor_core_launches - tc
+            == (dtype == torch.bfloat16))
     tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * 4
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
     assert not got[2].any()
+
+
+def test_zero_padding_head_dim_and_rank_changes_no_logit():
+    """The bf16 kernel's wrapper zero-pads q / k to a head dim that is a
+    multiple of 8, v likewise (cutting the output's extra columns), and the
+    factors to a rank that is a multiple of 4: the plain version shows
+    that this leaves the result as it was."""
+    rng = np.random.default_rng(15)
+    q, k, v = (_t(_rand(rng, 2, 4, N, 5)) for _ in range(3))
+    pq, pk = _t(_rand(rng, 2, 4, N, 3)), _t(_rand(rng, 2, 4, N, 3))
+    kw = dict(scale=5 ** -0.5, mask_kind="causal")
+    want = flashbias_attention_torch(q, k, v, pq, pk, **kw)
+    pad = torch.nn.functional.pad
+    got = flashbias_attention_torch(pad(q, (0, 3)), pad(k, (0, 3)),
+                                    pad(v, (0, 3)), pad(pq, (0, 1)),
+                                    pad(pk, (0, 1)), **kw)
+    torch.testing.assert_close(got[..., :5], want, rtol=1e-6, atol=1e-6)
+    assert not got[..., 5:].any()
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core body at the serving paths' shapes and off its tiles
+# ---------------------------------------------------------------------------
+
+def _card_inputs(rng, cuda, b, h, kvh, n, d, dv, r, bias):
+    q = _t(_rand(rng, b, h, n, d)).to(cuda, torch.bfloat16)
+    k = _t(_rand(rng, b, kvh, n, d)).to(cuda, torch.bfloat16)
+    v = _t(_rand(rng, b, kvh, n, dv)).to(cuda, torch.bfloat16)
+    extra = {}
+    if bias == "phi":                     # standard-normal float32 factors
+        extra["phi_q"] = _t(_rand(rng, b, h, n, r)).to(cuda)
+        extra["phi_k"] = _t(_rand(rng, b, h, n, r)).to(cuda)
+    elif bias == "alibi":
+        extra["slopes"] = tbias.alibi_slopes(h, device=cuda)
+    return q, k, v, extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (4, 64, 64, 512, 32, 32, 0, "alibi", "causal"),    # kernel 1's path
+    (2, 8, 8, 130, 32, 32, 0, "alibi", "causal"),      # N off the tile
+    (2, 4, 2, 200, 40, 40, 4, "phi", "local"),         # D 40, R 4
+    (1, 4, 4, 77, 40, 24, 0, "none", "none"),          # Dv 24 < D
+    (2, 4, 4, 150, 96, 96, 96, "phi", "none"),         # R 96 factors
+    (4, 16, 16, 512, 64, 64, 8, "phi", "causal"),      # phi, one warpgroup
+], ids=["path-B4H64N512D32", "N130", "D40R4-local", "N77-D40-Dv24",
+        "D96R96", "phi-large-grid"])
+def test_tensor_core_kernel1_on_card(cuda, case):
+    b, h, kvh, n, d, dv, r, bias, mask = case
+    rng = np.random.default_rng(16)
+    q, k, v, extra = _card_inputs(rng, cuda, b, h, kvh, n, d, dv, r, bias)
+    kw = dict(scale=d ** -0.5, mask_kind=mask, window=48, **extra)
+    tc = flashbias_attention_fwd.tensor_core_launches
+    got = flashbias_attention_fwd(q, k, v, **kw)
+    want = flashbias_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flashbias_attention_fwd.tensor_core_launches == tc + 1
+    assert got.shape == want.shape and got.is_contiguous()
+    tol = 2 ** -6 * 4                   # the bf16 tolerance above
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (384, 96, 96, [384, 200, 1, 0], "none"),    # kernel 2's path
+    (384, 96, 96, [333, 77, 5, 0], "causal"),   # lengths off the tile
+    (200, 40, 4, [200, 130, 63, 0], "none"),    # D 40, R 4
+    (100, 64, 8, [100, 64, 65, 0], "none"),     # N off the tile
+], ids=["path-N384D96R96", "lengths-off-tile-causal", "D40R4", "N100R8"])
+def test_tensor_core_kernel2_on_card(cuda, case):
+    n, d, r, lengths, mask = case
+    rng = np.random.default_rng(17)
+    q, k, v, extra = _card_inputs(rng, cuda, 4, 4, 4, n, d, d, r, "phi")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = dict(scale=d ** -0.5, mask_kind=mask)
+    tc = flashbias_attention_ragged_fwd.tensor_core_launches
+    got = flashbias_attention_ragged_fwd(q, k, v, extra["phi_q"],
+                                         extra["phi_k"], None, lens, **kw)
+    want = flashbias_attention_torch(q, k, v, lengths=lens, **kw, **extra)
+    torch.cuda.synchronize()
+    assert flashbias_attention_ragged_fwd.tensor_core_launches == tc + 1
+    tol = 2 ** -6 * 4                   # the bf16 tolerance above
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert not got[lens == 0].any()
