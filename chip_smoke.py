@@ -14,8 +14,10 @@ as it runs, any failure ending the run:
               paged decode kernels, and ``ssd_scan.cu``, the SSD chunk
               scan) and print ptxas's register / shared-memory report;
               count the HGMMA (wgmma) instructions of every kernel function
-              of the attention library in its SASS (``cuobjdump -sass``):
-              the run fails if a bf16 (tensor-core) body has none;
+              of the attention and SSD libraries in their SASS
+              (``cuobjdump -sass``): the run fails if a tensor-core body
+              (``attn_fwd_tc``; ``ssd_states``, ``ssd_cb``,
+              ``ssd_chunk_scan``) has none;
 2. kernels  — each of the four attention kernels against its plain
               PyTorch version on the card, at the serving paths' shapes
               and off-path modes (N off the 64-row tile, head dims and
@@ -77,25 +79,28 @@ as it runs, any failure ending the run:
               through the model's strided layout), then S off the chunk,
               S shorter than a chunk, a nonzero h0, b/c per head, a dt
               that would overflow an unmasked exp, bf16 x, under
-              ``ssd_tolerance``;
+              ``ssd_tolerance``, each on the tensor-core body; and one
+              shape off it (P 20, N 8, chunk 48) on the CUDA-core body;
 11. ssm serve — mamba2-130m at full width (24 layers, d_model 768, 32 SSM
               heads x 64, state 128, bf16, random weights from ``--seed``)
               through ``ServeEngine`` on 4 slots, max_len 2048: 8 requests
               with prompts of 4096 (longer than max_len), 3000, 1024, 2048,
               512, 777, 1500 and 256 tokens, 32 new tokens each, 6 greedy
               and 2 sampled, staggered. Every request ends OK with 32
-              tokens; the SSD kernel launches 24 x admission waves and the
-              attention kernels never. An engine built with page_size=16
-              serves the same mix with the same greedy streams and reports
-              that it does not page;
+              tokens; the SSD kernel launches 24 x admission waves, each
+              on the tensor-core body, and the attention kernels never.
+              An engine built with page_size=16 serves the same mix with
+              the same greedy streams and reports that it does not page;
 12. ssm parity and times — the first wave's prefill and 4 decode steps
               again with the plain path (impl="torch"): every SSD kernel
               call held in situ against the plain version on its inputs,
               the logits within SSM_LOGIT_TOL, and a deliberate fault (the
               state not carried across chunks) that the check must reject;
-              then the kernel, its plain version and its bound per call at
-              the path shape, the admission wave, the decode step of 4
-              slots (device busy, idle share) and end-to-end tokens/s.
+              then the kernel (and its split over the four device kernels
+              of the tensor-core body), its plain version and its bound
+              per call at the path shape, the admission wave, the decode
+              step of 4 slots (device busy, idle share) and end-to-end
+              tokens/s.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -162,15 +167,18 @@ SSM_PROMPTS = (4096, 3000, 1024, 2048, 512, 777, 1500, 256)
 SSM_DECODE_STEPS = 4             # decode steps of the parity phase
 # SSM parity, bf16 compute. The scan runs in float32 on both paths (the
 # model casts x, b, c to float32 and keeps dt, a and the state there), so
-# the paths differ only in the order of float32 sums inside the scan,
-# ~1e-6 relative. Such a difference shows in the bf16 model only where it
-# flips the rounding of an element (1 bf16 ulp, 2^-8 relative) after the
-# gated norm, and spreads through 24 layers as the attention kernels'
-# roundings spread through the LM's 48 (phase 5: within 0.125 of the plain
-# path's logits, tolerance 0.25). Logits here are bf16 of magnitude up to
-# ~4, whose ulp is 2^-6 = 0.0156: the bound is 8 such ulps, 0.125. In situ,
-# every kernel call is held against the plain version on its own inputs
-# under ``ssd_tolerance``: a fault of the kernel shows there first.
+# the paths differ only in float32 rounding inside the scan (the order of
+# sums; on the tensor-core body also the bf16 hi + lo split of each
+# operand, < 2^-15 relative per product term), ~1e-6 to 1e-5 relative.
+# Such a difference shows in the bf16 model only where it flips the
+# rounding of an element (1 bf16 ulp, 2^-8 relative) after the gated norm,
+# and spreads through 24 layers as the attention kernels' roundings spread
+# through the LM's 48 (phase 5: within 0.125 of the plain path's logits,
+# tolerance 0.25). The largest logits here are bf16 values in [8, 16),
+# whose ulp is 2^-4 = 0.0625 (the gap has read 0.0625, one such ulp): the
+# bound, 0.125, is 2 such ulps at the logits' top scale. In situ, every
+# kernel call is held against the plain version on its own inputs under
+# ``ssd_tolerance``: a fault of the kernel shows there first.
 SSM_LOGIT_TOL = 0.125
 
 
@@ -232,11 +240,16 @@ PROFILE_HEAD = 4                 # ~25 ms spin kernels opening the warm-up
 SPIN_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
 # the port's CUDA kernels as torch.profiler names them (kernels 1 and 2
 # share the attn_fwd_tc template in bf16 and attn_fwd in float32, kernels 3
-# and 4 the decode_fwd one; kernel 5 is ssd_fwd)
+# and 4 the decode_fwd one; kernel 5 is ssd_fwd on the CUDA cores and the
+# four SSD_STAGES on the tensor cores)
+SSD_STAGES = ("ssd_states", "ssd_cb", "ssd_state_pass", "ssd_chunk_scan")
 PORT_KERNEL = re.compile(
-    r"(?<![A-Za-z0-9_])(attn_fwd|attn_fwd_tc|decode_fwd|ssd_fwd)<")
-# the two attention wrappers, which also count their tensor-core launches
+    r"(?<![A-Za-z0-9_])(attn_fwd|attn_fwd_tc|decode_fwd|ssd_fwd|"
+    + "|".join(SSD_STAGES) + r")[<(]")
+# the wrappers that also count their tensor-core launches: the two attention
+# wrappers and the SSD scan's
 ATTENTION = ("flashbias_attention_fwd", "flashbias_attention_ragged_fwd")
+TENSOR_CORE = ATTENTION + ("ssd_scan_fwd",)
 
 
 def window(prof) -> str:
@@ -254,13 +267,21 @@ def window(prof) -> str:
     return f"device events {span(dev)}, launches {span(host)}"
 
 
+def device_launches(wrapper) -> int:
+    """The device kernels a counted wrapper has launched: its launch count,
+    or, for the SSD wrapper, one of whose calls launches up to four, its
+    count of device kernels."""
+    return getattr(wrapper, "device_kernels", wrapper.launches)
+
+
 def profiled(fn, iters: int, uniform: bool = True):
     """Run ``fn`` ``iters`` times under torch.profiler; returns the
     profile's device rows (``device_kernels``). The profiler has been seen to drop device events,
     so a profile is taken only when it is complete by what the run knows:
-    the port's kernels recorded exactly as often as their launch counters
-    moved during it, and, where every call of ``fn`` runs the same kernels
-    (``uniform``), every device row counted a multiple of ``iters`` times.
+    the port's kernels recorded exactly as often as their counters of
+    device kernels moved during it (``device_launches``), and, where every
+    call of ``fn`` runs the same kernels (``uniform``), every device row
+    counted a multiple of ``iters`` times.
     The events lost were those of a tracing session's start, more of them
     the longer the process had run, so the session opens with a warm-up
     step, traced and discarded (PROFILE_HEAD spin kernels of ~25 ms each,
@@ -290,12 +311,12 @@ def profiled(fn, iters: int, uniform: bool = True):
             for _ in range(PROFILE_HEAD << attempt):
                 torch.cuda._sleep(50_000_000)
             torch.cuda.synchronize()
-            before = sum(c.launches for c in counters)
+            before = sum(device_launches(c) for c in counters)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
             prof.step()
-        launched = sum(c.launches for c in counters) - before
+        launched = sum(device_launches(c) for c in counters) - before
         kernels = device_kernels(prof)
         port = sum(e.count for e in kernels if PORT_KERNEL.search(e.key))
         ragged = [(e.key[:40], e.count) for e in kernels
@@ -356,41 +377,61 @@ def tolerance(dtype, ref) -> float:
     return 2.0 ** -6 * max(1.0, float(ref.float().abs().max()))
 
 
-def sass_hgmma() -> None:
-    """HGMMA instructions per kernel function of the built attention
-    library, from ``cuobjdump -sass``; fails unless every tensor-core body
-    (``attn_fwd_tc<Dv>``) has some."""
+def sass_functions(name: str, pattern: str) -> dict:
+    """HGMMA instructions per kernel function of the built library ``name``,
+    from ``cuobjdump -sass``: the functions whose mangled names match
+    ``pattern``, keyed ``name<template arguments>`` from its two groups."""
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass",
-                           str(build.library_path("flashbias_attn"))],
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
-        head = re.search(r"Function : \S*?\d(attn_fwd(?:_tc)?)I(\w+?)EE",
-                         line)
-        if head:
-            fn = f"{head.group(1)}<{head.group(2)}>"
-            counts[fn] = 0
+        if "Function : " in line:
+            head = re.search(r"Function : " + pattern, line)
+            fn = (head.group(1) + (f"<{head.group(2)}>" if head.group(2)
+                                   else "")) if head else None
+            if fn is not None:
+                counts[fn] = 0
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
-    tc = {k: n for k, n in counts.items() if k.startswith("attn_fwd_tc")}
+    return counts
+
+
+def sass_hgmma() -> None:
+    """HGMMA instructions per kernel function of the built attention and SSD
+    libraries; fails unless every tensor-core body has some: each
+    ``attn_fwd_tc<Dv, phi>`` and each instantiation of the SSD body's three
+    kernels with products (``ssd_states``, ``ssd_cb``, ``ssd_chunk_scan``;
+    ``ssd_state_pass`` has none, nor has the CUDA-core ``ssd_fwd``)."""
+    attn = sass_functions("flashbias_attn",
+                          r"\S*?\d(attn_fwd(?:_tc)?)I(\w+?)EE")
+    ssd = sass_functions("ssd_scan", r"\S*?\d(ssd_\w+?)(?:I(\w+?)E)?E")
     log("build", f"HGMMA instructions per function in the SASS of "
-                 f"libflashbias_attn: {counts}")
-    if not tc or not all(tc.values()):
-        raise AssertionError(f"a tensor-core body without HGMMA: {counts}")
+                 f"libflashbias_attn: {attn}")
+    log("build", f"HGMMA instructions per function in the SASS of "
+                 f"libssd_scan: {ssd}")
+    tc = {k: n for k, n in attn.items() if k.startswith("attn_fwd_tc")}
+    tc.update({k: n for k, n in ssd.items()
+               if k.split("<")[0] in ("ssd_states", "ssd_cb",
+                                      "ssd_chunk_scan")})
+    stages = {k.split("<")[0] for k in tc}
+    if not all(tc.values()) or not {"attn_fwd_tc", "ssd_states", "ssd_cb",
+                                    "ssd_chunk_scan"} <= stages:
+        raise AssertionError(f"a tensor-core body without HGMMA: {tc}")
 
 
-def check_tensor_core(phase: str) -> None:
-    """Every launch of the attention wrappers since their counters were
-    set to 0 took the tensor-core body."""
+def check_tensor_core(phase: str, names=ATTENTION) -> None:
+    """Every launch of the wrappers ``names`` (the attention wrappers by
+    default) since their counters were set to 0 took the tensor-core
+    body."""
     counters = launch_counters()
     got = {name: (counters[name].tensor_core_launches,
-                  counters[name].launches) for name in ATTENTION}
+                  counters[name].launches) for name in names}
     log(phase, f"tensor-core launches / launches: {got}")
     if any(tc != n for tc, n in got.values()):
-        raise AssertionError(f"{phase}: attention launches off the "
-                             f"tensor-core body: {got}")
+        raise AssertionError(f"{phase}: launches off the tensor-core body: "
+                             f"{got}")
 
 
 def reset_counters() -> dict:
@@ -398,8 +439,10 @@ def reset_counters() -> dict:
     counters = launch_counters()
     for name, fn in counters.items():
         fn.launches = 0
-        if name in ATTENTION:
+        if name in TENSOR_CORE:
             fn.tensor_core_launches = 0
+        if hasattr(fn, "device_kernels"):
+            fn.device_kernels = 0
     return counters
 
 
@@ -1545,7 +1588,9 @@ def phase_ssm_kernel(seed: int) -> float:
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_torch
     gen = torch.Generator(device="cuda").manual_seed(seed + 10)
     f32, bf = torch.float32, torch.bfloat16
-    # (name, B, S, H, P, N, chunk, x dtype, b/c per head, dt shift, h0, path)
+    # (name, B, S, H, P, N, chunk, x dtype, b/c per head, dt shift, h0, path);
+    # every case takes the tensor-core body but the last, whose P, N and
+    # chunk are off it
     cases = [
         ("ssd_scan_fwd path B4 H32 S4096 P64 N128 chunk256 f32 b/c shared",
          4, 4096, 32, 64, 128, 256, f32, False, 0.0, False, True),
@@ -1563,21 +1608,29 @@ def phase_ssm_kernel(seed: int) -> float:
          256, bf, True, 0.0, True, False),
         ("ssd_scan_fwd P32 N64 chunk128 S333 b/c per head h0", 3, 333, 3,
          32, 64, 128, f32, True, 0.0, True, False),
+        ("ssd_scan_fwd P20 N8 chunk48 S97 h0 (the CUDA-core body)", 2, 97,
+         3, 20, 8, 48, f32, False, 0.0, True, False),
     ]
     worst = None
     for name, b, s, h, p, n, chunk, dtype, per_head, shift, with_h0, path \
             in cases:
         args, h0 = ssd_inputs(gen, b, s, h, p, n, dtype, per_head, shift,
                               with_h0)
+        tc_before = ssd_scan_fwd.tensor_core_launches
         y, hf = ssd_scan_fwd(*args, chunk=chunk, h0=h0)
         torch.cuda.synchronize()
+        tc = ssd_scan_fwd.tensor_core_launches - tc_before
+        if tc != (name != cases[-1][0]):     # the last case is off the body
+            raise AssertionError(f"{name}: the {'tensor' if tc else 'CUDA'}"
+                                 f"-core body took the call")
         y_ref, h_ref = ssd_scan_torch(*args, chunk=chunk, h0=h0)
         err_y = float((y.float() - y_ref.float()).abs().max())
         err_h = float((hf - h_ref).abs().max())
         tol_y, tol_h = ssd_tolerance(dtype, y_ref), ssd_tolerance(f32, h_ref)
         ok = (bool(torch.isfinite(y).all() and torch.isfinite(hf).all())
               and y.dtype == dtype and err_y <= tol_y and err_h <= tol_h)
-        log("ssm-kernel", f"{name}: y max_abs_err {err_y:.3e} (tol "
+        log("ssm-kernel", f"{name}: {'tensor' if tc else 'CUDA'}-core "
+                          f"body, y max_abs_err {err_y:.3e} (tol "
                           f"{tol_y:.1e}), h_fin {err_h:.3e} (tol "
                           f"{tol_h:.1e}) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -1638,6 +1691,7 @@ def phase_ssm_serve(seed: int):
                f"{launches}")
     if launches != want or not launches["ssd_scan_fwd"]:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    check_tensor_core("ssm", ("ssd_scan_fwd",))
 
     paged = ServeEngine(engine.model, engine.backend.params,
                         max_len=SSM_MAX_LEN, n_slots=SSM_SLOTS,
@@ -1660,6 +1714,7 @@ def phase_ssm_serve(seed: int):
     if plaunches["ssd_scan_fwd"] != SSM_LAYERS * paged.stats()[
             "prefill_waves"]:
         raise AssertionError(f"page_size engine launches {plaunches}")
+    check_tensor_core("ssm", ("ssd_scan_fwd",))
     del paged
     torch.cuda.empty_cache()
     return engine, requests, launches, tok_s
@@ -1791,6 +1846,23 @@ def phase_ssm_parity(engine, requests) -> list:
     return failed
 
 
+def ssd_stage_ms(fn, iters: int = 20):
+    """Device time per call of ``fn`` (as ``device_ms``) and its part in
+    each kernel of the SSD scan's tensor-core body (SSD_STAGES) and in the
+    CUDA-core body (ssd_fwd)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    kernels = profiled(fn, iters)
+    stages = {}
+    for st in SSD_STAGES + ("ssd_fwd",):
+        pat = re.compile(rf"(?<![A-Za-z0-9_]){st}[<(]")
+        stages[st] = sum(device_us(e) for e in kernels
+                         if pat.search(e.key)) / iters / 1e3
+    return sum(device_us(e) for e in kernels) / iters / 1e3, stages
+
+
 def phase_ssm_times(engine, requests, tok_s: float, card: str) -> dict:
     """Kernel 5 and its plain version per call at the path shape, with the
     bound; the admission wave of the first wave's 4 prompts; the decode
@@ -1813,10 +1885,13 @@ def phase_ssm_times(engine, requests, tok_s: float, card: str) -> dict:
     bytes_ = (2 * b * s * h * p * 4 + 2 * b * s * n * 4 + b * s * h * 4
               + h * 4 + b * h * p * n * 4)
     kernel = (lambda: ssd_scan_fwd(*args, chunk=q))
-    out = dict(ms=device_ms(kernel),
+    ms, stages = ssd_stage_ms(kernel)
+    out = dict(ms=ms,
                plain_ms=device_ms(lambda: ssd_scan_torch(*args, chunk=q)),
                library_ms=None,
                **bound(bytes_, flops))
+    log("ssm-times", "ssd_scan_fwd device ms per call by kernel: " + ", ".join(
+        f"{st} {t:.4f}" for st, t in stages.items()) + f" [{card}]")
     log("ssm-times", f"ssd_scan_fwd (device time per call, B{b} H{h} S{s} "
                      f"P{p} N{n} chunk {q}, float32): kernel "
                      f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
@@ -1919,10 +1994,11 @@ def main(argv=None) -> int:
     for name, rep in report.items():
         fn = name
         for line in rep["ptxas"].splitlines():
-            entry = re.search(r"Compiling entry function '\S*?\d([a-z_]+)I"
-                              r"(\w+?)EE", line)
+            entry = re.search(r"Compiling entry function '\S*?\d([a-z_]+?)"
+                              r"(?:I(\w+?)E)?E", line)
             if entry:
-                fn = f"{name} {entry.group(1)}<{entry.group(2)}>"
+                fn = f"{name} {entry.group(1)}" + (
+                    f"<{entry.group(2)}>" if entry.group(2) else "")
             elif "Used " in line or "spill" in line:
                 log("build", f"{fn}: {line.strip()}")
     sass_hgmma()

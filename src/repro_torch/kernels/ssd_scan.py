@@ -11,11 +11,18 @@ Where the TPU kernel needs ``S % chunk == 0``, the kernel bounds the last
 chunk by its length and the plain version pads it with ``dt = 0``, which
 computes the same.
 
-``ssd_scan_fwd`` (kernel 5) has a launch counter (``.launches``). On a
+``ssd_scan_fwd`` (kernel 5) counts its calls (``.launches``), the calls
+that took the tensor-core body (``.tensor_core_launches``) and the device
+kernels it launched (``.device_kernels``: four per tensor-core call with
+one b/c group, three with per-head b / c, one on the CUDA-core body). On a
 CUDA tensor it launches the kernel (or raises); on a CPU tensor it runs
 ``ssd_scan_torch``. The kernel reads x and writes y through their strides,
 so the model hands it ``(B, S, H, P)`` tensors as transposed views, and y
-comes back in x's memory layout.
+comes back in x's memory layout. The tensor-core body's scratch (the chunk
+states, their decays, and operand tiles already split into bf16 hi + lo:
+the states before each chunk, x^T and, with one b/c group, c and b^T,
+beside the c.b^T tiles; 302 MB at the SSM prefill shape) is allocated
+here per call with ``torch.empty``.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from repro_torch.kernels import build
 __all__ = ["ssd_scan_torch", "ssd_scan_fwd"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SCRATCH = 7                      # scratch arrays of the tensor-core body
 
 
 def _flat(dt: torch.Tensor, a: torch.Tensor):
@@ -68,17 +76,31 @@ def ssd_scan_torch(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 @functools.cache
 def _kernel():
-    """The launch function of the built library, bound once (building it on
-    first use)."""
-    fn = build.load("ssd_scan").ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p,
-                                          ctypes.c_void_p, ctypes.c_void_p]
+    """The launch and plan functions of the built library, bound once
+    (building it on first use)."""
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
-    return fn
+    plan = lib.ssd_scan_plan
+    plan.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    return fn, plan
 
 
 def _strides3(t: torch.Tensor):
     return [t.stride(0), t.stride(1), t.stride(2)]
+
+
+def _pairs_aligned(t: torch.Tensor) -> bool:
+    """Whether the kernel can read t in pairs of adjacent elements: a unit
+    last stride, even strides on the other axes longer than 1 and an
+    address aligned to a pair."""
+    return (t.stride(-1) == 1
+            and all(st % 2 == 0 for st, size in zip(t.stride()[:-1],
+                                                     t.shape[:-1]) if size > 1)
+            and t.data_ptr() % (2 * t.element_size()) == 0)
 
 
 def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -112,32 +134,49 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"P {p} and N {n} must be multiples of 4")
     if chunk < 1:
         raise ValueError(f"chunk {chunk} < 1")
-    x, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c))
+    x, b, c = (t if _pairs_aligned(t) else t.contiguous() for t in (x, b, c))
     if h0 is not None:
         if h0.shape != (bsz, h, p, n):
             raise ValueError(f"h0 {tuple(h0.shape)} != {(bsz, h, p, n)}")
         h0 = h0.float().contiguous()
+        if h0.data_ptr() % 16:        # read four floats at a time
+            h0 = h0.clone()
     a = a.contiguous()
     if any(t.device != x.device for t in (dt, a, b, c)):
         raise ValueError("ssd_scan_fwd: inputs on several devices")
-    fn = _kernel()
+    fn, plan = _kernel()
     y = torch.empty_like(x)           # x's memory layout, unit P stride
     h_fin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     dims = (ctypes.c_int * 7)(bsz, h, s, p, n, g, chunk)
+    sizes = (ctypes.c_longlong * _SCRATCH)()
+    tensor_core = bool(plan(dims, sizes))
+    # chunk states, decays, split states before each chunk, split x^T
+    # tiles; with one b/c group c.b^T tiles and split c and b^T tiles
+    scratch = [torch.empty((k,), dtype=torch.float32, device=x.device)
+               if k else None for k in sizes]
     strides = (ctypes.c_longlong * 15)(
         *_strides3(x), *_strides3(dt), *_strides3(b), *_strides3(c),
         *_strides3(y))
+    launched = ctypes.c_int(0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
              c.data_ptr(), None if h0 is None else h0.data_ptr(),
              y.data_ptr(), h_fin.data_ptr(), _DTYPES[x.dtype], dims, strides,
-             stream)
+             (ctypes.c_void_p * _SCRATCH)(
+                 *(None if t is None else t.data_ptr() for t in scratch)),
+             ctypes.byref(launched), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan.cu launch failed: CUDA error {err} "
-                           f"(P {p}, N {n}, chunk {chunk}; a shared-memory "
-                           f"request over the block's limit fails here)")
+                           f"(P {p}, N {n}, chunk {chunk}, "
+                           f"{'tensor-core' if tensor_core else 'CUDA-core'} "
+                           f"body; a shared-memory request over the block's "
+                           f"limit fails here)")
     ssd_scan_fwd.launches += 1
+    ssd_scan_fwd.tensor_core_launches += tensor_core
+    ssd_scan_fwd.device_kernels += launched.value
     return y, h_fin
 
 
 ssd_scan_fwd.launches = 0
+ssd_scan_fwd.tensor_core_launches = 0
+ssd_scan_fwd.device_kernels = 0
