@@ -22,9 +22,15 @@ as it runs, any failure ending the run:
               PyTorch version on the card, at the serving paths' shapes
               and off-path modes (N off the 64-row tile, head dims and
               ranks off 16), within the stated tolerances (length-0 rows
-              of the ragged kernel exactly 0); every bf16 call of kernels
-              1 and 2 takes the tensor-core body, every float32 call the
-              CUDA-core one;
+              of the ragged and the decode kernels exactly 0); every bf16
+              call of kernels 1 and 2 takes the tensor-core body, every
+              float32 call the CUDA-core one. The split-KV decode kernels
+              also take lengths across their span boundaries
+              (SPLIT_LENGTHS), and the cases that write the new token's
+              row (the path shapes among them; paged, one with its write
+              block the sentinel) must leave the caches bit-equal to the
+              plain version's; the path shapes, called twice, must give
+              bit-identical outputs;
 3. serve    — GPT-2-ALiBi-1.5B at full width (48 layers, d_model 1600,
               bf16, random weights from ``--seed``) through ``ServeEngine``
               on 4 slots x 2048 positions: 8 ragged requests (prompts
@@ -42,12 +48,18 @@ as it runs, any failure ending the run:
 5. parity   — the first wave's prefill and 4 decode steps again, with the
               plain path (impl="torch") on the card, logits compared, on
               the contiguous cache and on a paged cache (whose kernel path
-              is also held against the contiguous kernel path); then
-              decode steps of both kernel paths timed and traced with
-              torch.profiler (device busy time, idle share, top kernels);
+              is also held against the contiguous kernel path): the kernel
+              path's decode calls write the new row themselves, the plain
+              path's by gather / where / scatter; then decode steps of both
+              kernel paths timed and traced with torch.profiler (device
+              busy time, idle share, top kernels, and the indexing kernels'
+              calls and time per step);
 6. times    — kernel, plain-version and library device times per call at
               the path shapes (torch.profiler), the least time the card
               could take (bound), decode step times and end-to-end tokens/s;
+              the decode kernels' calls write the new row, as on the serve
+              path, and their bounds count its bytes (the library calls
+              write none);
 7. pair     — Pairformer-lite at full width (16 layers, d_single 384,
               d_pair 128, 4 heads x 96, bf16 compute, random float32
               weights from ``--seed``) through ``ServeEngine`` on 4 slots x
@@ -129,6 +141,9 @@ N_LAYERS = 48
 SLOTS, MAX_LEN, PROMPT_MAX, NEW_TOKENS = 4, 2048, 512, 32
 PAGE = 16                        # page size of the paged phases
 LOGIT_TOL = 0.25                 # bf16 logits, 48 layers deep (see phase 5)
+# decode lengths across the split kernel's span boundaries (128 keys at D 32,
+# 32 at D 160) and the whole cache
+SPLIT_LENGTHS = [0, 1, 63, 64, 65, 127, 128, 129, 777, 2048]
 KERNELS = ("flashbias_attention_fwd", "flash_decode_fwd",
            "flash_decode_paged_fwd", "flashbias_attention_ragged_fwd",
            "ssd_scan_fwd")
@@ -240,11 +255,11 @@ PROFILE_HEAD = 4                 # ~25 ms spin kernels opening the warm-up
 SPIN_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
 # the port's CUDA kernels as torch.profiler names them (kernels 1 and 2
 # share the attn_fwd_tc template in bf16 and attn_fwd in float32, kernels 3
-# and 4 the decode_fwd one; kernel 5 is ssd_fwd on the CUDA cores and the
-# four SSD_STAGES on the tensor cores)
+# and 4 the split-KV decode_split one; kernel 5 is ssd_fwd on the CUDA cores
+# and the four SSD_STAGES on the tensor cores)
 SSD_STAGES = ("ssd_states", "ssd_cb", "ssd_state_pass", "ssd_chunk_scan")
 PORT_KERNEL = re.compile(
-    r"(?<![A-Za-z0-9_])(attn_fwd|attn_fwd_tc|decode_fwd|ssd_fwd|"
+    r"(?<![A-Za-z0-9_])(attn_fwd|attn_fwd_tc|decode_split|ssd_fwd|"
     + "|".join(SSD_STAGES) + r")[<(]")
 # the wrappers that also count their tensor-core launches: the two attention
 # wrappers and the SSD scan's
@@ -495,6 +510,30 @@ def paged_table(rng, b, n_live, n_pages):
     return np.concatenate([live, junk], 1).astype(np.int32)
 
 
+def widen_table(table, width: int, n_pages: int):
+    """``table`` padded with sentinel columns (``n_pages``) to ``width``,
+    the serve engine's table width: the split axis of the paged kernel's
+    grid is sized from it."""
+    import torch
+    pad = torch.full((table.shape[0], width - table.shape[1]), n_pages,
+                     dtype=table.dtype, device=table.device)
+    return torch.cat([table, pad], 1).contiguous()
+
+
+def sentinel_write(table, row: int, block: int, n_live: int, n_pages: int):
+    """``table`` with the sentinel (``n_pages``) at ``row``'s ``block``, and
+    the pool's last page (where the kernel clamps the sentinel to) taken
+    out of every row's live pages, so that no row writes what another
+    reads."""
+    import torch
+    t = table.cpu().numpy().copy()
+    live = t[:, :n_live]
+    spare = min(set(range(n_pages)) - set(live.ravel().tolist()))
+    live[live == n_pages - 1] = spare
+    t[row, block] = n_pages
+    return torch.as_tensor(t, device=table.device)
+
+
 def alibi_slab(table, lengths, n_pages, ps, rng):
     """The engine's factor slab ``(n_pages, ps, 2)``: row ``[1, pos]`` of
     every logical position a table maps, random rows elsewhere."""
@@ -604,45 +643,102 @@ def phase_kernels(seed: int) -> dict:
               flashbias_attention_torch(q, k, v, **kw), dtype, path,
               flashbias_attention_fwd, before)
 
-    # decode kernel: the serving path's shape, then phi mode and GQA
-    cases = [("flash_decode_fwd path B4 KVH64 G1 S2048 D32 bf16 alibi",
+    # decode kernels (3 and 4). Where a case writes the new token's row
+    # (k_new, v_new, as the serve path does) the caches after the call must
+    # be bit-equal to the plain version's; every length-0 row must be
+    # exactly 0; the path shapes run twice and must be bit-identical.
+    def decode_case(name, fn, plain, q, k, v, lens, extra, kw, dtype, path,
+                    write):
+        b, kvh, _, d = q.shape
+        new = {}
+        if write:
+            new = {"k_new": torch.randn((b, kvh, d), generator=gen,
+                                        device="cuda").to(dtype),
+                   "v_new": torch.randn((b, kvh, v.shape[-1]), generator=gen,
+                                        device="cuda").to(dtype)}
+
+        def run(f):
+            kc, vc = k.clone(), v.clone()
+            return f(q, kc, vc, lens, *extra, **kw, **new), kc, vc
+
+        got, k_got, v_got = run(fn)
+        want, k_want, v_want = run(plain)
+        check(name, got, want, dtype, path)
+        if bool(got[lens == 0].any()):
+            raise AssertionError(f"{name}: rows of length 0 are not 0")
+        if write and not (torch.equal(k_got, k_want)
+                          and torch.equal(v_got, v_want)):
+            raise AssertionError(f"{name}: the caches after the fused row "
+                                 f"write differ from the plain version's")
+        if path:
+            again, _, _ = run(fn)
+            torch.cuda.synchronize()
+            if not torch.equal(again, got):
+                raise AssertionError(f"{name}: two calls on the same inputs "
+                                     f"are not bit-identical")
+            log("kernels", f"{name}: caches bit-equal to the plain "
+                           f"version's, two calls bit-identical")
+
+    # contiguous: the serving path's shape (writing the row), phi mode and
+    # GQA, then lengths across the split boundaries (SPLIT_LENGTHS)
+    cases = [("flash_decode_fwd path B4 KVH64 G1 S2048 D32 bf16 alibi write",
               4, 64, 1, 2048, 32, torch.bfloat16, "alibi",
-              [0, 1, 777, 2048], True)]
+              [0, 1, 777, 2048], True, True)]
     for dtype in (torch.float32, torch.bfloat16):
         for bias in ("alibi", "phi", "none"):
             cases.append((f"flash_decode_fwd GQA G4 S1024 D160 "
                           f"{str(dtype)[6:]} {bias}", 4, 2, 4, 1024, 160,
-                          dtype, bias, [0, 1, 333, 1024], False))
+                          dtype, bias, [0, 1, 333, 1024], False, False))
     cases.append(("flash_decode_fwd MHA G1 S512 D32 f32 phi", 3, 8, 1, 512,
-                  32, torch.float32, "phi", [512, 5, 0], False))
-    for name, b, kvh, g, s, d, dtype, bias, lengths, path in cases:
+                  32, torch.float32, "phi", [512, 5, 0], False, False))
+    cases += [(f"flash_decode_fwd splits B{len(SPLIT_LENGTHS)} KVH64 G1 "
+               f"S2048 D32 bf16 alibi write", len(SPLIT_LENGTHS), 64, 1,
+               2048, 32, torch.bfloat16, "alibi", SPLIT_LENGTHS, False, True),
+              ("flash_decode_fwd splits GQA G4 S2048 D160 f32 alibi write",
+               len(SPLIT_LENGTHS), 2, 4, 2048, 160, torch.float32, "alibi",
+               SPLIT_LENGTHS, False, True),
+              ("flash_decode_fwd splits GQA G4 S2048 D160 bf16 phi write",
+               len(SPLIT_LENGTHS), 2, 4, 2048, 160, torch.bfloat16, "phi",
+               SPLIT_LENGTHS, False, True)]
+    for name, b, kvh, g, s, d, dtype, bias, lengths, path, write in cases:
         q, k, v, lens, extra = decode_inputs(gen, b, kvh, g, s, d, dtype,
                                              bias, lengths)
-        kw = dict(scale=d ** -0.5, **extra)
-        check(name, flash_decode_fwd(q, k, v, lens, **kw),
-              flash_decode_torch(q, k, v, lens, **kw), dtype, path)
+        decode_case(name, flash_decode_fwd, flash_decode_torch, q, k, v,
+                    lens, (), dict(scale=d ** -0.5, **extra), dtype, path,
+                    write)
 
-    # paged decode kernel: the paged serving path's shape (phi mode against
-    # the shared [1, pos] slab, page size 16: a warp's 32 keys span two
-    # pages), then GQA, the other bias modes, a per-kv-head slab and page
-    # size 48 (a page does not divide into 32-key chunks)
+    # paged: the paged serving path's shape (phi mode against the shared
+    # [1, pos] slab, page size 16, writing the row), then GQA, the other
+    # bias modes, a per-kv-head slab and page size 48, then lengths across
+    # the split boundaries, one row's write block the sentinel (the write
+    # dropped, the clamped page's old row read; that page no row's own)
     cases = [(f"flash_decode_paged_fwd path B4 KVH64 G1 D32 ps{PAGE} bf16 "
-              f"alibi-slab", 4, 64, 1, 32, PAGE, torch.bfloat16,
-              "alibi_slab", [0, 1, 777, 2048], True)]
+              f"alibi-slab write", 4, 64, 1, 32, PAGE, torch.bfloat16,
+              "alibi_slab", [0, 1, 777, 2048], True, True)]
     for dtype in (torch.float32, torch.bfloat16):
         for bias in ("alibi_slab", "phi", "phi_kvh", "alibi", "none"):
             cases.append((f"flash_decode_paged_fwd GQA G4 D160 ps48 "
                           f"{str(dtype)[6:]} {bias}", 4, 2, 4, 160, 48,
-                          dtype, bias, [0, 1, 333, 1024], False))
+                          dtype, bias, [0, 1, 333, 1024], False, False))
     cases.append(("flash_decode_paged_fwd MHA G1 D32 ps8 f32 phi_kvh", 3, 8,
-                  1, 32, 8, torch.float32, "phi_kvh", [200, 5, 0], False))
-    for name, b, kvh, g, d, ps, dtype, bias, lengths, path in cases:
+                  1, 32, 8, torch.float32, "phi_kvh", [200, 5, 0], False,
+                  False))
+    cases += [(f"flash_decode_paged_fwd splits B{len(SPLIT_LENGTHS)} KVH64 G1 "
+               f"D32 ps{PAGE} bf16 alibi-slab write", len(SPLIT_LENGTHS), 64,
+               1, 32, PAGE, torch.bfloat16, "alibi_slab", SPLIT_LENGTHS,
+               False, True),
+              ("flash_decode_paged_fwd splits GQA G4 D160 ps48 f32 phi write "
+               "sentinel", len(SPLIT_LENGTHS), 2, 4, 160, 48, torch.float32,
+               "phi", SPLIT_LENGTHS, False, "sentinel")]
+    for name, b, kvh, g, d, ps, dtype, bias, lengths, path, write in cases:
         q, kp, vp, lens, pt, extra = paged_inputs(gen, rng, b, kvh, g, d, ps,
                                                   dtype, bias, lengths)
-        kw = dict(scale=d ** -0.5, **extra)
-        check(name, flash_decode_paged_fwd(q, kp, vp, lens, pt, **kw),
-              flash_decode_paged_torch(q, kp, vp, lens, pt, **kw), dtype,
-              path)
+        if write == "sentinel":
+            pt = sentinel_write(pt, lengths.index(65), 64 // ps,
+                                -(-max(lengths) // ps), kp.shape[1])
+        decode_case(name, flash_decode_paged_fwd, flash_decode_paged_torch,
+                    q, kp, vp, lens, (pt,), dict(scale=d ** -0.5, **extra),
+                    dtype, path, bool(write))
 
     # ragged attention kernel (kernel 2): the Pairformer path's shape (4
     # slots, H = KVH 4, N = M = 384, D = Dv = R = 96, bf16 q/k/v, float32
@@ -1035,26 +1131,36 @@ def phase_times(engine, decode_lengths, card: str):
         kpos[None, None, None, :] >= lens[:, None, None, None],
         -torch.inf).to(bf)
     live = int(lens.sum())
-    bytes_ = live * kvh * 2 * d * 2 + 2 * b * kvh * d * 2 + b * 4 + h * 4
+    # each call writes the new token's row, as the serve path does: k_new
+    # and v_new read once and written to the caches once (ROW_BYTES)
+    new = {"k_new": torch.randn((b, kvh, d), generator=gen,
+                                device="cuda").to(bf),
+           "v_new": torch.randn((b, kvh, d), generator=gen,
+                                device="cuda").to(bf)}
+    row_bytes = 2 * 2 * b * kvh * d * 2
+    bytes_ = (live * kvh * 2 * d * 2 + 2 * b * kvh * d * 2 + b * 4 + h * 4
+              + row_bytes)
     flops = live * kvh * 4 * d
-    kernel = (lambda: flash_decode_fwd(qd, kc, vc, lens, **kwd))
+    kernel = (lambda: flash_decode_fwd(qd, kc, vc, lens, **kwd, **new))
     out["flash_decode_fwd"] = dict(
         ms=device_ms(kernel),
         plain_ms=device_ms(lambda: flash_decode_torch(qd, kc, vc, lens,
-                                                      **kwd)),
+                                                      **kwd, **new)),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             qd, kc, vc, attn_mask=dmask, scale=scale)),
         **bound(bytes_, flops))
     events["flash_decode_fwd"] = event_ms(kernel)
 
     # paged decode kernel at the paged path shape: phi mode against the
-    # shared [1, pos] slab, page size 16, pages in random order, bf16, this
-    # run's lengths. Library: gather each row's pages, then SDPA with a
-    # float ALiBi mask (two calls).
+    # shared [1, pos] slab, page size 16, pages in random order, the serve
+    # engine's table width, bf16, this run's lengths, each call writing the
+    # row. Library: gather each row's pages, then SDPA with a float ALiBi
+    # mask (two calls).
     lengths = [int(n) for n in lens.tolist()]
     qp, kp, vp, lens_p, pt, extra = paged_inputs(
         gen, np.random.default_rng(2), b, kvh, 1, d, PAGE, bf, "alibi_slab",
         lengths)
+    pt = widen_table(pt, MAX_LEN // PAGE, kp.shape[1])
     n_live = -(-max(lengths) // PAGE)
     last = (lens_p.long() - 1).clamp(min=0) // PAGE
     pages = pt.long()[:, :n_live].gather(
@@ -1071,21 +1177,21 @@ def phase_times(engine, decode_lengths, card: str):
 
     n_pages_read = sum(-(-n // PAGE) for n in lengths)
     bytes_ = (live * kvh * 2 * d * 2 + live * 2 * 4 + 2 * b * kvh * d * 2
-              + b * kvh * 2 * 4 + b * 4 + n_pages_read * 4)
+              + b * kvh * 2 * 4 + b * 4 + n_pages_read * 4 + row_bytes)
     flops = live * kvh * (4 * d + 4)
     kernel = (lambda: flash_decode_paged_fwd(qp, kp, vp, lens_p, pt,
-                                             scale=scale, **extra))
+                                             scale=scale, **extra, **new))
     out["flash_decode_paged_fwd"] = dict(
         ms=device_ms(kernel),
         plain_ms=device_ms(lambda: flash_decode_paged_torch(
-            qp, kp, vp, lens_p, pt, scale=scale, **extra)),
+            qp, kp, vp, lens_p, pt, scale=scale, **extra, **new)),
         library_ms=device_ms(gather_sdpa),
         **bound(bytes_, flops))
     events["flash_decode_paged_fwd"] = event_ms(kernel)
     library = {"flashbias_attention_fwd": "SDPA, dense float mask",
-               "flash_decode_fwd": "SDPA, float mask",
+               "flash_decode_fwd": "SDPA, float mask, no row write",
                "flash_decode_paged_fwd": "page gather + SDPA with a float "
-                                         "mask, two calls"}
+                                         "mask, two calls, no row write"}
     for name, t in out.items():
         log("times", f"{name} (device time per call): kernel "
                      f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "

@@ -18,9 +18,18 @@ dtype; rows with length 0 output 0.
   ``j % ps``, exactly as the TPU kernel's index maps resolve it: stale or
   sentinel table entries can never fault.
 
+With ``k_new (B, KVH, D)`` and ``v_new (B, KVH, Dv)`` (the cache's dtype) a
+call first writes the new token's row in place, as the reference's decode
+step scatters it before its kernel: only rows with ``lengths[b] > 0``, at
+position ``lengths[b]-1`` (paged: on the page ``paged_write_plan`` finds,
+dropped where that page lies outside the pool), then attends to the cache
+as written.
+
 ``flash_decode_fwd`` and ``flash_decode_paged_fwd`` are the wrappers: on a
 CUDA tensor they launch the kernel (or raise); on a CPU tensor they run the
-plain version. Their ``.launches`` count kernel launches.
+plain version. Their ``.launches`` count kernel launches. The kernel splits
+each row's keys into spans of ``split_span`` keys, one block per span, and
+merges the spans in order: see the source.
 """
 from __future__ import annotations
 
@@ -34,11 +43,76 @@ from repro_torch.core.attention import DEFAULT_MASK_VALUE
 from repro_torch.kernels import build
 
 __all__ = ["flash_decode_torch", "flash_decode_fwd",
-           "flash_decode_paged_torch", "flash_decode_paged_fwd", "MAX_GROUP"]
+           "flash_decode_paged_torch", "flash_decode_paged_fwd",
+           "paged_write_plan", "split_span", "MAX_GROUP"]
 
 MAX_GROUP = 8                 # q heads per kv head the kernel takes
+MAX_SPAN = 128                # keys per split (the kernel takes <= 256)
+SPAN_TILE_BYTES = 32 * 1024   # a split's staged k, v (and phi) rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232_448
+
+
+def split_span(d: int, dv: int, r: int, dtype: torch.dtype) -> int:
+    """Keys per split of the kernel's plan: 128, or the largest power of two
+    whose staged k and v rows (padded to 16 bytes) and phi rows fit in
+    SPAN_TILE_BYTES. A function of the static shapes only, so a row's plan
+    never depends on another row."""
+    size = torch.empty((), dtype=dtype).element_size()
+    per16 = 16 // size
+    padded = -(-d // per16) * per16 + -(-dv // per16) * per16
+    per_key = padded * size + 4 * r
+    span = MAX_SPAN
+    while span > 1 and span * per_key > SPAN_TILE_BYTES:
+        span //= 2
+    return span
+
+
+def _write_row(k_cache, v_cache, lengths, k_new, v_new):
+    """The new token's row at position ``lengths - 1`` of each row with
+    ``lengths > 0``, in place; the other rows rewrite the row they hold."""
+    active = lengths > 0
+    bidx = torch.arange(lengths.shape[0], device=lengths.device)
+    pos = torch.where(active, lengths - 1, 0)
+    keep = active[:, None, None]
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[bidx, :, pos] = torch.where(keep, new, cache[bidx, :, pos])
+
+
+def paged_write_plan(page_table: torch.Tensor, lengths: torch.Tensor,
+                     active: torch.Tensor, n_pages: int, ps: int):
+    """Where each row's new token lands in the pool: ``(page, offset, src,
+    keep)``, all ``(B,)``, every index in range.
+
+    The reference drops the writes of frozen rows and of rows whose table
+    entry is a sentinel (``>= n_pages``) through out-of-range scatter
+    indices; on a CUDA tensor such an index is a device-side assert. So a
+    row that must not write instead repeats the write of the first row that
+    does (``src``): duplicate indices then carry equal values and the
+    result does not depend on their order. When no row writes, every row
+    rewrites page 0's first row with itself (``keep`` False). All of it
+    stays on the device: no host sync in the decode step."""
+    b = lengths.shape[0]
+    bidx = torch.arange(b, device=lengths.device)
+    pos = torch.where(active, lengths - 1, 0).long()
+    block = (pos // ps).clamp(max=page_table.shape[1] - 1)
+    page = page_table[bidx, block].long()
+    ok = active & (page >= 0) & (page < n_pages)
+    first = torch.argmax(ok.to(torch.int32))
+    src = torch.where(ok, bidx, first)
+    page = torch.where(ok[src], page[src], 0)
+    off = torch.where(ok[src], pos[src] % ps, 0)
+    return page, off, src, ok[src]
+
+
+def _write_paged_row(k_pages, v_pages, lengths, page_table, k_new, v_new):
+    """The new token's row into the pools (``paged_write_plan``), in place."""
+    page, off, src, keep = paged_write_plan(
+        page_table, lengths, lengths > 0, k_pages.shape[1], k_pages.shape[2])
+    keep = keep[None, :, None]
+    for pool, new in ((k_pages, k_new), (v_pages, v_new)):
+        new = new[src].transpose(0, 1)                       # (KVH, B, E)
+        pool[:, page, off] = torch.where(keep, new, pool[:, page, off])
 
 
 def flash_decode_torch(
@@ -48,14 +122,19 @@ def flash_decode_torch(
     phi_k: Optional[torch.Tensor] = None,
     slopes: Optional[torch.Tensor] = None,
     *, scale: float,
+    k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the kernel: dense float32 logits over the cache."""
+    """Plain version of the kernel: the row write, then dense float32
+    logits over the cache."""
+    lengths = lengths.to(q.device)
+    if k_new is not None:
+        _write_row(k_cache, v_cache, lengths, k_new, v_new)
     s_len = k_cache.shape[2]
     s = torch.einsum("bkgd,bksd->bkgs", q.float(), k_cache.float()) * scale
     if phi_q is not None:
         s = s + torch.einsum("bkgr,bksr->bkgs", phi_q.float(), phi_k.float())
     k_pos = torch.arange(s_len, device=q.device)
-    lengths = lengths.to(q.device)
     if slopes is not None:
         rel = (k_pos[None] - (lengths - 1)[:, None]).float()        # (B, S)
         s = s + slopes.float()[None, :, :, None] * rel[:, None, None]
@@ -74,20 +153,25 @@ def flash_decode_paged_torch(
     phi_pages: Optional[torch.Tensor] = None,
     slopes: Optional[torch.Tensor] = None,
     *, scale: float, max_pages: Optional[int] = None,
+    k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the paged kernel: gather each row's logical view of
-    the pool, capped at ``max_pages`` pages (default: the table's width),
-    page ids resolved and clipped as the kernel does, then the contiguous
-    plain version."""
+    """Plain version of the paged kernel: the row write, then each row's
+    logical view of the pool gathered, capped at ``max_pages`` pages
+    (default: the table's width), page ids resolved and clipped as the
+    kernel does, then the contiguous plain version."""
     b, kvh = q.shape[:2]
     n_pages, ps = k_pages.shape[1], k_pages.shape[2]
     width = page_table.shape[1]
     cap = width if max_pages is None else max(1, min(int(max_pages), width))
     lengths = lengths.to(q.device)
+    page_table = page_table.to(q.device)
+    if k_new is not None:
+        _write_paged_row(k_pages, v_pages, lengths, page_table, k_new, v_new)
     last = (lengths.long() - 1).clamp(min=0) // ps                   # (B,)
     blocks = torch.minimum(torch.arange(cap, device=q.device)[None],
                            last[:, None])                            # (B, cap)
-    pages = page_table.to(q.device).long().gather(1, blocks)
+    pages = page_table.long().gather(1, blocks)
     pages = pages.clamp(0, n_pages - 1)
 
     def view(pool):           # (H', n_pages, ps, E) -> (B, H', cap*ps, E)
@@ -107,22 +191,37 @@ def _kernel():
     bound once (building it on first use)."""
     lib = build.load("flash_decode")
     contiguous = lib.flash_decode_fwd
-    contiguous.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    contiguous.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_void_p])
     contiguous.restype = ctypes.c_int
     paged = lib.flash_decode_paged_fwd
-    paged.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+    paged.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 12
                       + [ctypes.c_float, ctypes.c_void_p])
     paged.restype = ctypes.c_int
     smem = lib.flash_decode_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 4
+    smem.argtypes = [ctypes.c_int] * 6
     smem.restype = ctypes.c_longlong
     return contiguous, paged, smem
 
 
-def _check(name: str, q, k, v, lengths, phi_q, phi_k, slopes, extra=()):
+_ARRIVALS: dict = {}
+
+
+def _arrivals(device: torch.device, n: int) -> torch.Tensor:
+    """The kernel's per-(b, h) arrival counters on ``device``: zeroed once
+    here, left at zero by every launch."""
+    buf = _ARRIVALS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ARRIVALS[device] = buf
+    return buf
+
+
+def _check(name: str, q, k, v, lengths, phi_q, phi_k, slopes, k_new, v_new,
+           extra=()):
     """Checks both wrappers share; returns (phi_q, phi_k, slopes, r) with
-    the float32 contiguous copies the kernel reads."""
+    the float32 contiguous tensors the kernel reads (copies only where the
+    caller's are not)."""
     b, kvh, g, d = q.shape
     dv = v.shape[-1]
     if not 1 <= g <= MAX_GROUP:
@@ -136,6 +235,14 @@ def _check(name: str, q, k, v, lengths, phi_q, phi_k, slopes, extra=()):
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be ({b},) int32, got "
                          f"{tuple(lengths.shape)} {lengths.dtype}")
+    if (k_new is None) != (v_new is None):
+        raise ValueError("the new row takes k_new and v_new together")
+    if k_new is not None and (
+            k_new.shape != (b, kvh, d) or v_new.shape != (b, kvh, dv)
+            or k_new.dtype != q.dtype or v_new.dtype != q.dtype):
+        raise ValueError(f"new row shapes {tuple(k_new.shape)} / "
+                         f"{tuple(v_new.shape)} {k_new.dtype}; want "
+                         f"(B,KVH,D) / (B,KVH,Dv) in the cache's dtype")
     r = 0
     if phi_q is not None:
         if phi_k is None or slopes is not None:
@@ -152,18 +259,34 @@ def _check(name: str, q, k, v, lengths, phi_q, phi_k, slopes, extra=()):
             raise ValueError(f"slopes shape {tuple(slopes.shape)} != "
                              f"({kvh}, {g})")
         slopes = slopes.float().contiguous()
-    tensors = [t for t in (q, k, v, lengths, phi_q, phi_k, slopes, *extra)
-               if t is not None]
+    tensors = [t for t in (q, k, v, lengths, phi_q, phi_k, slopes, k_new,
+                           v_new, *extra) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{name}: inputs on several devices")
-    if not all(t.is_contiguous() for t in (q, k, v, lengths, *extra)):
-        raise ValueError(f"{name} takes contiguous q, caches, lengths and "
-                         f"page table")
+    if not all(t.is_contiguous() for t in (q, k, v, lengths, k_new, v_new,
+                                            *extra) if t is not None):
+        raise ValueError(f"{name} takes contiguous q, caches, lengths, new "
+                         f"rows and page table")
     return phi_q, phi_k, slopes, r
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _launch_buffers(q, s_len, dv, r, smem):
+    """Output, split partials and arrival counters of one launch, and the
+    split span; raises where the shapes exceed the kernel's shared memory."""
+    b, kvh, g, d = q.shape
+    span = split_span(d, dv, r, q.dtype)
+    if smem(g, d, dv, r, span, _DTYPES[q.dtype]) > _SMEM_LIMIT:
+        raise ValueError(f"group {g}, head dims {d}/{dv}, rank {r} exceed "
+                         f"the kernel's shared memory")
+    splits = -(-s_len // span)
+    out = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
+    part = torch.empty((b * kvh * splits * g * (dv + 2) if splits > 1 else 0,),
+                       dtype=torch.float32, device=q.device)
+    return out, part, _arrivals(q.device, b * kvh), span
 
 
 def flash_decode_fwd(
@@ -173,12 +296,15 @@ def flash_decode_fwd(
     phi_k: Optional[torch.Tensor] = None,
     slopes: Optional[torch.Tensor] = None,
     *, scale: float,
+    k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Kernel wrapper: launches ``flash_decode.cu`` on CUDA tensors, runs the
     plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_decode_torch(q, k_cache, v_cache, lengths, phi_q, phi_k,
-                                  slopes, scale=scale)
+                                  slopes, scale=scale, k_new=k_new,
+                                  v_new=v_new)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_fwd: no kernel for device {q.device}")
     b, kvh, g, d = q.shape
@@ -192,17 +318,16 @@ def flash_decode_fwd(
         raise ValueError(f"phi_k shape {tuple(phi_k.shape)}; want "
                          f"(B,KVH,S,R)")
     phi_q, phi_k, slopes, r = _check("flash_decode_fwd", q, k_cache, v_cache,
-                                     lengths, phi_q, phi_k, slopes)
+                                     lengths, phi_q, phi_k, slopes, k_new,
+                                     v_new)
     fn, _, smem = _kernel()
-    if smem(g, d, dv, r) > _SMEM_LIMIT:
-        raise ValueError(f"group {g}, head dims {d}/{dv}, rank {r} exceed "
-                         f"the kernel's shared memory")
-    out = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
+    out, part, arrivals, span = _launch_buffers(q, s_len, dv, r, smem)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              lengths.data_ptr(), _ptr(phi_q), _ptr(phi_k), _ptr(slopes),
-             out.data_ptr(), _DTYPES[q.dtype], b, kvh, g, s_len, d, dv, r,
-             float(scale), stream)
+             _ptr(k_new), _ptr(v_new), out.data_ptr(), _ptr(part),
+             arrivals.data_ptr(), _DTYPES[q.dtype], b, kvh, g, s_len, d, dv,
+             r, span, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode.cu launch failed: CUDA error {err}")
     flash_decode_fwd.launches += 1
@@ -219,6 +344,8 @@ def flash_decode_paged_fwd(
     phi_pages: Optional[torch.Tensor] = None,
     slopes: Optional[torch.Tensor] = None,
     *, scale: float,
+    k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Kernel wrapper: launches the paged entry of ``flash_decode.cu`` on
     CUDA tensors, runs the plain version on CPU tensors. The kernel reads
@@ -226,7 +353,7 @@ def flash_decode_paged_fwd(
     if q.device.type == "cpu":
         return flash_decode_paged_torch(q, k_pages, v_pages, lengths,
                                         page_table, phi_q, phi_pages, slopes,
-                                        scale=scale)
+                                        scale=scale, k_new=k_new, v_new=v_new)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_paged_fwd: no kernel for device "
                          f"{q.device}")
@@ -250,18 +377,17 @@ def flash_decode_paged_fwd(
                              f"want (1|KVH, n_pages, ps, R)")
     phi_q, phi_pages, slopes, r = _check(
         "flash_decode_paged_fwd", q, k_pages, v_pages, lengths, phi_q,
-        phi_pages, slopes, extra=(page_table,))
+        phi_pages, slopes, k_new, v_new, extra=(page_table,))
     _, fn, smem = _kernel()
-    if smem(g, d, dv, r) > _SMEM_LIMIT:
-        raise ValueError(f"group {g}, head dims {d}/{dv}, rank {r} exceed "
-                         f"the kernel's shared memory")
-    out = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
+    width = page_table.shape[1]
+    out, part, arrivals, span = _launch_buffers(q, width * ps, dv, r, smem)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              lengths.data_ptr(), page_table.data_ptr(), _ptr(phi_q),
-             _ptr(phi_pages), _ptr(slopes), out.data_ptr(), _DTYPES[q.dtype],
-             b, kvh, g, page_table.shape[1], n_pages, ps, d, dv, r,
-             phi_heads, float(scale), stream)
+             _ptr(phi_pages), _ptr(slopes), _ptr(k_new), _ptr(v_new),
+             out.data_ptr(), _ptr(part), arrivals.data_ptr(),
+             _DTYPES[q.dtype], b, kvh, g, width, n_pages, ps, d, dv, r,
+             phi_heads, span, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode.cu paged launch failed: CUDA error "
                            f"{err}")

@@ -198,6 +198,8 @@ def flash_decode(
     impl: str = "auto",
     page_table: Optional[torch.Tensor] = None,   # (B, P) int32 -> paged
     max_pages: Optional[int] = None,
+    k_new: Optional[torch.Tensor] = None,        # (B, KVH, D)
+    v_new: Optional[torch.Tensor] = None,        # (B, KVH, Dv)
 ) -> torch.Tensor:
     """Single-token decode against a kernel-layout cache (the reference's
     ``kv_layout="bhsd"``). Returns ``(B, 1, H, Dv)``. The query of row ``b``
@@ -210,7 +212,13 @@ def flash_decode(
     ``(n_pages, ps, R)`` shared by every kv head, or ``(1|KVH, n_pages, ps,
     R)``. The plain path gathers each row's logical view, capped at
     ``max_pages`` pages (see ``_static_page_cap``); the kernel reads only
-    live rows and needs no cap."""
+    live rows and needs no cap.
+
+    With ``k_new`` and ``v_new`` (the new token's rows, in the cache's
+    dtype) the call first writes them in place at position ``lengths[b]-1``
+    of every row with ``lengths[b] > 0`` (paged: where ``paged_write_plan``
+    puts them; a page outside the pool drops the write), then attends: the
+    kernel does both in one launch."""
     b, _, h, d = q.shape
     kvh = k_cache.shape[0] if page_table is not None else k_cache.shape[1]
     if h % kvh:
@@ -226,9 +234,13 @@ def flash_decode(
         pq = phi_q[:, 0].reshape(b, kvh, g, -1)
     sl = None if slopes is None else slopes.reshape(kvh, g)
     lengths = lengths.to(torch.int32).contiguous()
+    new = {}
+    if k_new is not None:
+        new = {"k_new": k_new.contiguous(), "v_new": v_new.contiguous()}
     if page_table is None:
         fn = flash_decode_torch if impl == "torch" else flash_decode_fwd
-        o = fn(qg, k_cache, v_cache, lengths, pq, phi_k, sl, scale=scale)
+        o = fn(qg, k_cache, v_cache, lengths, pq, phi_k, sl, scale=scale,
+               **new)
         return o.reshape(b, 1, h, v_cache.shape[-1])
     if phi_k is not None and phi_k.dim() == 3:   # shared slab, no copy
         phi_k = phi_k[None]
@@ -237,10 +249,11 @@ def flash_decode(
         cap = _static_page_cap(lengths, k_cache.shape[2], pt.shape[1],
                                max_pages)
         o = flash_decode_paged_torch(qg, k_cache, v_cache, lengths, pt, pq,
-                                     phi_k, sl, scale=scale, max_pages=cap)
+                                     phi_k, sl, scale=scale, max_pages=cap,
+                                     **new)
     else:
         o = flash_decode_paged_fwd(qg, k_cache, v_cache, lengths, pt, pq,
-                                   phi_k, sl, scale=scale)
+                                   phi_k, sl, scale=scale, **new)
     return o.reshape(b, 1, h, v_cache.shape[-1])
 
 

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_decode import paged_write_plan
 from repro_torch.models import ssd
 from repro_torch.models.common import (
     PDef,
@@ -192,76 +193,36 @@ def _attention(lp: dict, x: torch.Tensor, cfg: ArchConfig):
 
 def _attention_decode(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, lengths: torch.Tensor,
-                      active: torch.Tensor, cfg: ArchConfig, *,
+                      cfg: ArchConfig, *, slopes: Optional[torch.Tensor],
+                      phi_q: Optional[torch.Tensor] = None,
                       paged: Optional[dict] = None) -> torch.Tensor:
     """One-token attention against one layer's cache, contiguous ``(B, KVH,
     S, hd)`` or (``paged`` given) a page pool ``(KVH, n_pages, ps, hd)``.
     The new token's k/v row is written at position ``lengths - 1`` BEFORE
-    attending (in place). Frozen rows (``active`` False) write nothing: a
-    contiguous row rewrites the row it holds, and a paged row repeats an
-    active row's write (see ``_paged_write_plan``), so a lane never touches
-    a page it no longer owns.
+    attending, in place, by the decode call itself (``ops.flash_decode``'s
+    ``k_new`` / ``v_new``): frozen rows (length 0) write nothing, and a
+    paged row whose page is a sentinel drops its write.
 
-    Paged with a factor slab (``paged["phi"]``): the ALiBi bias comes from
-    the cached key factors ``[1, pos]`` against ``phi_q = slope * [-(len-1),
-    1]`` (phi mode, FlashBias Sec. 4.3), as the reference's paged path
-    computes it; ``paged["phi_q"]`` holds the slope-free ``[-(len-1), 1]``,
-    built once per step."""
+    ``slopes`` are this layer's float32 ALiBi slopes (or None). Paged with a
+    factor slab, ``phi_q`` (this layer's ``slope * [-(len-1), 1]``, built
+    once per step) selects phi mode: the ALiBi bias comes from the cached
+    key factors ``[1, pos]`` (FlashBias Sec. 4.3), as the reference's paged
+    path computes it."""
     q = _project(x, lp["wq"])                                # (B, 1, H, E)
-    k_new = _project(x, lp["wk"])[:, 0]                      # (B, KVH, E)
-    v_new = _project(x, lp["wv"])[:, 0]
-    slopes = _slopes(lp, cfg)
+    new = {"k_new": _project(x, lp["wk"])[:, 0],             # (B, KVH, E)
+           "v_new": _project(x, lp["wv"])[:, 0]}
     if paged is None:
-        bidx = torch.arange(x.shape[0], device=x.device)
-        pos = torch.where(active, lengths - 1, 0)
-        keep = active[:, None, None]
-        k_cache[bidx, :, pos] = torch.where(keep, k_new,
-                                            k_cache[bidx, :, pos])
-        v_cache[bidx, :, pos] = torch.where(keep, v_new,
-                                            v_cache[bidx, :, pos])
         o = ops.flash_decode(q, k_cache, v_cache, lengths, slopes=slopes,
-                             impl=cfg.attn_impl)
+                             impl=cfg.attn_impl, **new)
         return _out_proj(o, lp["wo"])
-    page, off, src, keep = paged["write"]
-    keep = keep[None, :, None]
-    for pool, new in ((k_cache, k_new), (v_cache, v_new)):
-        new = new[src].transpose(0, 1)                       # (KVH, B, E)
-        pool[:, page, off] = torch.where(keep, new, pool[:, page, off])
-    phi_q = phi_k = None
-    if slopes is not None and paged["phi"] is not None:
-        phi_q = paged["phi_q"] * slopes.reshape(1, 1, -1, 1)   # (B,1,H,2)
+    phi_k = None
+    if phi_q is not None:
         phi_k, slopes = paged["phi"], None
     o = ops.flash_decode(q, k_cache, v_cache, lengths, phi_q=phi_q,
                          phi_k=phi_k, slopes=slopes, impl=cfg.attn_impl,
                          page_table=paged["table"],
-                         max_pages=paged["max_pages"])
+                         max_pages=paged["max_pages"], **new)
     return _out_proj(o, lp["wo"])
-
-
-def _paged_write_plan(page_table: torch.Tensor, lengths: torch.Tensor,
-                      active: torch.Tensor, n_pages: int, ps: int):
-    """Where each row's new token lands in the pool: ``(page, offset, src,
-    keep)``, all ``(B,)``, every index in range.
-
-    The reference drops the writes of frozen rows and of rows whose table
-    entry is a sentinel (``>= n_pages``) through out-of-range scatter
-    indices; on a CUDA tensor such an index is a device-side assert. So a
-    row that must not write instead repeats the write of the first row that
-    does (``src``): duplicate indices then carry equal values and the
-    result does not depend on their order. When no row writes, every row
-    rewrites page 0's first row with itself (``keep`` False). All of it
-    stays on the device: no host sync in the decode step."""
-    b = lengths.shape[0]
-    bidx = torch.arange(b, device=lengths.device)
-    pos = torch.where(active, lengths - 1, 0).long()
-    block = (pos // ps).clamp(max=page_table.shape[1] - 1)
-    page = page_table[bidx, block].long()
-    ok = active & (page >= 0) & (page < n_pages)
-    first = torch.argmax(ok.to(torch.int32))
-    src = torch.where(ok, bidx, first)
-    page = torch.where(ok[src], page[src], 0)
-    off = torch.where(ok[src], pos[src] % ps, 0)
-    return page, off, src, ok[src]
 
 
 def _mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
@@ -496,29 +457,35 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     lengths = cache["length"] + active.to(torch.int32)
     dt = _dtype(cfg)
     x = _embed_in(params, tokens, cfg)
-    paged = None
+    # every layer's float32 slopes (and, paged in phi mode, phi_q) at once:
+    # one copy per step, not one per layer
+    slopes = phi_q = paged = None
+    if cfg.bias_kind == "alibi":
+        slopes = params["layers"]["attn"]["slopes"].to(dt).float()  # (L, H)
     if "pages_k" in cache:
         n_pages, ps = cache["pages_k"].shape[2], cache["pages_k"].shape[3]
         table = cache["page_table"]
-        write = _paged_write_plan(table, lengths, active, n_pages, ps)
         phi = cache.get("pages_phi")
-        paged = {"write": write, "table": table, "phi": phi,
-                 "max_pages": max_pages}
+        paged = {"table": table, "phi": phi, "max_pages": max_pages}
         if phi is not None:
-            page, off, src, keep = write
+            page, off, src, keep = paged_write_plan(table, lengths, active,
+                                                    n_pages, ps)
             pos = (lengths - 1).float()
             one = torch.ones_like(pos)
             row = torch.stack([one, pos], -1)[src]
             phi[page, off] = torch.where(keep[:, None], row, phi[page, off])
-            paged["phi_q"] = torch.stack([-pos, one], -1)[:, None, None]
+            if slopes is not None:                 # (L, B, 1, H, 2)
+                phi_q = (torch.stack([-pos, one], -1)[None, :, None, None]
+                         * slopes[:, None, None, :, None])
         k_all, v_all = cache["pages_k"], cache["pages_v"]
     else:
         k_all, v_all = cache["k"], cache["v"]
     for i in range(cfg.n_layers):
         lp = _layer(params, i, dt)
-        x = x + _attention_decode(lp["attn"], rmsnorm(x, lp["ln1"]),
-                                  k_all[i], v_all[i], lengths, active, cfg,
-                                  paged=paged)
+        x = x + _attention_decode(
+            lp["attn"], rmsnorm(x, lp["ln1"]), k_all[i], v_all[i], lengths,
+            cfg, slopes=None if slopes is None else slopes[i],
+            phi_q=None if phi_q is None else phi_q[i], paged=paged)
         x = x + _mlp(lp, x)
     return _logits(params, x, cfg), {**cache, "length": lengths}
 

@@ -326,6 +326,122 @@ def test_flash_decode_paged_kernel_matches_plain_on_card(cuda, bias, dtype,
     assert not got[0].any()
 
 
+# Lengths around the kernel's splits (128 keys at D 32, 32 at D 160: one
+# split up to a span, several past it) and the whole cache.
+SPLIT_LENGTHS = [0, 1, 63, 64, 65, 127, 128, 129, 777, 2048]
+SPLIT_S = 2048
+
+
+def _split_case(rng, cuda, layout, g, d, dtype, lengths, write):
+    """Inputs of one split-boundary call: contiguous with ALiBi slopes, or
+    paged (ps 16 / 48, pages permuted, junk table columns past the live
+    ones) with phi factors on a shared slab. ``write`` adds the new rows;
+    paged, the row of length 65 then finds the sentinel on the page its
+    write lands on, and drops it."""
+    b, kvh = len(lengths), 2
+    q = _t(_rand(rng, b, kvh, g, d)).to(cuda, dtype)
+    kw = {"scale": d ** -0.5}
+    if layout == "contiguous":
+        k = _t(_rand(rng, b, kvh, SPLIT_S, d)).to(cuda, dtype)
+        v = _t(_rand(rng, b, kvh, SPLIT_S, d)).to(cuda, dtype)
+        kw["slopes"] = tbias.alibi_slopes(kvh * g,
+                                          device=cuda).reshape(kvh, g)
+        args = (q, k, v)
+    else:
+        ps = int(layout[5:])
+        live = -(-SPLIT_S // ps)
+        n_pages = b * live + 3
+        k = _t(_rand(rng, kvh, n_pages, ps, d)).to(cuda, dtype)
+        v = _t(_rand(rng, kvh, n_pages, ps, d)).to(cuda, dtype)
+        # the last page is no row's (a sentinel is clamped onto it)
+        table = rng.permutation(n_pages - 1)[:b * live].reshape(b, live)
+        table = np.concatenate([table, rng.integers(-2, 2 * n_pages, (b, 4))],
+                               1)
+        if write and 65 in lengths:
+            table[lengths.index(65), 64 // ps] = n_pages
+        kw["phi_q"] = _t(_rand(rng, b, kvh, g, R)).to(cuda)
+        kw["phi_pages"] = _t(_rand(rng, 1, n_pages, ps, R)).to(cuda)
+        kw["page_table"] = torch.tensor(table, dtype=torch.int32,
+                                        device=cuda)
+        args = (q, k, v)
+    if write:
+        kw["k_new"] = _t(_rand(rng, b, kvh, d)).to(cuda, dtype)
+        kw["v_new"] = _t(_rand(rng, b, kvh, d)).to(cuda, dtype)
+    return args, kw
+
+
+def _split_call(fn, args, lengths, kw, cuda):
+    """One call on copies of the caches; returns (output, k, v)."""
+    q, k, v = args
+    k, v = k.clone(), v.clone()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = dict(kw)
+    table = kw.pop("page_table", None)
+    extra = () if table is None else (table,)
+    out = fn(q, k, v, lens, *extra, **kw)
+    torch.cuda.synchronize()
+    return out, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("write", [False, True], ids=["read", "write"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 32), (4, 160)], ids=["g1d32", "g4d160"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged16", "paged48"])
+def test_flash_decode_splits_on_card(cuda, layout, shape, dtype, write):
+    """Lengths across split boundaries against the plain version (within
+    the tolerance of the tests above); with the new rows, the caches after
+    the call bit-equal to the plain version's; two calls bit-equal; and
+    each row's output bit-equal when the other rows' lengths change."""
+    g, d = shape
+    rng = np.random.default_rng(10)
+    args, kw = _split_case(rng, cuda, layout, g, d, dtype, SPLIT_LENGTHS,
+                           write)
+    if layout == "contiguous":
+        fn, plain = flash_decode_fwd, flash_decode_torch
+    else:
+        fn, plain = flash_decode_paged_fwd, flash_decode_paged_torch
+    before = fn.launches
+    got, k_got, v_got = _split_call(fn, args, SPLIT_LENGTHS, kw, cuda)
+    want, k_want, v_want = _split_call(plain, args, SPLIT_LENGTHS, kw, cuda)
+    assert fn.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * 4
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert not got[0].any()
+    assert torch.equal(k_got, k_want) and torch.equal(v_got, v_want)
+    if write:
+        assert not torch.equal(k_got, args[1])
+    again, _, _ = _split_call(fn, args, SPLIT_LENGTHS, kw, cuda)
+    assert torch.equal(again, got)
+    keep = [3, 6, 8]
+    others = [n if i in keep else max(0, SPLIT_S - n)
+              for i, n in enumerate(SPLIT_LENGTHS)]
+    moved, _, _ = _split_call(fn, args, others, kw, cuda)
+    assert torch.equal(moved[keep], got[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_paged_repeated_page_on_card(cuda, dtype):
+    """A table that names the written page twice, in different splits: the
+    key of the first split on the written row reads the new row, as the
+    plain version (write, then attend) does."""
+    rng = np.random.default_rng(11)
+    lengths, ps, d = [300, 40, 0], 16, 32
+    args, kw = _split_case(rng, cuda, f"paged{ps}", 1, d, dtype,
+                           lengths, True)
+    table = kw["page_table"].clone()
+    table[0, 0] = table[0, (lengths[0] - 1) // ps]
+    kw["page_table"] = table
+    got, k_got, v_got = _split_call(flash_decode_paged_fwd, args, lengths,
+                                    kw, cuda)
+    want, k_want, v_want = _split_call(flash_decode_paged_torch, args,
+                                       lengths, kw, cuda)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * 4
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert torch.equal(k_got, k_want) and torch.equal(v_got, v_want)
+
+
 # ---------------------------------------------------------------------------
 # Kernel 2: the ragged batch (per-row key bound ``lengths``)
 # ---------------------------------------------------------------------------
