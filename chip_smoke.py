@@ -60,6 +60,27 @@ as it runs, any failure ending the run:
               the decode kernels' calls write the new row, as on the serve
               path, and their bounds count its bytes (the library calls
               write none);
+6a. chunked — the serve phase's 8 requests plus two long prompts
+              (LONG_PROMPTS, arriving at steps 2 and 6 while the others
+              decode) through chunked engines (CHUNK tokens per step, 4
+              slots x 2048), contiguous and then paged (page size 16).
+              Every request OK; each request's first-token logits within
+              LOGIT_TOL of the whole-prompt engine's (the serve phase's,
+              and for the long two a whole-prompt wave's); the decode
+              kernel launched 48 x decode steps and the prefill kernel
+              never; some engine step ran a chunk and a decode together;
+              paged, every page free after the drain. Then the chunk step,
+              the decode step and the 1900-token prompt's first-token time
+              against the whole-prompt wave, on the host clock and as
+              device busy;
+6b. prefix  — PREFIX_REQUESTS requests sharing a PREFIX_LEN-token prefix
+              (tails PREFIX_TAILS, 2 sampled) and one whose prompt is the
+              prefix, through a paged chunked engine with the prefix cache
+              and one without: the first 4 stepped until their prompts
+              land (pages are indexed then), then the rest. Streams
+              bit-equal; tokens matched > 0 and pages copied on write
+              >= 1; after the drain every page free or held by the index
+              alone (refcount 1);
 7. pair     — Pairformer-lite at full width (16 layers, d_single 384,
               d_pair 128, 4 heads x 96, bf16 compute, random float32
               weights from ``--seed``) through ``ServeEngine`` on 4 slots x
@@ -112,7 +133,13 @@ as it runs, any failure ending the run:
               of the tensor-core body), its plain version and its bound
               per call at the path shape, the admission wave, the decode
               step of 4 slots (device busy, idle share) and end-to-end
-              tokens/s.
+              tokens/s;
+12a. ssm chunked — the SSM mix through a chunked engine (SSM_CHUNK tokens
+              per step), every SSD kernel call (the state h0 carried from
+              the previous chunk) held in situ against the plain version:
+              every request OK, the SSD kernel launched 24 x chunk steps
+              and no attention kernel, first-token logits within
+              SSM_LOGIT_TOL of the whole-prompt engine's.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -177,7 +204,12 @@ PAIR_TOL_F32 = 1e-3
 # scaling
 PAIR_FAULTS = (("keys 64-127 skipped", (64, 128), False),
                ("bias scaled by the softmax scale", None, True))
+CHUNK = 256                      # prefill chunk of the chunked LM phases
+LONG_PROMPTS = (1536, 1900)      # long arrivals of the chunked phase
+PREFIX_LEN, PREFIX_REQUESTS = 512, 8
+PREFIX_TAILS = (32, 300)         # tail lengths of the prefix phase
 SSM_LAYERS, SSM_SLOTS, SSM_MAX_LEN = 24, 4, 2048
+SSM_CHUNK = 512                  # prefill chunk of the SSM chunked phase
 SSM_PROMPTS = (4096, 3000, 1024, 2048, 512, 777, 1500, 256)
 SSM_DECODE_STEPS = 4             # decode steps of the parity phase
 # SSM parity, bf16 compute. The scan runs in float32 on both paths (the
@@ -814,23 +846,15 @@ def drive_counted(engine, requests):
     to 0 just before and read just after; check every result."""
     import torch
     from repro_torch.launch.serve import drive
-    from repro_torch.serve import OK
     counters = reset_counters()
     t0 = time.monotonic()
     rids = drive(engine, requests)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    vocab = engine.model.cfg.vocab
-    n_tok = 0
-    for rid in rids:
-        rec = engine.result(rid)
-        if rec.status != OK or rec.size != NEW_TOKENS:
-            raise AssertionError(f"request {rid}: {rec!r}")
-        if rec.min() < 0 or rec.max() >= vocab:
-            raise AssertionError(f"request {rid}: token ids out of range")
-        n_tok += rec.size
-    return rids, launches, n_tok / wall, wall
+    check_results(engine.model.cfg.name, engine, rids,
+                  [NEW_TOKENS] * len(rids))
+    return rids, launches, NEW_TOKENS * len(rids) / wall, wall
 
 
 def phase_serve(seed: int):
@@ -855,7 +879,9 @@ def phase_serve(seed: int):
                  f"{cfg.resolved_head_dim}, vocab {cfg.vocab_padded}; "
                  f"weights ready in {time.monotonic() - t0:.1f}s")
     requests = make_requests(seed, cfg.vocab)
-    rids, launches, tok_s, wall = drive_counted(engine, requests)
+    with observe(engine) as obs:
+        rids, launches, tok_s, wall = drive_counted(engine, requests)
+    first = {i: obs.first[rid] for i, rid in enumerate(rids)}
     stats = engine.stats()
     want = {"flashbias_attention_fwd": N_LAYERS * stats["prefill_waves"],
             "flash_decode_fwd": N_LAYERS * stats["decode_steps"],
@@ -868,7 +894,7 @@ def phase_serve(seed: int):
     if launches != want or not launches["flash_decode_fwd"]:
         raise AssertionError(f"kernel launches {launches} != {want}")
     check_tensor_core("serve")
-    return engine, requests, launches, tok_s
+    return engine, requests, launches, tok_s, first
 
 
 def phase_paged(engine, requests):
@@ -1200,6 +1226,375 @@ def phase_times(engine, decode_lengths, card: str):
                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}); kernel "
                      f"between CUDA events, host gaps included, "
                      f"{events[name]:.4f} ms [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 6a-6b: chunked prefill and prefix caching
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def observe(engine):
+    """Record, while the block runs, each request's first-token logits (the
+    float32 row its admission wave or its final chunk samples from, the
+    first time a rid emits; kept on the card) in ``.first``, the host time
+    each rid was first admitted in ``.admitted``, and every chunk call and
+    decode step of the backend as (engine step, "chunk" | "decode", host
+    ms, each ending in a synchronize) in ``.steps``."""
+    import torch
+    be = engine.backend
+    vocab = engine.model.cfg.vocab
+    obs = argparse.Namespace(first={}, admitted={}, steps=[])
+    owner: dict = {}
+    sample, admit, chunk, step = (be._sample, be.admit, be.prefill_step,
+                                  be.step)
+
+    def rec_sample(logits2d, mask):
+        for slot in np.nonzero(mask)[0]:
+            rid = owner.get(int(slot))
+            if rid is not None and rid not in obs.first:
+                obs.first[rid] = logits2d[slot, :vocab].float().clone()
+        return sample(logits2d, mask)
+
+    def owned(fn, slots_of, kind=None):
+        def call(*args):
+            owner.clear()
+            owner.update(slots_of(*args))
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            try:
+                return fn(*args)
+            finally:
+                owner.clear()
+                torch.cuda.synchronize()
+                if kind is not None:
+                    obs.steps.append((engine.step_idx, kind,
+                                      (time.monotonic() - t0) * 1e3))
+        return call
+
+    def admitted(wave, slots):
+        for r in wave:
+            obs.admitted.setdefault(r.rid, time.monotonic())
+        return {s: r.rid for s, r in zip(slots, wave)}
+
+    be._sample = rec_sample
+    be.admit = owned(admit, admitted)
+    be.prefill_step = owned(chunk, lambda: {
+        s: p.req.rid for s, p in be._pending.items()}, "chunk")
+    be.step = owned(step, lambda live: {}, "decode")
+    try:
+        yield obs
+    finally:
+        del be._sample, be.admit, be.prefill_step, be.step
+
+
+def first_gaps(label, got: dict, want: dict, tol: float) -> None:
+    """Each request's first-token logits (``got``, by request index)
+    against the whole-prompt engine's (``want``): logged with the greedy
+    agreement; fails over ``tol``."""
+    gaps = {i: float((got[i] - want[i]).abs().max()) for i in want}
+    agree = sum(int(got[i].argmax() == want[i].argmax()) for i in want)
+    worst = max(gaps.values())
+    log(label, f"first-token logits against the whole-prompt engine's: "
+               f"max |gap| {worst:.3e} (tol {tol}; per request "
+               f"{', '.join(f'{g:.3e}' for g in gaps.values())}); greedy "
+               f"agreement {agree}/{len(gaps)}")
+    if not worst <= tol:
+        raise AssertionError(f"{label}: first-token logits gap {worst:.3e} "
+                             f"over {tol}")
+
+
+def drive_schedule(engine, traffic, arrivals: dict):
+    """Submit ``traffic`` (prompt, new tokens, sampling) by ``arrivals``
+    ({engine step: [indices]}, key None up front) and step the engine until
+    it drains. Returns the rids in traffic order and each request's host
+    times of submission and first token (s, by traffic index)."""
+    rids, t_sub, t_first = {}, {}, {}
+
+    def submit(i):
+        p, n, sp = traffic[i]
+        t_sub[i] = time.monotonic()
+        rids[i] = engine.submit(p, n, sampling=sp, on_token=lambda _, i=i:
+                                t_first.setdefault(i, time.monotonic()))
+
+    for i in arrivals.get(None, ()):
+        submit(i)
+    step = 0
+    while len(rids) < len(traffic) or len(engine.scheduler) \
+            or engine.occupancy:
+        for i in arrivals.get(step, ()):
+            submit(i)
+        engine.step()
+        step += 1
+    return [rids[i] for i in range(len(traffic))], t_sub, t_first
+
+
+def check_results(label, engine, rids, budgets) -> None:
+    """Every request ended OK with its full budget of in-vocabulary ids."""
+    from repro_torch.serve import OK
+    vocab = engine.model.cfg.vocab
+    for rid, n in zip(rids, budgets):
+        rec = engine.result(rid)
+        if rec.status != OK or rec.size != n:
+            raise AssertionError(f"{label}: request {rid}: {rec!r}")
+        if rec.min() < 0 or rec.max() >= vocab:
+            raise AssertionError(f"{label}: request {rid}: token ids out "
+                                 f"of range")
+
+
+def check_launches(label, engine, decode: str) -> dict:
+    """The decode kernel launched N_LAYERS x decode steps since the counters
+    were set to 0, and no other kernel (a chunked engine runs no
+    whole-prompt wave)."""
+    launches = {name: fn.launches for name, fn in launch_counters().items()}
+    want = {name: 0 for name in launches}
+    want[decode] = N_LAYERS * engine.stats()["decode_steps"]
+    if launches != want or not want[decode]:
+        raise AssertionError(f"{label}: kernel launches {launches} != "
+                             f"{want}")
+    return launches
+
+
+def long_requests(seed: int, vocab: int):
+    from repro_torch.serve import SamplingParams
+    rng = np.random.default_rng(seed + 300)
+    return [(rng.integers(0, vocab, (n,)).astype(np.int32), NEW_TOKENS,
+             SamplingParams()) for n in LONG_PROMPTS]
+
+
+def phase_chunked(engine, requests, whole_first: dict, seed: int,
+                  card: str) -> dict:
+    """The serve phase's 8 requests plus two long prompts (LONG_PROMPTS)
+    arriving while the others decode, through chunked engines (CHUNK
+    tokens per step) on the same weights, contiguous and then paged. Every
+    request OK; first-token logits within LOGIT_TOL of the whole-prompt
+    engine's (the serve phase's for the 8, a whole-prompt wave's for the
+    long two); the decode kernel launched N_LAYERS x decode steps and the
+    prefill kernel never; a step ran a chunk and a decode together; paged,
+    every page free after the drain. Then the chunk step, the decode step
+    and the long prompt's first-token time against the whole-prompt wave's,
+    on the host clock and as device busy."""
+    import torch
+    from repro_torch.serve import ServeEngine
+
+    model, params = engine.model, engine.backend.params
+    cfg = model.cfg
+    longs = long_requests(seed, cfg.vocab)
+    traffic = list(requests) + longs
+    n_req = len(requests)
+    # the launcher's staggering for the 8, the long two at steps 2 and 6
+    arrivals = {None: list(range(SLOTS)), 0: [4], 1: [5], 2: [6, n_req],
+                3: [7], 6: [n_req + 1]}
+
+    # the long prompts' whole-prompt wave: one wave of SLOTS rows padded to
+    # the longest, as a whole-prompt engine admits them
+    toks = np.zeros((SLOTS, max(LONG_PROMPTS)), np.int64)
+    lens = np.ones((SLOTS,), np.int32)
+    for i, (p, _, _) in enumerate(longs):
+        toks[i, :p.size], lens[i] = p, p.size
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+    lens_t = torch.as_tensor(lens, device="cuda")
+
+    def wave():
+        return model.prefill(params, batch, max_len=MAX_LEN, lengths=lens_t)
+
+    reset_counters()
+    with torch.no_grad():
+        logits, cache = wave()
+        del cache
+        want = dict(whole_first)
+        for i in range(len(longs)):
+            want[n_req + i] = logits[i, 0, :cfg.vocab].float()
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            wave()
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+        wave_ms = float(np.median(walls[1:]))
+        wave_busy, _ = profile_steps(wave, 1)
+    torch.cuda.empty_cache()
+
+    out = {"wave_ms": wave_ms, "wave_busy_ms": wave_busy}
+    for mode in ("contiguous", "paged"):
+        label = f"chunked-{mode}"
+        kw = ({"page_size": PAGE, "pages_per_slot": MAX_LEN // PAGE}
+              if mode == "paged" else {})
+        eng = ServeEngine(model, params, max_len=MAX_LEN, n_slots=SLOTS,
+                          prefill_chunk=CHUNK, device="cuda", **kw)
+        reset_counters()
+        t0 = time.monotonic()
+        with observe(eng) as obs:
+            rids, t_sub, t_first = drive_schedule(eng, traffic, arrivals)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        check_results(label, eng, rids, [n for _, n, _ in traffic])
+        decode = "flash_decode_paged_fwd" if mode == "paged" else \
+            "flash_decode_fwd"
+        launches = check_launches(label, eng, decode)
+        stats = eng.stats()
+        chunk_at = {s for s, kind, _ in obs.steps if kind == "chunk"}
+        decode_at = {s for s, kind, _ in obs.steps if kind == "decode"}
+        mixed = len(chunk_at & decode_at)
+        log(label, f"{len(rids)} requests OK (prompts "
+                   f"{[p.size for p, _, _ in traffic]}, chunk {CHUNK}) in "
+                   f"{wall:.2f}s; {stats['chunk_steps']} chunk steps, "
+                   f"{stats['decode_steps']} decode steps, {mixed} engine "
+                   f"steps with both; launches {launches}")
+        if not mixed:
+            raise AssertionError(f"{label}: no engine step ran a chunk and "
+                                 f"a decode together")
+        first_gaps(label, {i: obs.first[rid] for i, rid in enumerate(rids)},
+                   want, LOGIT_TOL)
+        if mode == "paged":
+            pages = eng.page_stats()
+            log(label, f"pages after the drain: {pages}")
+            if pages["n_free"] != pages["n_pages"]:
+                raise AssertionError(f"{label}: pages left in use: {pages}")
+        chunk_ms = [ms for _, kind, ms in obs.steps if kind == "chunk"]
+        dec_mixed = [ms for s, kind, ms in obs.steps
+                     if kind == "decode" and s in chunk_at]
+        dec_alone = [ms for s, kind, ms in obs.steps
+                     if kind == "decode" and s not in chunk_at]
+        last = n_req + 1                   # the longest prompt
+        t = out[mode] = {
+            "chunk_ms": float(np.median(chunk_ms)),
+            "decode_ms": float(np.median(dec_alone)),
+            "decode_mixed_ms": float(np.median(dec_mixed)),
+            "ttft_s": t_first[last] - t_sub[last],
+            "ttft_admitted_s": t_first[last] - obs.admitted[rids[last]]}
+        # device busy of one chunk call (every row a full chunk) and one
+        # decode step (one row frozen mid-prompt) on the engine's cache
+        be = eng.backend
+        ctoks = torch.as_tensor(np.stack([longs[i % 2][0][:CHUNK]
+                                          for i in range(SLOTS)]),
+                                device="cuda")
+        offs = np.arange(SLOTS) * ((MAX_LEN - CHUNK) // SLOTS)
+        clens, flens = np.full(SLOTS, CHUNK), np.full(SLOTS, -1)
+        cache = be._cache
+        dec = {"cache": {**cache, "length": torch.as_tensor(
+            np.arange(SLOTS) * (MAX_LEN // (SLOTS + 1)), dtype=torch.int32,
+            device="cuda")}}
+        dkw = {"max_pages": MAX_LEN // PAGE} if mode == "paged" else {}
+        tok1 = torch.zeros((SLOTS, 1), dtype=torch.int64, device="cuda")
+
+        def chunk_call():
+            model.prefill_chunk(params, cache, ctoks, offs, clens, flens,
+                                max_pages=be._chunk_page_cap())
+
+        def decode_call():
+            _, dec["cache"] = model.decode(params, dec["cache"], tok1, **dkw)
+
+        with torch.no_grad():
+            t["chunk_busy_ms"], kernels = profile_steps(chunk_call, 3)
+            t["decode_busy_ms"], _ = profile_steps(decode_call, 3)
+        log(label, "chunk step: top device kernels:")
+        for e in sorted(kernels, key=device_us, reverse=True)[:8]:
+            log(label, f"  {device_us(e) / 3 / 1e3:8.3f} ms/step "
+                       f"{e.count // 3:5d} calls/step  {e.key[:80]}")
+        log(label, f"chunk step ({SLOTS} x {CHUNK}, {N_LAYERS} layers): "
+                   f"{t['chunk_ms']:.3f} ms on the host clock (median of "
+                   f"{len(chunk_ms)} in the drive), device busy "
+                   f"{t['chunk_busy_ms']:.3f} ms; decode step "
+                   f"{t['decode_ms']:.3f} ms alone / "
+                   f"{t['decode_mixed_ms']:.3f} ms in a step with a chunk "
+                   f"(medians of {len(dec_alone)} / {len(dec_mixed)}), "
+                   f"device busy "
+                   f"{t['decode_busy_ms']:.3f} ms; the {LONG_PROMPTS[1]}-token"
+                   f" prompt's first token {t['ttft_s'] * 1e3:.1f} ms after "
+                   f"its submission, {t['ttft_admitted_s'] * 1e3:.1f} ms "
+                   f"after its admission, against a whole-prompt wave "
+                   f"({SLOTS} x "
+                   f"{max(LONG_PROMPTS)}) of {wave_ms:.1f} ms on the host "
+                   f"clock, device busy {wave_busy:.1f} ms [{card}]")
+        del eng, be, cache, dec
+        torch.cuda.empty_cache()
+    return out
+
+
+def prefix_traffic(seed: int, vocab: int):
+    """PREFIX_REQUESTS requests that share a PREFIX_LEN-token prefix, with
+    distinct tails of PREFIX_TAILS tokens (2 and 6 sampled), then one whose
+    whole prompt is the prefix: a page-aligned hit, which copies on
+    write."""
+    from repro_torch.serve import SamplingParams
+    rng = np.random.default_rng(seed + 400)
+    common = rng.integers(0, vocab, (PREFIX_LEN,)).astype(np.int32)
+    tails = rng.integers(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1,
+                         (PREFIX_REQUESTS,))
+    sampled = {2, 6}
+    out = [(np.concatenate([common, rng.integers(0, vocab, (int(n),))
+                            .astype(np.int32)]), NEW_TOKENS,
+            SamplingParams(0.8, 40, seed=seed + i) if i in sampled
+            else SamplingParams()) for i, n in enumerate(tails)]
+    return out + [(common.copy(), NEW_TOKENS, SamplingParams())]
+
+
+def phase_prefix(engine, seed: int, card: str) -> dict:
+    """Shared-prefix traffic through a paged chunked engine with the prefix
+    cache and through one without, on the same weights and schedule: the
+    first SLOTS requests, stepped until their prompts have landed (a
+    prompt's pages are indexed when its final chunk lands), then the rest.
+    Streams bit-equal, greedy and sampled; tokens matched and pages copied
+    on write; after the drain every page free or held by the index alone."""
+    import torch
+    from repro_torch.serve import ServeEngine
+
+    model, params = engine.model, engine.backend.params
+    traffic = prefix_traffic(seed, model.cfg.vocab)
+
+    def run(prefix_cache: bool):
+        label = "prefix" if prefix_cache else "prefix-off"
+        eng = ServeEngine(model, params, max_len=MAX_LEN, n_slots=SLOTS,
+                          page_size=PAGE, pages_per_slot=MAX_LEN // PAGE,
+                          prefill_chunk=CHUNK, prefix_cache=prefix_cache,
+                          device="cuda")
+        reset_counters()
+        t0 = time.monotonic()
+        rids = [eng.submit(p, n, sampling=sp)
+                for p, n, sp in traffic[:SLOTS]]
+        while eng.backend.prefill_pending() or len(eng.scheduler):
+            eng.step()
+        rids += [eng.submit(p, n, sampling=sp)
+                 for p, n, sp in traffic[SLOTS:]]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        check_results(label, eng, rids, [n for _, n, _ in traffic])
+        launches = check_launches(label, eng, "flash_decode_paged_fwd")
+        stats = eng.stats()
+        log(label, f"{len(rids)} requests OK in {wall:.2f}s; "
+                   f"{stats['chunk_steps']} chunk steps, "
+                   f"{stats['decode_steps']} decode steps; launches "
+                   f"{launches}")
+        return eng, [eng.result(r) for r in rids]
+
+    on, got = run(True)
+    off, want = run(False)
+    same = [bool(np.array_equal(a, b)) for a, b in zip(got, want)]
+    pf = on.page_stats()["prefix"]
+    pool, index = on.backend._pool, on.backend._prefix
+    held = {e.page for e in index._entries.values()}
+    refs = {pool.refcount(p) for p in held}
+    log("prefix", f"streams equal to the unshared engine's: {sum(same)}/"
+                  f"{len(same)} (greedy and sampled); prefix stats {pf}; "
+                  f"after the drain {pool.n_free} pages free + {len(held)} "
+                  f"held by the index of {pool.n_pages}, their refcounts "
+                  f"{sorted(refs)} [{card}]")
+    if not all(same):
+        raise AssertionError(f"prefix: streams differ from the unshared "
+                             f"engine's: {same}")
+    if not (pf["tokens_matched"] > 0 and pf["cow_copies"] >= 1):
+        raise AssertionError(f"prefix: no hit or no copy-on-write: {pf}")
+    if pool.n_free + len(held) != pool.n_pages or refs - {1}:
+        raise AssertionError(f"prefix: pages unaccounted for after the "
+                             f"drain: {pool.n_free} free, {len(held)} "
+                             f"index-held, refcounts {refs}")
+    out = {"matched": pf["tokens_matched"], "cow": pf["cow_copies"],
+           "steps": (on.stats()["chunk_steps"], off.stats()["chunk_steps"])}
+    del on, off
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1786,7 +2181,9 @@ def phase_ssm_serve(seed: int):
                f"{cfg.ssd_chunk}, vocab {cfg.vocab_padded}, {cfg.dtype}; "
                f"weights ready in {time.monotonic() - t0:.1f}s")
     requests = make_ssm_requests(seed, cfg.vocab)
-    rids, launches, tok_s, wall = drive_counted(engine, requests)
+    with observe(engine) as obs:
+        rids, launches, tok_s, wall = drive_counted(engine, requests)
+    first = {i: obs.first[rid] for i, rid in enumerate(rids)}
     stats = engine.stats()
     want = {name: 0 for name in launches}
     want["ssd_scan_fwd"] = SSM_LAYERS * stats["prefill_waves"]
@@ -1823,7 +2220,7 @@ def phase_ssm_serve(seed: int):
     check_tensor_core("ssm", ("ssd_scan_fwd",))
     del paged
     torch.cuda.empty_cache()
-    return engine, requests, launches, tok_s
+    return engine, requests, launches, tok_s, first
 
 
 def ssd_no_carry(x, dt, a, b, c, *, chunk, h0=None):
@@ -1853,6 +2250,37 @@ def ssm_wave(requests):
             torch.as_tensor(lengths, device="cuda"))
 
 
+def in_situ_ssd(fn, calls: list):
+    """``fn`` (the SSD kernel's wrapper, or a stand-in) that also runs the
+    plain version on the same inputs and appends (y gap, y tolerance, h_fin
+    gap, h_fin tolerance) to ``calls``."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_torch
+
+    def call(x, dt, a, b, c, *, chunk, h0=None):
+        got = fn(x, dt, a, b, c, chunk=chunk, h0=h0)
+        want = ssd_scan_torch(x, dt, a, b, c, chunk=chunk, h0=h0)
+        calls.append((float((got[0].float() - want[0].float()).abs().max()),
+                      ssd_tolerance(want[0].dtype, want[0]),
+                      float((got[1] - want[1]).abs().max()),
+                      ssd_tolerance(torch.float32, want[1])))
+        return got
+    return call
+
+
+def in_situ_report(phase: str, label: str, calls: list) -> bool:
+    """Log the in-situ SSD checks of ``calls``; True when every call is
+    within its tolerances."""
+    over = sum(ey > ty or eh > th for ey, ty, eh, th in calls)
+    wy = max(calls, key=lambda c: c[0] / c[1])
+    wh = max(calls, key=lambda c: c[2] / c[3])
+    log(phase, f"{label}: in situ, {len(calls)} SSD calls against the plain "
+               f"version on their inputs: worst y {wy[0]:.3e} (tol "
+               f"{wy[1]:.1e}), worst h_fin {wh[2]:.3e} (tol {wh[3]:.1e}); "
+               f"{over} calls over the tolerance")
+    return over == 0
+
+
 def phase_ssm_parity(engine, requests) -> list:
     """The first wave's prefill and SSM_DECODE_STEPS decode steps through
     the kernel path (every SSD kernel call held in situ against the plain
@@ -1861,25 +2289,13 @@ def phase_ssm_parity(engine, requests) -> list:
     fault, which it must reject. Returns the failed checks."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
     from repro_torch.models import get_model
 
     cfg, params = engine.model.cfg, engine.backend.params
     batch, lens = ssm_wave(requests)
     models = {impl: get_model(cfg.replace(attn_impl=impl))
               for impl in ("cuda", "torch")}
-
-    def in_situ(fn, calls):
-        def call(x, dt, a, b, c, *, chunk, h0=None):
-            got = fn(x, dt, a, b, c, chunk=chunk, h0=h0)
-            want = ssd_scan_torch(x, dt, a, b, c, chunk=chunk, h0=h0)
-            calls.append((float((got[0].float() - want[0].float()).abs()
-                                .max()), ssd_tolerance(want[0].dtype,
-                                                       want[0]),
-                          float((got[1] - want[1]).abs().max()),
-                          ssd_tolerance(torch.float32, want[1])))
-            return got
-        return call
 
     def run(model, fed=None):
         """Prefill and decode steps; the (B, vocab) float32 logits of each
@@ -1897,15 +2313,7 @@ def phase_ssm_parity(engine, requests) -> list:
     def in_situ_ok(label, calls) -> bool:
         if len(calls) != SSM_LAYERS:
             raise AssertionError(f"{label}: {len(calls)} SSD calls seen")
-        over = sum(ey > ty or eh > th for ey, ty, eh, th in calls)
-        wy = max(calls, key=lambda c: c[0] / c[1])
-        wh = max(calls, key=lambda c: c[2] / c[3])
-        log("ssm-parity", f"{label}: in situ, {len(calls)} SSD calls against "
-                          f"the plain version on their inputs: worst y "
-                          f"{wy[0]:.3e} (tol {wy[1]:.1e}), worst h_fin "
-                          f"{wh[2]:.3e} (tol {wh[3]:.1e}); {over} calls over "
-                          f"the tolerance")
-        return over == 0
+        return in_situ_report("ssm-parity", label, calls)
 
     def gaps(got, want):
         return [float((g - w).abs().max()) for g, w in zip(got, want)]
@@ -1913,11 +2321,12 @@ def phase_ssm_parity(engine, requests) -> list:
     failed = []
     with torch.no_grad():
         calls = []
-        with patched(ops, "ssd_scan_fwd", in_situ(ssd_scan_fwd, calls)):
+        with patched(ops, "ssd_scan_fwd", in_situ_ssd(ssd_scan_fwd, calls)):
             got, fed = run(models["cuda"])
         want, _ = run(models["torch"], fed)
         fault_calls = []
-        with patched(ops, "ssd_scan_fwd", in_situ(ssd_no_carry, fault_calls)):
+        with patched(ops, "ssd_scan_fwd",
+                     in_situ_ssd(ssd_no_carry, fault_calls)):
             fault, _ = run(models["cuda"], fed)
     ok = in_situ_ok("kernel path", calls)
     g = gaps(got, want)
@@ -2069,6 +2478,58 @@ def phase_ssm_times(engine, requests, tok_s: float, card: str) -> dict:
     return out
 
 
+def phase_ssm_chunked(engine, requests, whole_first: dict, card: str):
+    """The SSM mix through a chunked engine (SSM_CHUNK tokens per step) on
+    the same weights, every SSD kernel call held in situ against the plain
+    version on its inputs (the carried state h0 among them): every request
+    OK, the SSD kernel launched SSM_LAYERS x chunk steps and the attention
+    kernels never, first-token logits within SSM_LOGIT_TOL of the
+    whole-prompt engine's."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+    from repro_torch.launch.serve import drive
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(engine.model, engine.backend.params,
+                      max_len=SSM_MAX_LEN, n_slots=SSM_SLOTS,
+                      prefill_chunk=SSM_CHUNK, device="cuda")
+    calls: list = []
+    counters = reset_counters()
+    t0 = time.monotonic()
+    with patched(ops, "ssd_scan_fwd", in_situ_ssd(ssd_scan_fwd, calls)), \
+            observe(eng) as obs:
+        rids = drive(eng, requests)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check_results("ssm-chunked", eng, rids, [n for _, n, _ in requests])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    stats = eng.stats()
+    want = {name: 0 for name in launches}
+    want["ssd_scan_fwd"] = SSM_LAYERS * stats["chunk_steps"]
+    chunk_ms = [ms for _, kind, ms in obs.steps if kind == "chunk"]
+    log("ssm-chunked", f"{len(rids)} requests OK (prompts "
+                       f"{list(SSM_PROMPTS)}, chunk {SSM_CHUNK}) in "
+                       f"{wall:.2f}s, the in-situ checks included; "
+                       f"{stats['chunk_steps']} chunk steps (median "
+                       f"{float(np.median(chunk_ms)):.3f} ms on the host "
+                       f"clock, the plain scan beside each call included), "
+                       f"{stats['decode_steps']} decode steps; launches "
+                       f"{launches} [{card}]")
+    if launches != want or len(calls) != want["ssd_scan_fwd"]:
+        raise AssertionError(f"ssm-chunked: kernel launches {launches}, "
+                             f"{len(calls)} calls seen, != {want}")
+    check_tensor_core("ssm-chunked", ("ssd_scan_fwd",))
+    if not in_situ_report("ssm-chunked", "chunked engine", calls):
+        raise AssertionError("ssm-chunked: SSD kernel calls off their plain "
+                             "version")
+    first_gaps("ssm-chunked",
+               {i: obs.first[rid] for i, rid in enumerate(rids)},
+               whole_first, SSM_LOGIT_TOL)
+    del eng
+    torch.cuda.empty_cache()
+
+
 def bound(bytes_: int, flops: int) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -2110,7 +2571,7 @@ def main(argv=None) -> int:
     sass_hgmma()
 
     errors = phase_kernels(args.seed)
-    engine, requests, launches, tok_s = phase_serve(args.seed)
+    engine, requests, launches, tok_s, whole_first = phase_serve(args.seed)
     paged_launches, paged_tok_s, _ = phase_paged(engine, requests)
     launches["flash_decode_paged_fwd"] = \
         paged_launches["flash_decode_paged_fwd"]
@@ -2121,7 +2582,9 @@ def main(argv=None) -> int:
                      f"48 layers), device idle share {t['idle_share']:.3f}; "
                      f"end to end {rate:.1f} tok/s [{card}]")
     times = phase_times(engine, decode_lengths, card)
-    del engine
+    phase_chunked(engine, requests, whole_first, args.seed, card)
+    phase_prefix(engine, args.seed, card)
+    del engine, whole_first
     torch.cuda.empty_cache()
 
     pair, complexes, rids, pair_launches = phase_pair_serve(args.seed)
@@ -2134,12 +2597,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     errors["ssd_scan_fwd"] = phase_ssm_kernel(args.seed)
-    ssm, ssm_requests, ssm_launches, ssm_tok_s = phase_ssm_serve(args.seed)
+    ssm, ssm_requests, ssm_launches, ssm_tok_s, ssm_first = \
+        phase_ssm_serve(args.seed)
     launches["ssd_scan_fwd"] = ssm_launches["ssd_scan_fwd"]
     failed += phase_ssm_parity(ssm, ssm_requests)
     times["ssd_scan_fwd"] = phase_ssm_times(ssm, ssm_requests, ssm_tok_s,
                                             card)
-    del ssm
+    phase_ssm_chunked(ssm, ssm_requests, ssm_first, card)
+    del ssm, ssm_first
     torch.cuda.empty_cache()
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"

@@ -2,7 +2,7 @@
 
 Port of ``repro.core.decomp.svd_factors`` at a given rank, the form the
 Pairformer serve path calls. The energy-based rank choice and the neural
-decomposition fit wait for the training slice (ROADMAP.md Queue A item 8).
+decomposition fit wait for the training slice (ROADMAP.md Queue A item 9).
 
 SVD factors are unique only up to sign, and up to rotation inside
 near-tied singular values: compare ``phi_q @ phi_k^T``, never the factors.

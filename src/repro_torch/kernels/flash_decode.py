@@ -79,36 +79,41 @@ def _write_row(k_cache, v_cache, lengths, k_new, v_new):
         cache[bidx, :, pos] = torch.where(keep, new, cache[bidx, :, pos])
 
 
-def paged_write_plan(page_table: torch.Tensor, lengths: torch.Tensor,
-                     active: torch.Tensor, n_pages: int, ps: int):
-    """Where each row's new token lands in the pool: ``(page, offset, src,
-    keep)``, all ``(B,)``, every index in range.
+def paged_write_plan(page_table: torch.Tensor, rows: torch.Tensor,
+                     pos: torch.Tensor, active: torch.Tensor, n_pages: int,
+                     ps: int):
+    """Where writes land in the pool: entry ``i`` writes position ``pos[i]``
+    of row ``rows[i]`` where ``active[i]``. Returns ``(page, offset, src,
+    keep)``, one per entry, every index in range (a decode step has one
+    entry per row, a prefill chunk one per valid position).
 
-    The reference drops the writes of frozen rows and of rows whose table
-    entry is a sentinel (``>= n_pages``) through out-of-range scatter
-    indices; on a CUDA tensor such an index is a device-side assert. So a
-    row that must not write instead repeats the write of the first row that
-    does (``src``): duplicate indices then carry equal values and the
-    result does not depend on their order. When no row writes, every row
+    The reference drops the writes of inactive entries and of entries whose
+    table entry is a sentinel (``>= n_pages``) through out-of-range scatter
+    indices; on a CUDA tensor such an index is a device-side assert. So an
+    entry that must not write instead repeats the write of the first entry
+    that does (``src``): duplicate indices then carry equal values and the
+    result does not depend on their order. When no entry writes, every entry
     rewrites page 0's first row with itself (``keep`` False). All of it
-    stays on the device: no host sync in the decode step."""
-    b = lengths.shape[0]
-    bidx = torch.arange(b, device=lengths.device)
-    pos = torch.where(active, lengths - 1, 0).long()
+    stays on the device: no host sync."""
+    idx = torch.arange(rows.shape[0], device=rows.device)
+    pos = pos.long()
     block = (pos // ps).clamp(max=page_table.shape[1] - 1)
-    page = page_table[bidx, block].long()
+    page = page_table[rows, block].long()
     ok = active & (page >= 0) & (page < n_pages)
-    first = torch.argmax(ok.to(torch.int32))
-    src = torch.where(ok, bidx, first)
-    page = torch.where(ok[src], page[src], 0)
-    off = torch.where(ok[src], pos[src] % ps, 0)
-    return page, off, src, ok[src]
+    src = torch.where(ok, idx, torch.argmax(ok.to(torch.int32)))
+    keep = ok[src]
+    return (torch.where(keep, page[src], 0),
+            torch.where(keep, pos[src] % ps, 0), src, keep)
 
 
 def _write_paged_row(k_pages, v_pages, lengths, page_table, k_new, v_new):
-    """The new token's row into the pools (``paged_write_plan``), in place."""
+    """The new token's row into the pools (``paged_write_plan``, one entry
+    per row at position ``lengths - 1``), in place."""
+    active = lengths > 0
     page, off, src, keep = paged_write_plan(
-        page_table, lengths, lengths > 0, k_pages.shape[1], k_pages.shape[2])
+        page_table, torch.arange(lengths.shape[0], device=lengths.device),
+        torch.where(active, lengths - 1, 0), active, k_pages.shape[1],
+        k_pages.shape[2])
     keep = keep[None, :, None]
     for pool, new in ((k_pages, k_new), (v_pages, v_new)):
         new = new[src].transpose(0, 1)                       # (KVH, B, E)

@@ -1,6 +1,7 @@
 """Public entry points the models call: ``flash_attention`` (prefill /
-training), ``flash_decode`` (one token against a KV cache) and ``ssd_scan``
-(the Mamba2 SSD chunk scan of an SSM prefill).
+training), ``flash_decode`` (one token against a KV cache),
+``flash_chunk_attention`` (a prefill chunk against a KV cache) and
+``ssd_scan`` (the Mamba2 SSD chunk scan of an SSM prefill).
 
 Port of ``repro.kernels.ops``. Implementations:
 
@@ -36,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.attention import DEFAULT_MASK_VALUE
 from repro_torch.kernels.flash_decode import (
     flash_decode_fwd,
     flash_decode_paged_fwd,
@@ -49,8 +51,8 @@ from repro_torch.kernels.flashbias_attn import (
 )
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
-__all__ = ["flash_attention", "flash_decode", "ssd_scan", "resolve_impl",
-           "IMPLS"]
+__all__ = ["flash_attention", "flash_decode", "flash_chunk_attention",
+           "ssd_scan", "resolve_impl", "IMPLS"]
 
 IMPLS = ("torch", "cuda")
 
@@ -255,6 +257,77 @@ def flash_decode(
         o = flash_decode_paged_fwd(qg, k_cache, v_cache, lengths, pt, pq,
                                    phi_k, sl, scale=scale, **new)
     return o.reshape(b, 1, h, v_cache.shape[-1])
+
+
+def flash_chunk_attention(
+    q: torch.Tensor,                        # (B, C, H, D) chunk queries
+    k_cache: torch.Tensor,                  # (B, KVH, S, D) | (KVH, n_pages, ps, D)
+    v_cache: torch.Tensor,                  # (B, KVH, S, Dv) | (KVH, n_pages, ps, Dv)
+    offsets: torch.Tensor,                  # (B,) int: position of q[:, 0]
+    chunk_lens: torch.Tensor,               # (B,) int: valid queries (0 = frozen)
+    slopes: Optional[torch.Tensor] = None,  # (H,) ALiBi
+    *,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+    page_table: Optional[torch.Tensor] = None,   # (B, P) int32 -> paged
+    max_pages: Optional[int] = None,
+) -> torch.Tensor:
+    """Offset-masked chunk attention for chunked prefill. Returns ``(B, C,
+    H, Dv)`` in q's dtype.
+
+    Query ``i`` of row ``b`` sits at position ``offsets[b] + i`` and sees
+    the keys at positions ``<= offsets[b] + i``: the chunk's own keys must
+    already be in the cache (write, then attend). Rows with ``chunk_lens[b]
+    == 0`` are frozen lanes whose output nobody reads. ALiBi adds ``slopes
+    * (k_pos - q_pos)`` from absolute positions.
+
+    Caches are kernel-layout: contiguous ``(B, KVH, S, *)`` or, with
+    ``page_table``, pools ``(KVH, n_pages, ps, *)`` gathered into a view of
+    ``_static_page_cap`` pages per row (table entries clamped into the
+    pool; the causal mask discards what lies past the written prefix).
+
+    Port of ``repro.kernels.ops.flash_chunk_attention``, which routes every
+    impl to XLA: chunk attention runs once per chunk on the admission path,
+    so there is no Pallas kernel to port and every impl here is the plain
+    float32 einsums, mask and softmax. ``offsets`` and ``chunk_lens`` may
+    lie on the host or the card; nothing is read back from the card. At
+    the full width of ``gpt2_alibi_15b`` (B 4, KVH 64, C 256, a 2048-key
+    view) one float32 logits tensor is 0.54 GB, and the softmax makes a
+    second: they fit."""
+    b, c, h, d = q.shape
+    scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
+    resolve_impl(impl, q.device)        # validated; every impl is plain
+    dev = q.device
+    offsets = torch.as_tensor(offsets).to(torch.int32)
+    chunk_lens = torch.as_tensor(chunk_lens).to(torch.int32)
+    if page_table is not None:
+        kvh, n_pages, ps = k_cache.shape[:3]
+        cap = _static_page_cap(offsets + chunk_lens, ps, page_table.shape[1],
+                               max_pages)
+        pt = page_table[:, :cap].long().clamp(0, n_pages - 1)
+
+        def view(pool):                 # (KVH, B, cap, ps, E) -> (B, KVH, S, E)
+            return pool[:, pt].reshape(kvh, b, cap * ps,
+                                       pool.shape[-1]).transpose(0, 1)
+        kv, vv = view(k_cache), view(v_cache)
+    else:
+        kv, vv = k_cache, v_cache
+    kvh, s_len, dv = kv.shape[1], kv.shape[2], vv.shape[-1]
+    g = h // kvh
+    qg = q.reshape(b, c, kvh, g, d).permute(0, 2, 3, 1, 4).float()
+    s = torch.einsum("bkgcd,bksd->bkgcs", qg, kv.float()).mul_(scale)
+    k_pos = torch.arange(s_len, device=dev)
+    q_pos = offsets.to(dev)[:, None] + torch.arange(c, device=dev)  # (B, C)
+    if slopes is not None:
+        rel = (k_pos[None, None] - q_pos[:, :, None]).float()       # (B, C, S)
+        s.addcmul_(slopes.float().reshape(kvh, g)[None, :, :, None, None],
+                   rel[:, None, None])
+    valid = k_pos[None, None] <= q_pos[:, :, None]
+    s.masked_fill_(~valid[:, None, None], DEFAULT_MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    del s
+    o = torch.einsum("bkgcs,bkse->bkgce", p, vv.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(b, c, h, dv).to(q.dtype)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -6,7 +6,10 @@ rest join one per engine step while earlier ones decode), and per-request
 sampling — the traffic of ``repro.launch.serve``. Runs on the CUDA device
 unless ``--device cpu`` is given. ``--page-size N`` serves from a shared
 page pool (lazy growth and preemption by default; ``--pool-pages`` sizes
-the pool, small enough to watch it preempt).
+the pool, small enough to watch it preempt). ``--prefill-chunk N`` lands
+prompts N tokens per engine step between decode steps; ``--prefix-cache``
+(with ``--page-size``) shares completed prompt pages between requests, and
+``--shared-prefix N`` gives every prompt a common N-token head to share.
 """
 from __future__ import annotations
 
@@ -63,16 +66,34 @@ def main(argv=None):
     ap.add_argument("--pool-pages", type=int, default=0,
                     help="> 0: override the page-pool size (undersize it "
                          "to watch lazy growth preempt under pressure)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="> 0: chunked prefill — prompts land this many "
+                         "tokens per engine step, interleaved with decode "
+                         "(long arrivals never stall the batch)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="content-hashed prefix caching: requests whose "
+                         "prompts share completed pages map their page "
+                         "tables onto them and prefill only the novel "
+                         "tail (needs --page-size; defaults "
+                         "--prefill-chunk to the page size)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="> 0: prepend a common prefix of this many tokens "
+                         "to every request (system-prompt traffic — watch "
+                         "--prefix-cache hit rates)")
     args = ap.parse_args(argv)
     if args.pool_pages and not args.page_size:
         ap.error("--pool-pages requires --page-size (paged KV)")
+    if args.prefix_cache and not args.page_size:
+        ap.error("--prefix-cache requires --page-size (paged KV)")
+    if args.prefix_cache and not args.prefill_chunk:
+        args.prefill_chunk = args.page_size
 
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)
-    max_len = args.prompt_len + args.new_tokens + 8
+    max_len = args.shared_prefix + args.prompt_len + args.new_tokens + 8
     kw = {}
     if args.page_size:
         # every request fits max_len by construction: cap the page table at
@@ -82,13 +103,20 @@ def main(argv=None):
               "page_reservation": args.page_reservation}
         if args.pool_pages:
             kw["n_pages"] = args.pool_pages
+    if args.prefill_chunk:
+        kw["prefill_chunk"] = args.prefill_chunk
+    if args.prefix_cache:
+        kw["prefix_cache"] = True
     engine = ServeEngine(model, params, max_len=max_len, n_slots=args.slots,
-                         prefill_len=args.prompt_len, device=device, **kw)
+                         prefill_len=args.shared_prefix + args.prompt_len,
+                         device=device, **kw)
     del params                       # the engine holds its compute copy
 
     rng = np.random.default_rng(args.seed)
     lens = rng.integers(4, args.prompt_len + 1, (args.requests,))
-    requests = [(rng.integers(0, cfg.vocab, (n,)).astype(np.int32),
+    common = rng.integers(0, cfg.vocab, (args.shared_prefix,)).astype(np.int32)
+    requests = [(np.concatenate([common, rng.integers(
+                    0, cfg.vocab, (n,)).astype(np.int32)]),
                  args.new_tokens,
                  SamplingParams(args.temperature, args.top_k, seed=i))
                 for i, n in enumerate(lens)]
@@ -108,6 +136,13 @@ def main(argv=None):
         print(f"[serve] pages: {stats['watermark']}/{stats['n_pages']} peak "
               f"({args.page_reservation}), {stats['grown']} grown "
               f"mid-flight, {stats['preemptions']} preemptions")
+        if "prefix" in stats:
+            pf = stats["prefix"]
+            print(f"[serve] prefix cache: {pf['hit_rate']:.0%} hit rate "
+                  f"({pf['tokens_matched']}/{pf['tokens_matchable']} "
+                  f"tokens), {pf['entries']} entries, "
+                  f"{pf['cow_copies']} CoW copies, "
+                  f"{pf['evictions']} evictions")
     print("first request:", engine.result(rids[0])[:16])
     return [engine.result(r) for r in rids]
 

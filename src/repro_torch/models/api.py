@@ -15,10 +15,15 @@
 - ``insert_paged(dst, src, slots, tables)`` — scatter a prefilled wave's
   pages into the pool and its table rows into the slots,
 - ``grow_page_table(dst, slots, tables)``  — rewrite the table rows of
-  slots that grew a page.
+  slots that grew a page,
+- ``prefill_chunk(params, cache, tokens, offsets, chunk_lens, final_lens,
+  max_pages)`` — one chunked-prefill step (cache updated in place),
+- ``copy_pages(dst, src_ids, dst_ids)``     — copy whole pages (prefix
+  caching's copy-on-write).
 
-The three paged entries are the dense LM family's; the SSM family's
-``Model`` (constant-size caches) and the Pairformer's leave them None. The
+The paged entries and ``copy_pages`` are the dense LM family's; the SSM
+family's ``Model`` (constant-size caches) leaves them None, and the
+Pairformer's leaves every optional entry None, ``prefill_chunk`` too. The
 Pairformer's ``prefill`` is the admission trunk pass (with the factor MLPs
 as ``factors=``), its ``decode`` one refinement iteration over the slot
 batch, and its ``init_cache`` takes ``factors=`` to size the factor cache.
@@ -46,6 +51,8 @@ class Model:
     init_paged_cache: Optional[Callable] = None
     insert_paged: Optional[Callable] = None
     grow_page_table: Optional[Callable] = None
+    prefill_chunk: Optional[Callable] = None
+    copy_pages: Optional[Callable] = None
 
 
 def _pairformer_model(cfg: ArchConfig) -> Model:
@@ -70,7 +77,7 @@ def get_model(cfg: ArchConfig) -> Model:
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "
-            f"items 7-8)")
+            f"item 8)")
     paged = cfg.family == "dense"
     return Model(
         cfg=cfg,
@@ -86,4 +93,9 @@ def get_model(cfg: ArchConfig) -> Model:
                           if paged else None),
         insert_paged=lm.insert_paged_cache_at_slots if paged else None,
         grow_page_table=lm.grow_page_tables_at_slots if paged else None,
+        prefill_chunk=lambda p, cache, tokens, offsets, chunk_lens,
+        final_lens, max_pages=None: lm.prefill_chunk(
+            p, cache, tokens, cfg, offsets=offsets, chunk_lens=chunk_lens,
+            final_lens=final_lens, max_pages=max_pages),
+        copy_pages=lm.copy_paged_pages if paged else None,
     )

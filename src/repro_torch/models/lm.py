@@ -18,11 +18,16 @@ Entry points:
   the cache. Rows with ``length == 0`` are frozen. The cache's k/v tensors
   are UPDATED IN PLACE (one row per active slot), where the reference
   returns new arrays: it saves a cache-sized copy per step;
+- ``prefill_chunk(params, cache, tokens, cfg, offsets, chunk_lens,
+  final_lens)`` — chunked prefill: one fixed-width chunk per row appended
+  to the slot cache, UPDATED IN PLACE as ``decode_step`` does (contiguous
+  and paged KV, or the SSM state carried from the previous chunk);
 - ``init_cache`` and ``insert_cache_at_slots`` for the serve engine;
 - ``init_paged_cache``, ``insert_paged_cache_at_slots`` and
   ``grow_page_tables_at_slots`` for the paged engine: a page pool shared by
   every slot, per-slot page tables, and the float32 ALiBi key-factor slab
-  ``pages_phi``. ``decode_step`` takes either cache.
+  ``pages_phi``. ``decode_step`` and ``prefill_chunk`` take either cache;
+  ``copy_paged_pages`` is prefix caching's copy-on-write.
 
 The SSM family (``mamba2_130m``) caches a constant-size state per slot:
 ``ssm_h (L, B, Hs, P, N)`` in float32 and the causal-conv tails ``conv_x``
@@ -56,8 +61,9 @@ from repro_torch.models.common import (
 )
 
 __all__ = ["lm_template", "cast_layers", "prefill", "decode_step",
-           "init_cache", "insert_cache_at_slots", "init_paged_cache",
-           "insert_paged_cache_at_slots", "grow_page_tables_at_slots"]
+           "prefill_chunk", "init_cache", "insert_cache_at_slots",
+           "init_paged_cache", "insert_paged_cache_at_slots",
+           "grow_page_tables_at_slots", "copy_paged_pages"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -70,11 +76,11 @@ def _check_supported(cfg: ArchConfig) -> None:
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "
-            f"item 7)")
+            f"item 8)")
     if cfg.window:
         raise NotImplementedError(
             "sliding-window (ring) KV caches are not ported yet (ROADMAP.md "
-            "Queue A item 7)")
+            "Queue A item 8)")
     if cfg.bias_kind == "alibi" and cfg.bias_mode != "flashbias":
         raise NotImplementedError(
             "the dense-bias baseline (bias_mode='dense') is not ported yet")
@@ -225,6 +231,41 @@ def _attention_decode(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
     return _out_proj(o, lp["wo"])
 
 
+def _attention_chunk(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cfg: ArchConfig, *,
+                     slopes: Optional[torch.Tensor], chunk: dict,
+                     paged: Optional[dict] = None) -> torch.Tensor:
+    """C-token chunk attention against one layer's cache, contiguous ``(B,
+    KVH, S, hd)`` or (``paged`` given) a page pool ``(KVH, n_pages, ps,
+    hd)``. The chunk's k/v rows are scattered into the cache FIRST, in
+    place, at the places ``chunk`` planned (``_chunk_plan``: rows with
+    ``chunk_lens 0`` write nothing), and the queries then attend to the
+    written cache under the offset causal mask
+    (``ops.flash_chunk_attention``)."""
+    q = _project(x, lp["wq"])                                # (B, C, H, E)
+    k_new, v_new = _project(x, lp["wk"]), _project(x, lp["wv"])
+    if paged is None:
+        rows, cols, pos = chunk["rows"], chunk["cols"], chunk["pos"]
+        if rows is not None:
+            k_cache[rows, :, pos] = k_new[rows, cols]
+            v_cache[rows, :, pos] = v_new[rows, cols]
+        o = ops.flash_chunk_attention(
+            q, k_cache, v_cache, chunk["offsets"], chunk["chunk_lens"],
+            slopes, impl=cfg.attn_impl)
+        return _out_proj(o, lp["wo"])
+    if chunk["page"] is not None:
+        page, off, keep = chunk["page"], chunk["off"], chunk["keep"]
+        rows, cols = chunk["src_rows"], chunk["src_cols"]
+        for pool, new in ((k_cache, k_new), (v_cache, v_new)):
+            val = new[rows, cols].transpose(0, 1)            # (KVH, n, E)
+            pool[:, page, off] = torch.where(keep, val, pool[:, page, off])
+    o = ops.flash_chunk_attention(
+        q, k_cache, v_cache, chunk["offsets"], chunk["chunk_lens"], slopes,
+        impl=cfg.attn_impl, page_table=paged["table"],
+        max_pages=paged["max_pages"])
+    return _out_proj(o, lp["wo"])
+
+
 def _mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
     return swiglu(rmsnorm(x, lp["ln2"]), lp["mlp"]["wi"], lp["mlp"]["wo"])
 
@@ -300,15 +341,20 @@ def _ssm_dt_a(sp: dict, dt: torch.Tensor):
 
 
 def _ssm_forward(sp: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                 h0: Optional[torch.Tensor] = None,
+                 tail_x: Optional[torch.Tensor] = None,
+                 tail_bc: Optional[torch.Tensor] = None,
                  lengths: Optional[torch.Tensor] = None):
     """Full-sequence SSD. Returns (y (B, S, D), h_fin, tail_x, tail_bc).
 
+    ``h0`` and the conv tails ``tail_x`` / ``tail_bc`` carry the state of
+    the positions before ``x`` (a prefill chunk's; zeros when None).
     ``lengths`` (B,) marks the valid prefix of a right-padded batch: padded
     positions get dt = 0, which makes their state update the identity, so
     ``h_fin`` and the conv tails are the state after position
     ``lengths[b]-1``."""
     xs, z, bmat, cmat, dt, tail_x, tail_bc = _ssm_conv_inputs(
-        sp, x, cfg, lengths=lengths)
+        sp, x, cfg, tail_x, tail_bc, lengths)
     dt, a = _ssm_dt_a(sp, dt)
     if lengths is not None:
         keep = (torch.arange(x.shape[1], device=x.device)[None, :]
@@ -316,7 +362,7 @@ def _ssm_forward(sp: dict, x: torch.Tensor, cfg: ArchConfig, *,
         dt = torch.where(keep[:, :, None], dt,
                          torch.zeros((), device=x.device))
     y, h_fin = ops.ssd_scan(xs.float(), dt, a, bmat.float(), cmat.float(),
-                            chunk=cfg.ssd_chunk, impl=cfg.attn_impl)
+                            chunk=cfg.ssd_chunk, h0=h0, impl=cfg.attn_impl)
     return _ssm_gate_out(sp, y, xs, z, x.dtype), h_fin, tail_x, tail_bc
 
 
@@ -468,8 +514,9 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         phi = cache.get("pages_phi")
         paged = {"table": table, "phi": phi, "max_pages": max_pages}
         if phi is not None:
-            page, off, src, keep = paged_write_plan(table, lengths, active,
-                                                    n_pages, ps)
+            page, off, src, keep = paged_write_plan(
+                table, torch.arange(lengths.shape[0], device=lengths.device),
+                torch.where(active, lengths - 1, 0), active, n_pages, ps)
             pos = (lengths - 1).float()
             one = torch.ones_like(pos)
             row = torch.stack([one, pos], -1)[src]
@@ -487,6 +534,141 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             cfg, slopes=None if slopes is None else slopes[i],
             phi_q=None if phi_q is None else phi_q[i], paged=paged)
         x = x + _mlp(lp, x)
+    return _logits(params, x, cfg), {**cache, "length": lengths}
+
+
+def _chunk_plan(cache: dict, offsets: np.ndarray, chunk_lens: np.ndarray,
+                c: int, dev) -> dict:
+    """Where a chunk's valid positions land, planned once per call from the
+    host arrays: ``offsets`` / ``chunk_lens`` on the device, and for
+    contiguous caches the ``(rows, cols, pos)`` of every valid entry (None
+    when no row writes). Paged, ``paged_write_plan`` finds the pages in the
+    device table (an entry whose table entry lies outside the pool repeats
+    another's write, ``keep`` False), and ``src_rows`` / ``src_cols`` say
+    which chunk row each write carries."""
+    rows, cols = np.nonzero(np.arange(c)[None, :] < chunk_lens[:, None])
+    pos = offsets[rows] + cols
+    plan = {"offsets": torch.as_tensor(offsets, device=dev),
+            "chunk_lens": torch.as_tensor(chunk_lens, device=dev),
+            "rows": None, "page": None}
+    if not rows.size or not ("k" in cache or "pages_k" in cache):
+        return plan                     # nothing writes, or SSM state only
+    rows_t, cols_t = (torch.as_tensor(a, device=dev) for a in (rows, cols))
+    if "pages_k" not in cache:
+        s_len = cache["k"].shape[3]
+        if pos.max() >= s_len:
+            raise ValueError(f"chunk reaches position {pos.max()} of a "
+                             f"{s_len}-position cache")
+        plan.update(rows=rows_t, cols=cols_t,
+                    pos=torch.as_tensor(pos, device=dev))
+        return plan
+    n_pages, ps = cache["pages_k"].shape[2], cache["pages_k"].shape[3]
+    table = cache["page_table"]
+    if pos.max() // ps >= table.shape[1]:
+        raise ValueError(f"chunk reaches block {pos.max() // ps} of a "
+                         f"{table.shape[1]}-page table row")
+    pos_t = torch.as_tensor(pos, device=dev)
+    page, off, src, keep = paged_write_plan(
+        table, rows_t, pos_t, torch.ones_like(rows_t, dtype=torch.bool),
+        n_pages, ps)
+    plan.update(page=page, off=off, keep=keep[None, :, None],
+                src_rows=rows_t[src], src_cols=cols_t[src])
+    if "pages_phi" in cache:
+        pos_f = pos_t[src].float()
+        plan["phi_row"] = torch.stack([torch.ones_like(pos_f), pos_f], -1)
+    return plan
+
+
+def _layer_chunk(lp: dict, i: int, cache: dict, x: torch.Tensor,
+                 cfg: ArchConfig, *, chunk: dict,
+                 slopes: Optional[torch.Tensor],
+                 paged: Optional[dict]) -> torch.Tensor:
+    """Layer ``i`` of chunked prefill: the chunk appended to the layer's
+    cache in place, as ``decode_step`` updates it. Rows with ``chunk_lens
+    0`` keep their cache bit-identical. SSM rows starting a prompt (offset
+    0) start from zero state, since the slot may hold a prior occupant's;
+    continuation chunks carry the cached state and conv tails."""
+    h = rmsnorm(x, lp["ln1"])
+    if cfg.family == "ssm":
+        first, part = chunk["offsets"] == 0, chunk["chunk_lens"] > 0
+        st, tx = cache["ssm_h"][i], cache["conv_x"][i]
+        tbc = cache["conv_bc"][i]
+        zero = torch.zeros((), dtype=st.dtype, device=st.device)
+        f4, p4 = first[:, None, None, None], part[:, None, None, None]
+        y, h_fin, tx_new, tbc_new = _ssm_forward(
+            lp["ssm"], h, cfg, h0=torch.where(f4, zero, st),
+            tail_x=torch.where(f4, zero.to(tx.dtype), tx),
+            tail_bc=torch.where(first[:, None, None], zero.to(tbc.dtype), tbc),
+            lengths=chunk["chunk_lens"])
+        st.copy_(torch.where(p4, h_fin, st))
+        tx.copy_(torch.where(p4, tx_new, tx))
+        tbc.copy_(torch.where(part[:, None, None], tbc_new, tbc))
+        return x + y
+    kk, vv = ("pages_k", "pages_v") if paged is not None else ("k", "v")
+    x = x + _attention_chunk(lp["attn"], h, cache[kk][i], cache[vv][i], cfg,
+                             slopes=slopes, chunk=chunk, paged=paged)
+    return x + _mlp(lp, x)
+
+
+def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
+                  cfg: ArchConfig, *, offsets, chunk_lens, final_lens,
+                  max_pages: Optional[int] = None):
+    """One chunked-prefill step: a C-token chunk appended per slot row.
+    Returns ``(logits (B, 1, V), cache)``; the cache's tensors are UPDATED
+    IN PLACE (the returned dict holds a new ``length``).
+
+    The contract the serve backend's planner drives (the reference's):
+
+    - ``tokens`` (B, C) on the device, one right-padded chunk per row: row
+      ``b``'s valid tokens ``tokens[b, :chunk_lens[b]]`` land at positions
+      ``offsets[b] .. offsets[b]+chunk_lens[b]-1``. ``chunk_lens[b] == 0``
+      is a frozen lane (a decoding or an empty slot): its cache stays
+      bit-identical.
+    - ``offsets[b] == 0`` starts a prompt: the SSM state and conv tails
+      restart from zero; KV needs no reset, as the offset causal mask never
+      reads past the written prefix.
+    - ``final_lens`` (B,) is the row's new ``length`` where ``>= 0`` and
+      "keep" where negative. Mid-prompt chunks pass -1, so the length stays
+      0 and interleaved ``decode_step`` calls keep the lane frozen; the
+      last chunk passes the prompt length.
+    - The logits are gathered at each row's last valid chunk position:
+      meaningful for a final chunk (the first sampled token) only.
+
+    ``offsets``, ``chunk_lens`` and ``final_lens`` are host arrays (numpy,
+    or CPU tensors): the writes are planned on the host, and nothing is
+    read back from the card. Paged, the chunk's factor rows ``[1, pos]``
+    are written to ``pages_phi`` once, outside the layer loop, and
+    ``max_pages`` caps the attention's page view (default: the pages of
+    the longest ``offsets + chunk_lens``). The ALiBi slopes are cast once
+    per call, not per layer."""
+    _check_supported(cfg)
+    b, c = tokens.shape
+    dev, dt = tokens.device, _dtype(cfg)
+    offs, clens, flens = (_host_ids(x)
+                          for x in (offsets, chunk_lens, final_lens))
+    chunk = _chunk_plan(cache, offs, clens, c, dev)
+    slopes = paged = None
+    if cfg.family == "dense" and cfg.bias_kind == "alibi":
+        slopes = params["layers"]["attn"]["slopes"].to(dt).float()  # (L, H)
+    if "pages_k" in cache:
+        ps = cache["pages_k"].shape[3]
+        if max_pages is None:
+            max_pages = max(1, -(-int((offs + clens).max()) // ps))
+        paged = {"table": cache["page_table"], "max_pages": max_pages}
+        phi = cache.get("pages_phi")
+        if phi is not None and chunk["page"] is not None:
+            page, off = chunk["page"], chunk["off"]
+            phi[page, off] = torch.where(chunk["keep"][0], chunk["phi_row"],
+                                         phi[page, off])
+    x = _embed_in(params, tokens, cfg)
+    for i in range(cfg.n_layers):
+        x = _layer_chunk(_layer(params, i, dt), i, cache, x, cfg, chunk=chunk,
+                         slopes=None if slopes is None else slopes[i],
+                         paged=paged)
+    last = torch.as_tensor(np.maximum(clens - 1, 0), device=dev)
+    x = x[torch.arange(b, device=dev), last][:, None]
+    final = torch.as_tensor(flens, dtype=torch.int32, device=dev)
+    lengths = torch.where(final >= 0, final, cache["length"])
     return _logits(params, x, cfg), {**cache, "length": lengths}
 
 
@@ -588,8 +770,14 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
 
 
 def _host_ids(x) -> np.ndarray:
+    """Host-planned indices (slots, page tables, chunk offsets) as an int64
+    array. A tensor on the card is refused rather than read back, which
+    would stall the device on every call."""
     if isinstance(x, torch.Tensor):
-        x = x.cpu()
+        if x.device.type != "cpu":
+            raise ValueError(f"host-planned indices must lie on the host, "
+                             f"not {x.device}")
+        x = x.numpy()
     return np.asarray(x, np.int64)
 
 
@@ -653,4 +841,27 @@ def grow_page_tables_at_slots(dst: dict, slots, tables) -> dict:
         dev = dst["page_table"].device
         dst["page_table"][torch.as_tensor(slots[keep], device=dev)] = \
             torch.as_tensor(tables[keep], dtype=torch.int32, device=dev)
+    return dst
+
+
+def copy_paged_pages(dst: dict, src_ids, dst_ids) -> dict:
+    """Copy whole pages ``src_ids[i] -> dst_ids[i]`` across every paged
+    leaf (K, V and the ``pages_phi`` factor slab), in place: prefix
+    caching's copy-on-write, run before a request writes into a page other
+    holders share. ``src_ids`` / ``dst_ids`` are host arrays; entries whose
+    dst lies outside the pool are dropped on the host, and every copy reads
+    the pool as it was before the call, so one batch may reuse a page one
+    of its own entries copies from."""
+    src_ids, dst_ids = _host_ids(src_ids), _host_ids(dst_ids)
+    n_pages = dst["pages_k"].shape[2]
+    keep = (dst_ids >= 0) & (dst_ids < n_pages)
+    if not keep.any():
+        return dst
+    dev = dst["pages_k"].device
+    src = torch.as_tensor(np.clip(src_ids[keep], 0, n_pages - 1), device=dev)
+    to = torch.as_tensor(dst_ids[keep], device=dev)
+    for key in ("pages_k", "pages_v"):
+        dst[key][:, :, to] = dst[key][:, :, src]
+    if "pages_phi" in dst:
+        dst["pages_phi"][to] = dst["pages_phi"][src]
     return dst

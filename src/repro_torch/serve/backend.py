@@ -27,7 +27,16 @@ The SSM family's cache is constant-size per slot: it accepts prompts of
 any length, and ``page_size`` is a no-op for it (the backend does not
 page), as in the reference.
 
-Chunked prefill, prefix caching and mesh sharding wait for later slices.
+``prefill_chunk`` makes admission a planner: it reserves a prompt's pages,
+arms its sampling state and queues a ``ChunkPlan``; the engine then runs
+one ``prefill_step`` per engine step, one fixed-shape ``(n_slots, chunk)``
+call that appends a chunk for every pending slot, between decode steps.
+``prefix_cache`` (paged, chunked, dense family) indexes every landed
+prompt's full pages by content (``serve/prefix.py``): a request whose
+prompt starts with indexed pages shares them through its page table and
+prefills only the rest, copying on write any shared page it must write.
+
+Mesh sharding waits for a later slice.
 """
 from __future__ import annotations
 
@@ -43,8 +52,9 @@ from repro_torch.models.common import tree_map
 from repro_torch.models.lm import cast_layers
 from repro_torch.serve.lifecycle import AdmissionRejected, PoolError
 from repro_torch.serve.pages import PagePool
+from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import sample_tokens, sample_tokens_guarded
-from repro_torch.serve.scheduler import Request
+from repro_torch.serve.scheduler import ChunkPlan, Request
 
 __all__ = ["Backend", "TokenDecodeBackend", "PairBatchBackend"]
 
@@ -79,6 +89,21 @@ class Backend:
         """Advance every live slot one budget unit."""
         raise NotImplementedError
 
+    def prefill_pending(self) -> bool:
+        """True while admitted prompts still have chunks to land: the
+        engine then runs one ``prefill_step`` in every engine step."""
+        return False
+
+    def prefill_step(self):
+        """Append one chunk for every pending prompt; (emissions, mask) as
+        ``step``, where only the slots whose final chunk landed emit."""
+        raise NotImplementedError
+
+    def pending_slots(self):
+        """Slots mid-chunked-prefill: live (they hold pages and can be
+        preempted) but not decoding yet."""
+        return ()
+
     def fetch_result(self, slot: int, st) -> Optional[np.ndarray]:
         """Final non-incremental result for a finishing slot (or None)."""
         return None
@@ -101,6 +126,11 @@ class Backend:
         """The resumable Request ``snapshot`` would return, without freezing
         or freeing anything."""
         raise NotImplementedError
+
+    def quarantine(self, slot: int) -> None:
+        """Called for a faulting slot before it is released: discard what
+        other requests could read from it (the token backend invalidates
+        the prefix-index entries of pages the slot wrote)."""
 
     def take_guard_faults(self) -> Dict[int, str]:
         """Drain {slot: detail} for slots whose last admit/step tripped a
@@ -153,6 +183,11 @@ class TokenDecodeBackend(Backend):
     ``admit``/``step`` return ``(emissions, mask)``: ``mask[slot]`` marks
     slots that advanced one budget unit; ``emissions`` holds the emitted
     token ids per slot. Parameters are cast to the compute dtype once, here.
+
+    Chunked (``prefill_chunk``): a slot mid-prompt holds device length 0,
+    so decode steps freeze its lane; its final chunk sets the length to the
+    prompt's and samples the first token, so sampling streams and decode
+    match the whole-prompt path's.
     """
 
     def __init__(self, model: Model, params: dict, max_len: int,
@@ -161,14 +196,24 @@ class TokenDecodeBackend(Backend):
                  n_pages: Optional[int] = None,
                  pages_per_slot: Optional[int] = None,
                  page_reservation: str = "lazy",
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = False,
                  device="cuda"):
         if page_reservation not in ("lazy", "whole"):
             raise ValueError(f"page_reservation must be 'lazy' or "
                              f"'whole', got {page_reservation!r}")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, "
+                                 f"got {prefill_chunk}")
+            if model.prefill_chunk is None:
+                raise ValueError(
+                    f"{model.cfg.family} model has no chunked-prefill path")
+        self.chunk_size = prefill_chunk
+        self._pending: Dict[int, ChunkPlan] = {}
+        self._slot_kept: Dict[int, int] = {}   # shared (unwritten) pages
         self.model = model
         self.device = torch.device(device)
-        self.params = cast_layers(
-            tree_map(lambda x: x.to(self.device), params), model.cfg)
         self.max_len, self.n_slots = max_len, n_slots
         self.prefill_len = prefill_len
         self._vocab = model.cfg.vocab
@@ -185,8 +230,34 @@ class TokenDecodeBackend(Backend):
                                       self.n_pages)
             self._pool = PagePool(self.n_pages, page_size)
             self._slot_pages: Dict[int, List[int]] = {}
+        # prefix caching shares pages through the page table, lands the
+        # novel tail through a mid-prompt ChunkPlan, and needs slot state
+        # that lives entirely in pages (no recurrent state)
+        self._prefix: Optional[PrefixCache] = None
+        if prefix_cache:
+            if model.cfg.family != "dense":
+                raise ValueError(
+                    f"prefix_cache shares KV pages only: family "
+                    f"'{model.cfg.family}' carries per-slot recurrent state "
+                    f"a mid-prompt prefill start cannot rebuild")
+            if not (self.paged and self.chunk_size):
+                raise ValueError(
+                    "prefix_cache needs paged KV (page_size) + chunked "
+                    "prefill (prefill_chunk): shared pages map through the "
+                    "page table and novel tails land via mid-prompt "
+                    "ChunkPlans")
+            if model.copy_pages is None:
+                raise ValueError(
+                    "prefix_cache needs the model's copy_pages program")
+            self._prefix = PrefixCache(page_size)
+            self._n_cow = 0                # copy-on-write page copies
+            self._tok_matched = 0          # prompt tokens served from cache
+            self._tok_matchable = 0        # full-block prompt tokens admitted
+        self.params = cast_layers(
+            tree_map(lambda x: x.to(self.device), params), model.cfg)
         self._cache = None                        # allocated on first use
-        self.n_waves = 0                          # prefill waves run
+        self.n_waves = 0                          # whole-prompt waves run
+        self.n_chunk_steps = 0                    # prefill chunk steps run
         self.n_steps = 0                          # decode steps run
 
     # -- lifecycle ------------------------------------------------------
@@ -226,12 +297,22 @@ class TokenDecodeBackend(Backend):
             needed = self._pages_needed(req)
             cap = min(self.pages_per_slot, self.n_pages)
             if needed > cap:
+                # shared pages still take page-table entries and pool
+                # pages: a hit does not lift the bound, but the message
+                # says what admission would reserve
+                shared = ""
+                if self._prefix is not None:
+                    hit = len(self._prefix.match(req.tokens)[0])
+                    shared = (f", of which {hit} currently shared via the "
+                              f"prefix cache — admission would reserve "
+                              f"{needed - hit} fresh pages but the table "
+                              f"row still references all {needed}")
                 raise AdmissionRejected(
                     f"paged mode: request footprint {needed} pages "
                     f"(ceil((prompt {req.prompt_len} + budget "
                     f"{req.max_new_tokens} - 1) / page_size "
-                    f"{self.page_size})) exceeds {cap} (page-table row "
-                    f"width {self.pages_per_slot}, pool {self.n_pages} "
+                    f"{self.page_size})){shared} exceeds {cap} (page-table "
+                    f"row width {self.pages_per_slot}, pool {self.n_pages} "
                     f"pages)")
         elif (self._bounded_cache
               and req.prompt_len + req.max_new_tokens > self.max_len):
@@ -252,21 +333,59 @@ class TokenDecodeBackend(Backend):
 
     def admission_units(self, req: Request) -> int:
         """Pages reserved at admission: the prompt's under lazy growth, the
-        whole footprint under ``"whole"``."""
-        return (self._pool.pages_needed(req.prompt_len) if self.lazy
-                else self._pages_needed(req))
+        whole footprint under ``"whole"``. With prefix caching, matched
+        pages that a live request already holds (refcount >= 2) cost
+        nothing; index-only matches (refcount 1) still count, as
+        ``units_free`` counts them among the evictable pages."""
+        units = (self._pool.pages_needed(req.prompt_len) if self.lazy
+                 else self._pages_needed(req))
+        if self._prefix is not None:
+            kept = self._prefix_plan(req)[0]
+            units -= sum(1 for p in kept if self._pool.refcount(p) >= 2)
+        return units
 
     def units_free(self) -> int:
-        """Pages admission and growth can draw on."""
-        return self._pool.n_free
+        """Pages admission and growth can draw on: the free list, plus the
+        pages the prefix index alone holds (evictable on demand)."""
+        free = self._pool.n_free
+        if self._prefix is not None:
+            free += self._prefix.n_evictable(self._pool)
+        return free
+
+    def _reclaim(self, n: int) -> None:
+        """Put ``n`` pages on the free list, evicting index-held pages (LRU,
+        leaf first) if it is short. Callers are gated on ``units_free``, so
+        the eviction suffices."""
+        if self._prefix is not None and self._pool.n_free < n:
+            self._prefix.evict(self._pool, n - self._pool.n_free)
+
+    def _prefix_plan(self, req: Request):
+        """``req`` against the prefix index: ``(kept, cow_src, done,
+        matched_tokens)``.
+
+        ``kept`` pages are shared as they are. ``done``, where the ChunkPlan
+        starts, is ``matched`` floored to a chunk multiple and kept below
+        the prompt length: chunk boundaries then fall where the unshared
+        engine's do, which makes the shared streams bit-equal, and a final
+        chunk always runs to give the first token. Matched pages in the
+        re-run span ``[done, matched)`` would be written by the sharer, so
+        they come back as ``cow_src``, to be copied on write."""
+        pages, matched = self._prefix.match(req.tokens)
+        if not pages:
+            return [], [], 0, 0
+        done = (min(matched, req.prompt_len - 1)
+                // self.chunk_size) * self.chunk_size
+        k = len(pages) if done >= matched else done // self.page_size
+        return pages[:k], pages[k:], done, matched
 
     def page_cap(self, live) -> Optional[int]:
-        """Page bound for this decode step: the pages of the longest live
-        length (+1 for the position being written), rounded up to a power
-        of two, from the host mirror. None for unpaged engines."""
+        """Page bound for this decode step: the pages of the longest
+        decoding length (+1 for the position being written), rounded up to
+        a power of two, from the host mirror. None for unpaged engines."""
         if not self.paged:
             return None
-        longest = max((st.length for st in live.values()), default=0)
+        longest = max((st.length for s, st in live.items()
+                       if s not in self._pending), default=0)
         need = max(1, -(-(longest + 1) // self.page_size))
         cap = 1
         while cap < need:
@@ -274,10 +393,12 @@ class TokenDecodeBackend(Backend):
         return min(cap, self.pages_per_slot)
 
     def growth_pending(self, live) -> List[int]:
-        """Live slots whose next write position lies past their pages."""
+        """Decoding slots whose next write position lies past their pages
+        (a slot mid-chunked-prefill holds its prompt's pages already)."""
         ps = self.page_size
         return [s for s, st in live.items()
-                if st.length // ps >= len(self._slot_pages[s])]
+                if s not in self._pending
+                and st.length // ps >= len(self._slot_pages[s])]
 
     def grow_slots(self, growing: List[int]) -> None:
         """Give every growing slot its next page and write the new table
@@ -290,6 +411,7 @@ class TokenDecodeBackend(Backend):
                     f"slot {slot} page table full "
                     f"({self.pages_per_slot} rows) — admission validation "
                     f"should have rejected this footprint")
+        self._reclaim(len(growing))
         grown = self._pool.grow(len(growing))   # all-or-nothing
         tables = np.full((len(growing), self.pages_per_slot), self.n_pages,
                          np.int64)
@@ -304,7 +426,11 @@ class TokenDecodeBackend(Backend):
 
     def admit(self, wave: List[Request], slots: List[int]):
         """Prefill the wave into freed slots and sample each admitted
-        request's first token from its prefill logits."""
+        request's first token from its prefill logits. Chunked, plan the
+        wave instead (``_plan_chunked``): nothing emits until a final
+        chunk lands."""
+        if self.chunk_size:
+            return self._plan_chunked(wave, slots)
         ns, w = self.n_slots, len(wave)
         padded = max(r.tokens.size for r in wave)
         if self.prefill_len is not None:
@@ -344,7 +470,14 @@ class TokenDecodeBackend(Backend):
                              device=self.device)
             lg[torch.as_tensor(slots, device=self.device)] = logits[:w, 0]
         self.n_waves += 1
-        # per-slot sampling state; a preempted request resumes its stream
+        self._arm(wave, slots)
+        mask = np.zeros((ns,), bool)
+        mask[slots] = True
+        return self._sample(lg, mask), mask
+
+    def _arm(self, wave: List[Request], slots: List[int]) -> None:
+        """Per-slot sampling state; a preempted request resumes its
+        stream."""
         for slot, r in zip(slots, wave):
             self._temps[slot] = r.sampling.temperature
             self._topks[slot] = r.sampling.top_k
@@ -352,12 +485,121 @@ class TokenDecodeBackend(Backend):
                 self._seeds[slot], self._counts[slot] = r.sampling.seed, 0
             else:
                 self._seeds[slot], self._counts[slot] = r.key_override
+
+    def _plan_chunked(self, wave: List[Request], slots: List[int]):
+        """Chunked admission: reserve each request's pages (sharing its
+        prefix-cache hits) and write its page-table row, copy on write the
+        shared pages its re-run span will write, arm its sampling state
+        (so a preemption mid-prompt snapshots a valid stream) and queue its
+        ``ChunkPlan``. The chunk call writes the page content and factor
+        rows itself. Emits nothing."""
+        starts: Dict[int, int] = {}
+        if self.paged:
+            ps = self.page_size
+            tables = np.full((len(wave), self.pages_per_slot), self.n_pages,
+                             np.int64)
+            cow: List[tuple] = []                 # (src, dst) page copies
+            for i, (slot, r) in enumerate(zip(slots, wave)):
+                kept, cow_src = [], []
+                if self._prefix is not None:
+                    kept, cow_src, starts[slot], matched = \
+                        self._prefix_plan(r)
+                    self._tok_matched += matched
+                    self._tok_matchable += (r.prompt_len // ps) * ps
+                    # pin the shared pages before an eviction this wave
+                    # triggers can reach them
+                    self._pool.incref(kept + cow_src)
+                total = (self._pool.pages_needed(r.prompt_len) if self.lazy
+                         else self._pages_needed(r))
+                self._reclaim(total - len(kept))
+                fresh = self._pool.alloc(total - len(kept))
+                # the first len(cow_src) fresh pages become private copies
+                # of the shared pages the span [done, matched) writes
+                cow += list(zip(cow_src, fresh))
+                pages = kept + fresh
+                self._slot_pages[slot] = pages
+                # pages after the kept prefix are written by this slot:
+                # quarantine invalidates exactly those
+                self._slot_kept[slot] = len(kept)
+                tables[i, :len(pages)] = pages
+            self._cache = self.model.grow_page_table(self._cache, slots,
+                                                     tables)
+            if cow:
+                # before any chunk or decode writes; the copies read the
+                # pool as it was, so a page evicted and reused in this
+                # wave cannot misorder them
+                src, dst = (np.array(a, np.int64) for a in zip(*cow))
+                self._cache = self.model.copy_pages(self._cache, src, dst)
+                self._n_cow += len(cow)
+                # the sharer now owns private copies: drop the pins
+                self._pool.free(src.tolist())
+        self._arm(wave, slots)
+        for slot, r in zip(slots, wave):
+            # a prefix hit starts mid-prompt: positions [0, done) are in
+            # the shared pages already
+            self._pending[slot] = ChunkPlan(r, done=starts.get(slot, 0))
+        return None, np.zeros((self.n_slots,), bool)
+
+    def prefill_pending(self) -> bool:
+        return bool(self._pending)
+
+    def pending_slots(self):
+        return self._pending.keys()
+
+    def _chunk_page_cap(self) -> Optional[int]:
+        """Page view of a paged chunk call: the page table's full width.
+        The reference caps it at a power-of-two rounding of the longest
+        pending prefix, which depends on which other prompts are mid-chunk
+        in the same call; the attention's contractions would then run over
+        views of other lengths in a shared and an unshared run, and may sum
+        in another order. A fixed width keeps each row's arithmetic a
+        function of its own inputs, which the prefix cache's bit-equal
+        streams rest on."""
+        return self.pages_per_slot if self.paged else None
+
+    def prefill_step(self):
+        """Append one chunk for every pending slot in one fixed-shape
+        ``(n_slots, chunk)`` call. Mid-prompt chunks keep the device length
+        at 0 (``final_lens`` -1), so decode steps freeze the lane; a final
+        chunk sets the prompt length, and its logits sample the request's
+        first token: the mask marks exactly the finalized slots, so every
+        sampling stream stays aligned with its committed tokens."""
+        ns, c = self.n_slots, self.chunk_size
+        toks = np.zeros((ns, c), np.int64)
+        offs = np.zeros((ns,), np.int64)
+        clens = np.zeros((ns,), np.int64)
+        flens = np.full((ns,), -1, np.int64)
+        finalized: List[int] = []
+        for slot, plan in self._pending.items():
+            off, chunk_toks, final = plan.next_chunk(c)
+            toks[slot, :chunk_toks.size] = chunk_toks
+            offs[slot], clens[slot] = off, chunk_toks.size
+            if final:
+                flens[slot] = plan.req.prompt_len
+                finalized.append(slot)
+        with torch.no_grad():
+            logits, self._cache = self.model.prefill_chunk(
+                self.params, self._cache,
+                torch.as_tensor(toks, device=self.device), offs, clens,
+                flens, max_pages=self._chunk_page_cap())
+        self.n_chunk_steps += 1
+        for slot in finalized:
+            plan = self._pending.pop(slot)
+            if self._prefix is not None:
+                # the prompt has landed: its full pages never change again
+                # (decode writes at positions >= prompt_len, partial last
+                # pages are never indexed)
+                self._prefix.insert(plan.req.tokens, self._slot_pages[slot],
+                                    self._pool)
         mask = np.zeros((ns,), bool)
-        mask[slots] = True
-        return self._sample(lg, mask), mask
+        mask[finalized] = True
+        return self._sample(logits[:, 0], mask), mask
 
     def step(self, live):
-        """One decode step over the full slot batch."""
+        """One decode step over the full slot batch. Slots mid-chunked-
+        prefill ride it frozen (device length 0) and stay out of the mask:
+        committing their sampling state here would spend a draw the
+        whole-prompt path never spends."""
         with torch.no_grad():
             logits, self._cache = self.model.decode(
                 self.params, self._cache, self._last_tok,
@@ -365,8 +607,9 @@ class TokenDecodeBackend(Backend):
         self.n_steps += 1
         mask = np.zeros((self.n_slots,), bool)
         for s, st in live.items():
-            st.length += 1
-            mask[s] = True
+            if s not in self._pending:
+                st.length += 1
+                mask[s] = True
         return self._sample(logits[:, 0], mask), mask
 
     def _sample(self, logits2d: torch.Tensor, mask: np.ndarray) -> np.ndarray:
@@ -402,16 +645,34 @@ class TokenDecodeBackend(Backend):
 
     def release(self, slot: int) -> None:
         """Free a finished slot: zero its cache length so the decode step's
-        active mask freezes the lane, and return its pages."""
+        active mask freezes the lane, drop its chunk plan, and return its
+        pages (a decref: pages the prefix index or a sharer also holds
+        stay allocated)."""
         self._cache["length"][slot] = 0
+        self._pending.pop(slot, None)
+        self._slot_kept.pop(slot, None)
         if self.paged:
             self._pool.free(self._slot_pages.pop(slot))
+
+    def quarantine(self, slot: int) -> None:
+        """Invalidate the prefix-index entries of every page this slot
+        WROTE (all after the shared prefix kept at admission): its prompt
+        pages were indexed when its prefill landed, so other requests could
+        match content a faulting slot produced. Pages it only shared stay:
+        copy-on-write means a sharer never writes them."""
+        if self._prefix is None or slot not in self._slot_pages:
+            return
+        written = self._slot_pages[slot][self._slot_kept.get(slot, 0):]
+        if written:
+            self._prefix.invalidate(written, self._pool)
 
     def snapshot_request(self, slot: int, st, emitted) -> Request:
         """The resumable request, without freezing anything: generated-so-
         far folds into the prompt (the budget shrinks by as much) and the
         sampling stream state is kept in ``key_override``. Re-prefill of
-        prompt + generated rebuilds the cache the preempted decode had."""
+        prompt + generated rebuilds the cache the preempted decode had. A
+        slot caught mid-chunked-prefill has emitted nothing: its original
+        request re-queues whole."""
         req = st.req
         gen = emitted[-st.generated:] if st.generated else []
         return Request(
@@ -428,16 +689,32 @@ class TokenDecodeBackend(Backend):
         return resumed
 
     def page_stats(self) -> dict:
-        """Pool accounting (empty for unpaged backends)."""
+        """Pool accounting (empty for unpaged backends), with the prefix
+        index's under ``"prefix"`` when it is on."""
         if not self.paged:
             return {}
-        return {"n_pages": self.n_pages, "n_free": self._pool.n_free,
-                "watermark": self._pool.watermark,
-                "grown": self._pool.n_grown}
+        out = {"n_pages": self.n_pages, "n_free": self._pool.n_free,
+               "watermark": self._pool.watermark,
+               "grown": self._pool.n_grown}
+        if self._prefix is not None:
+            matched, matchable = self._tok_matched, self._tok_matchable
+            out["prefix"] = {
+                "entries": len(self._prefix),
+                "cached_pages": self._prefix.n_cached(self._pool),
+                "tokens_matched": matched,
+                "tokens_matchable": matchable,
+                "hit_rate": matched / matchable if matchable else 0.0,
+                "cow_copies": self._n_cow,
+                "evictions": self._prefix.n_evicted,
+                "collisions_rejected": self._prefix.n_rejected,
+                "invalidated": self._prefix.n_invalidated,
+            }
+        return out
 
     def stats(self) -> dict:
-        return {"prefill_waves": self.n_waves, "decode_steps": self.n_steps,
-                **self.page_stats()}
+        return {"prefill_waves": self.n_waves,
+                "chunk_steps": self.n_chunk_steps,
+                "decode_steps": self.n_steps, **self.page_stats()}
 
 
 

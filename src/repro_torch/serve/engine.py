@@ -44,6 +44,15 @@ lowest-priority live request (lowest class, then latest arrival) is
 preempted — its snapshot re-enters at the head of the queue and resumes
 bit-identically.
 
+Chunked prefill (``prefill_chunk``): admission only plans, and every engine
+step runs one chunk call for all admitted prompts, then one decode step, so
+a long arrival costs the decoding requests one chunk per step instead of a
+whole-prompt stall. Streams equal the whole-prompt engine's. Prefix caching
+(``prefix_cache``, on top of paged + chunked): a prompt starting with pages
+an earlier prompt completed shares them and prefills only the rest, with
+streams bit-equal to the unshared chunked engine's; a quarantined slot's
+written pages leave the index.
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device, constructing the engine with no
 ``device`` raises.
@@ -81,7 +90,7 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def _deferred(arg: str, item: str) -> NotImplementedError:
+def _deferred(arg: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{arg} is not ported yet (ROADMAP.md Queue A item {item})")
 
@@ -137,8 +146,14 @@ class ServeEngine:
         factors: fitted pair-bias factor MLP params (pair backend only;
             None serves truncated-SVD factors).
         device: where the engine runs; None means the CUDA device.
-        prefill_chunk, prefix_cache, mesh, faults: later slices of the
-            port; passing any raises ``NotImplementedError``.
+        prefill_chunk: chunked prefill (token backend): prompts land this
+            many tokens per engine step, between decode steps. None keeps
+            whole-prompt admission waves.
+        prefix_cache: content-hashed prefix caching (needs ``page_size``,
+            ``prefill_chunk`` and the dense family): completed prompt pages
+            are shared by later prompts that start with them.
+        mesh, faults: later slices of the port; passing either raises
+            ``NotImplementedError``.
     """
 
     def __init__(self, model: Model, params: dict, max_len: int = 1024,
@@ -157,14 +172,10 @@ class ServeEngine:
                  stall_limit: int = 64,
                  factors: Optional[dict] = None,
                  device=None):
-        if prefill_chunk is not None:
-            raise _deferred("prefill_chunk (chunked prefill)", "12")
-        if prefix_cache:
-            raise _deferred("prefix_cache (prefix caching)", "13")
         if faults is not None:
-            raise _deferred("faults (fault injection)", "14")
+            raise _deferred("faults (fault injection)", 4)
         if mesh is not None:
-            raise _deferred("mesh (sharded serving)", "11")
+            raise _deferred("mesh (sharded serving)", 10)
         if stall_limit < 1:
             raise ValueError(f"stall_limit must be >= 1, got {stall_limit}")
         self.device = resolve_device(device)
@@ -172,6 +183,9 @@ class ServeEngine:
         self.max_len, self.eos_id = max_len, eos_id
         self.n_slots, self.prefill_len = n_slots, prefill_len
         if model.cfg.family == "pairformer":
+            if prefill_chunk is not None or prefix_cache:
+                raise ValueError("chunked prefill / prefix cache are "
+                                 "token-backend paths")
             self.backend = PairBatchBackend(
                 model, params, max_len=max_len, n_slots=n_slots,
                 factors=factors, device=self.device)
@@ -180,7 +194,9 @@ class ServeEngine:
                 model, params, max_len=max_len, n_slots=n_slots,
                 prefill_len=prefill_len, page_size=page_size,
                 n_pages=n_pages, pages_per_slot=pages_per_slot,
-                page_reservation=page_reservation, device=self.device)
+                page_reservation=page_reservation,
+                prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+                device=self.device)
         if self.backend.paged:
             self.page_size = self.backend.page_size
             self.n_pages = self.backend.n_pages
@@ -335,12 +351,16 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def step(self) -> List[int]:
-        """Admit queued requests into free slots, then advance every live
-        slot one token. Returns rids that reached a terminal status."""
+        """Admit queued requests into free slots, land one chunk of every
+        pending prompt (chunked prefill), then advance every decoding slot
+        one token. Returns rids that reached a terminal status."""
         self.backend.ensure_state()
         finished = self._expire_deadlines()
         if self._free and len(self.scheduler):
             finished += self.admit()
+        if self.backend.prefill_pending():
+            emissions, mask = self.backend.prefill_step()
+            finished += self._commit_guarded(emissions, mask)
         if self._live:
             finished += self.decode()
         self.step_idx += 1
@@ -369,9 +389,13 @@ class ServeEngine:
                 idle = 0
 
     def _progress_sig(self) -> tuple:
+        """What changes when the engine makes progress, a landed chunk
+        included (a long prompt lands over many steps that emit nothing)."""
+        pending = getattr(self.backend, "_pending", None) or {}
         return (len(self.scheduler), len(self._live), self._advanced,
                 self.n_preemptions, self.n_quarantines,
-                sum(self._done.values()))
+                sum(self._done.values()),
+                tuple(sorted((s, p.done) for s, p in pending.items())))
 
     def _expire_deadlines(self) -> List[int]:
         """Terminate every queued/live request whose deadline elapsed
@@ -438,8 +462,12 @@ class ServeEngine:
         """Advance every live slot one token in one backend step. Lazy paged
         mode first grows every slot whose write position crossed a page
         boundary, preempting the lowest-priority live request while the
-        pool is dry, so the step itself never allocates."""
+        pool is dry, so the step itself never allocates. Skipped while
+        every live slot is still mid-chunked-prefill."""
         self.backend.ensure_state()
+        pending = self.backend.pending_slots()
+        if pending and all(s in pending for s in self._live):
+            return []               # nothing decoding yet: chunks only
         if self.backend.lazy:
             # (priority, arrival) is a total order, so the highest-priority
             # earliest request always progresses: no preemption livelock
@@ -529,12 +557,15 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def _quarantine(self, slot: int, detail: str) -> List[int]:
-        """Contain a guard trip on ``slot``: RETRY through the preemption
-        snapshot (bit-identical resume), or, when ``max_retries`` is spent,
-        terminate the request FAILED with a structured error."""
+        """Contain a guard trip on ``slot``: drop what other requests could
+        read from it (its written prefix pages), then RETRY through the
+        preemption snapshot (bit-identical resume), or, when
+        ``max_retries`` is spent, terminate the request FAILED with a
+        structured error."""
         st = self._live[slot]
         rid = st.req.rid
         meta = self._meta[rid]
+        self.backend.quarantine(slot)
         self.n_quarantines += 1
         if meta.retries < meta.max_retries:
             meta.retries += 1
@@ -564,10 +595,10 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def snapshot_engine(self) -> dict:
-        raise _deferred("snapshot_engine (crash-safe checkpoint)", "15")
+        raise _deferred("snapshot_engine (crash-safe checkpoint)", 5)
 
     def restore_engine(self, state: dict) -> None:
-        raise _deferred("restore_engine (crash-safe checkpoint)", "15")
+        raise _deferred("restore_engine (crash-safe checkpoint)", 5)
 
     # ------------------------------------------------------------------
     # Internals

@@ -1,6 +1,6 @@
 """Request scheduler for the continuous-batching engine (a copy of
-``repro.serve.scheduler``, logic unchanged; chunk plans wait for chunked
-prefill).
+``repro.serve.scheduler``, logic unchanged), and the chunked-prefill
+cursor ``ChunkPlan``.
 
 Host-side and deliberately simple: requests join a queue; whenever the
 engine has freed slots it asks for the next admission wave. The default
@@ -43,7 +43,7 @@ import numpy as np
 from repro_torch.serve.lifecycle import AdmissionRejected
 from repro_torch.serve.sampling import SamplingParams
 
-__all__ = ["Request", "FIFOScheduler"]
+__all__ = ["Request", "ChunkPlan", "FIFOScheduler"]
 
 
 @dataclasses.dataclass
@@ -102,6 +102,32 @@ class Request:
     def _order(self):
         """Queue sort key: higher class first, earlier arrival within it."""
         return (-self.priority, self.rid)
+
+
+@dataclasses.dataclass
+class ChunkPlan:
+    """Host-side prefill plan of one admitted request that is not decoding
+    yet. Chunked prefill turns admission into planning: the backend
+    reserves the slot's pages and sampling state up front, then feeds the
+    prompt ``chunk`` tokens at a time, one chunk per engine step between
+    decode steps. ``done`` is the prompt prefix already in the slot cache
+    (mid-prompt for a prefix-cache hit); the final chunk sets the device
+    length from 0 (a frozen lane) to the prompt length and samples the
+    first token."""
+    req: Request
+    done: int = 0                             # prompt tokens prefilled so far
+
+    @property
+    def remaining(self) -> int:
+        return int(self.req.tokens.size) - self.done
+
+    def next_chunk(self, chunk: int):
+        """Advance the plan one chunk; returns (offset, tokens, final)."""
+        n = min(chunk, self.remaining)
+        off = self.done
+        toks = self.req.tokens[off:off + n]
+        self.done += n
+        return off, toks, self.remaining == 0
 
 
 class FIFOScheduler:

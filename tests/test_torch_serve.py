@@ -2,8 +2,10 @@
 engine on the same staggered schedule, and the engine's in-port contracts
 (sampled streams independent of batch packing, lifecycle statuses, cancel,
 deadlines, bit-identical preemption resume, guard quarantine) plus the
-constructor arguments that belong to later slices (paged serving is in
-``test_torch_paged.py``)."""
+constructor arguments that belong to later slices and the prefix cache's
+requirements (paged serving is in ``test_torch_paged.py``, chunked prefill
+and prefix caching in ``test_torch_chunked_prefill.py`` and
+``test_torch_prefix_cache.py``)."""
 import jax
 import numpy as np
 import pytest
@@ -15,7 +17,7 @@ from repro.models.common import init_params as jinit
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import smoke_config
 from repro_torch.interop import params_from_numpy
-from repro_torch.models import get_model
+from repro_torch.models import get_model, init_params
 from repro_torch.serve import (
     CANCELLED,
     FAILED,
@@ -213,11 +215,27 @@ def test_guards_off_lets_poison_through(gpt2):
 
 
 @pytest.mark.parametrize("kwarg", [
-    {"page_size": 16, "prefix_cache": True}, {"prefill_chunk": 8},
-    {"prefix_cache": True}, {"mesh": object()}, {"faults": object()}])
+    {"page_size": 16, "prefix_cache": True},             # no prefill_chunk
+    {"prefill_chunk": 8, "prefix_cache": True},          # no page_size
+    {"arch": "mamba2_130m", "page_size": 16, "prefill_chunk": 8,
+     "prefix_cache": True},                              # recurrent state
+    {"mesh": object()}, {"faults": object()}])
 def test_later_slice_arguments_raise(gpt2, kwarg):
+    """``mesh`` and ``faults`` belong to later slices of the port; a prefix
+    cache without paged KV, without chunked prefill or on the SSM family
+    raises the reference's ``ValueError``."""
+    kwarg = dict(kwarg)
     model, params = gpt2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
+    if "arch" in kwarg:
+        cfg = smoke_config(kwarg.pop("arch"))
+        model = get_model(cfg)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    if "mesh" in kwarg or "faults" in kwarg:
+        err, match = NotImplementedError, "ROADMAP.md Queue A item"
+    else:
+        err, match = ValueError, "prefix_cache"
+    with pytest.raises(err, match=match):
         ServeEngine(model, params, device="cpu", **KW, **kwarg)
 
 
