@@ -81,6 +81,14 @@ as it runs, any failure ending the run:
               bit-equal; tokens matched > 0 and pages copied on write
               >= 1; after the drain every page free or held by the index
               alone (refcount 1);
+6c. lm-dense — the serve phase's first wave (4 prompts right-padded to
+              512) prefilled on its weights with bias_mode="dense" (the
+              materialized float32 ALiBi bias, plain chunked attention)
+              and with "flashbias": kernel 1 launched 48 times in the
+              flashbias wave, each on the tensor-core body, and never in the
+              dense one; first-token logits within LOGIT_TOL; both waves
+              timed on the host clock and as device busy (the paper's Sec.
+              4.2 A/B);
 7. pair     — Pairformer-lite at full width (16 layers, d_single 384,
               d_pair 128, 4 heads x 96, bf16 compute, random float32
               weights from ``--seed``) through ``ServeEngine`` on 4 slots x
@@ -140,6 +148,34 @@ as it runs, any failure ending the run:
               every request OK, the SSD kernel launched 24 x chunk steps
               and no attention kernel, first-token logits within
               SSM_LOGIT_TOL of the whole-prompt engine's.
+13. swin    — SwinV2-B at full width (24 layers, d_model 512, 16 heads x
+              32, window 576, d_ff 2048, bf16, random float32 weights from
+              ``--seed``), its bias tables overwritten with exact rank-16
+              per-head products of seeded factors; ``svd_factorize`` timed
+              (384 SVDs of 576 x 576) and its reconstruction error bounded;
+              one forward of 32 images x 4 windows in flashbias mode, kernel
+              1 launched exactly 24 times, each on the tensor-core body and
+              held in situ against its plain version; the logits within
+              MODEL_ULPS per layer of the dense-table forward's and the
+              plain path's; the three forwards timed; kernel 1 at this
+              shape alone and as the model calls it (the wrapper's float32
+              factor copies), its plain version, SDPA with the table as a
+              float mask, its bound and exponential floor;
+14. pde     — the PDE solver at full width (8 layers, d_model 128, 8 heads x
+              16, d_ff 256, coords 3-D, bf16) on PDE_POINTS = 32186 points in
+              the unit cube: one flashbias forward, kernel 1 launched
+              exactly 8 times on the tensor-core body (rank-9 float32
+              factors, phi_k shared by the heads), each call held in situ on
+              query-row slices (the last partial 64-row tile among them);
+              at PDE_PARITY_POINTS = 8192 the output within MODEL_ULPS per
+              layer of the dense-bias forward's and the plain path's; the
+              forwards timed at both sizes; kernel 1 at both shapes against
+              its bound and exponential floor (the dense bias at 32186 would
+              be 33 GB a layer and is not run).
+
+Kernel 1's ``launches`` in the record adds phases 13 and 14 to the serve
+phase's; its times stay at the LM prefill shape (the Swin and PDE shapes'
+are logged above the record).
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -227,6 +263,25 @@ SSM_DECODE_STEPS = 4             # decode steps of the parity phase
 # kernel call is held against the plain version on its own inputs under
 # ``ssd_tolerance``: a fault of the kernel shows there first.
 SSM_LOGIT_TOL = 0.125
+SWIN_IMAGES, SWIN_WINDOWS = 32, 4  # 128 windows of 576 tokens per forward
+PDE_POINTS = 32186               # the paper's Table 5 mesh
+PDE_PARITY_POINTS = 8192         # where the dense and plain paths fit
+# The vision and PDE forwards against their dense-bias and plain paths,
+# bf16. Each path rounds every layer's attention output to bf16 once, on a
+# different float32 result (the kernel sums in another order, reads the
+# factors as bf16 hi + lo, and the dense path adds a float32 table where the
+# kernel adds bf16-rounded SVD factors' product), so the gap may grow by
+# about one bf16 ulp of the output's scale per layer: the bound is
+# MODEL_ULPS ulps (2^-8 relative) at the top |output| per layer. In situ,
+# every kernel call is held to ``tolerance()``.
+MODEL_ULPS = 1
+# svd_factorize's relative Frobenius error on tables of exact rank 16:
+# float32 rounding through cuSOLVER's iterative SVD (1.6e-5 read on the
+# card), where a rank-16 truncation of a full-rank normal table leaves ~0.9
+SVD_REL_TOL = 1e-4
+# special-function (exp) rate of one H100 SXM, the figure FlashAttention-3
+# gives (3.9 TFLOPS of exponentials against 989 TFLOPS of bf16 products)
+SFU_EXP_PER_S = 3.9e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -2530,6 +2585,409 @@ def phase_ssm_chunked(engine, requests, whole_first: dict, card: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 6c: the LM's dense-bias baseline
+# ---------------------------------------------------------------------------
+
+def alternate(fns: dict, rounds: int = 3, per_round: int = 1) -> dict:
+    """Median host ms per call of each of ``fns`` ({label: fn}), each call
+    ending in a synchronize, in alternating rounds (A B B A ...) after one
+    warm-up call each, so all see the same host."""
+    import torch
+    walls = {label: [] for label in fns}
+    labels = list(fns)
+    with torch.no_grad():
+        for label in labels:
+            fns[label]()
+        for r in range(rounds):
+            for label in (labels if r % 2 == 0 else labels[::-1]):
+                for _ in range(per_round):
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    fns[label]()
+                    torch.cuda.synchronize()
+                    walls[label].append((time.monotonic() - t0) * 1e3)
+    return {label: float(np.median(w)) for label, w in walls.items()}
+
+
+def counted(fn):
+    """``fn()`` with every launch counter set to 0 just before and read just
+    after: (its result, {wrapper: launches} of the wrappers that moved)."""
+    import torch
+    counters = reset_counters()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in counters.items()
+                 if w.launches}
+
+
+def phase_lm_dense(engine, requests, card: str) -> None:
+    """The serve phase's first wave (4 prompts right-padded to 512) prefilled
+    with bias_mode="dense" (the materialized float32 ALiBi bias, the plain
+    chunked attention) and with "flashbias" (kernel 1), on the serve phase's
+    weights: kernel 1 launches N_LAYERS times in the flashbias wave and
+    never in the dense one, the first-token logits agree within LOGIT_TOL,
+    and both waves are timed (the paper's Sec. 4.2 A/B)."""
+    import torch
+    from repro_torch.models import get_model
+
+    cfg, params = engine.model.cfg, engine.backend.params
+    wave = requests[:SLOTS]
+    toks = np.zeros((SLOTS, PROMPT_MAX), np.int64)
+    for i, (p, _, _) in enumerate(wave):
+        toks[i, :p.size] = p
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+    lens = torch.tensor([p.size for p, _, _ in wave], dtype=torch.int32,
+                        device="cuda")
+    models = {mode: get_model(cfg.replace(bias_mode=mode))
+              for mode in ("flashbias", "dense")}
+    waves = {mode: (lambda m=m: m.prefill(params, batch, max_len=PROMPT_MAX,
+                                          lengths=lens))
+             for mode, m in models.items()}
+    first = {}
+    for mode, fn in waves.items():
+        (logits, _), launches = counted(fn)
+        first[mode] = logits[:, 0, :cfg.vocab].float()
+        want = ({"flashbias_attention_fwd": N_LAYERS} if mode == "flashbias"
+                else {})
+        log("lm-dense", f"{mode} wave of {SLOTS} x {PROMPT_MAX} (lengths "
+                        f"{lens.tolist()}): launches {launches}")
+        if launches != want:
+            raise AssertionError(f"lm-dense: {mode} wave launched "
+                                 f"{launches}, want {want}")
+        if mode == "flashbias":
+            check_tensor_core("lm-dense", ("flashbias_attention_fwd",))
+    gap = float((first["flashbias"] - first["dense"]).abs().max())
+    agree = int((first["flashbias"].argmax(-1)
+                 == first["dense"].argmax(-1)).sum())
+    log("lm-dense", f"first-token logits, flashbias against dense: max "
+                    f"|gap| {gap:.3e} (tol {LOGIT_TOL}); greedy agreement "
+                    f"{agree}/{SLOTS}")
+    if not gap <= LOGIT_TOL:
+        raise AssertionError(f"lm-dense: flashbias and dense waves disagree "
+                             f"({gap:.3e} > {LOGIT_TOL})")
+    walls = alternate(waves)
+    with torch.no_grad():
+        for mode, fn in waves.items():
+            busy, kernels = profile_steps(fn, 1)
+            log("lm-dense", f"{mode} wave: {walls[mode]:.2f} ms on the host "
+                            f"clock (median, rounds alternating), device "
+                            f"busy {busy:.2f} ms, idle share "
+                            f"{1 - busy / walls[mode]:.3f} [{card}]")
+            top_kernels("lm-dense", kernels)
+    torch.cuda.empty_cache()
+
+
+def top_kernels(phase: str, kernels: list, top: int = 5) -> None:
+    """Log the ``top`` device rows of a one-call profile by time."""
+    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
+        log(phase, f"  {device_us(e) / 1e3:8.3f} ms {e.count:5d} calls  "
+                   f"{e.key[:80]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the paper's vision (SwinV2-B) and PDE models on kernel 1
+# ---------------------------------------------------------------------------
+
+def in_situ_attention(calls: list, rows=None):
+    """A stand-in for kernel 1's wrapper in ``ops`` (which ``_FlashAttention``
+    calls): the kernel, then its plain version on the same inputs, appending
+    (query rows, max |error|, ``tolerance``) to ``calls``. With ``rows`` (a
+    function of N giving (lo, hi) query-row slices) the plain version runs
+    on those rows against every key, which mask "none" allows (each output
+    row depends on its own query row alone): at N = 32186 whole dense
+    logits would not fit on the card."""
+    from repro_torch.kernels.flashbias_attn import (flashbias_attention_fwd,
+                                                    flashbias_attention_torch)
+
+    def call(q, k, v, phi_q=None, phi_k=None, slopes=None, **kw):
+        got = flashbias_attention_fwd(q, k, v, phi_q, phi_k, slopes, **kw)
+        n = q.shape[2]
+        spans = [(0, n)] if rows is None else rows(n)
+        if rows is not None and kw.get("mask_kind", "none") != "none":
+            raise ValueError("row slices need mask 'none'")
+        for lo, hi in spans:
+            want = flashbias_attention_torch(
+                q[:, :, lo:hi], k, v,
+                None if phi_q is None else phi_q[:, :, lo:hi], phi_k,
+                slopes, **kw)
+            err = float((got[:, :, lo:hi].float() - want.float()).abs().max())
+            calls.append(((lo, hi), err, tolerance(q.dtype, want)))
+        return got
+    return call
+
+
+def in_situ_check(phase: str, calls: list, n_calls: int) -> None:
+    """Log the in-situ checks; fail unless there were ``n_calls`` kernel
+    calls' worth and each is within its tolerance."""
+    over = [c for c in calls if not c[1] <= c[2]]
+    worst = max(calls, key=lambda c: c[1] / c[2])
+    log(phase, f"in situ: {len(calls)} checks of {n_calls} kernel calls "
+               f"against the plain version on their inputs (query rows "
+               f"{sorted({c[0] for c in calls})}): worst {worst[1]:.3e} "
+               f"(tol {worst[2]:.1e}, rows {worst[0]}); {len(over)} over")
+    if over or not calls:
+        raise AssertionError(f"{phase}: kernel 1 off its plain version in "
+                             f"situ: {over[:4]}")
+
+
+def model_gap(phase: str, label: str, got, want, n_layers: int) -> float:
+    """max |got - want| of two bf16 forwards' outputs, held to MODEL_ULPS
+    bf16 ulps per layer at the output's top scale (see MODEL_ULPS)."""
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    tol = n_layers * MODEL_ULPS * 2.0 ** -8 * top
+    ok = bool(torch.isfinite(got).all()) and err <= tol
+    log(phase, f"{label}: max |gap| {err:.3e} (tol {tol:.3e} = {n_layers} "
+               f"layers x {MODEL_ULPS} bf16 ulp at the top |output| "
+               f"{top:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{phase}: {label}: {err:.3e} > {tol:.3e}")
+    return err
+
+
+def attention_call(phase: str, label: str, q, k, v, fq, fk, model_fq,
+                   model_fk, card: str, library=None, plain=True) -> dict:
+    """Kernel 1 (no mask) at one path shape, device time per call: alone
+    (contiguous float32 factors ``fq`` / ``fk`` of a rank the bf16 body
+    takes as they are, nothing for the wrapper to copy), as the model calls
+    it (``model_fq`` / ``model_fk``, broadcast or bf16: the wrapper's float32
+    copies included), its plain version and a library call; the bound from
+    bytes and operations at the model's rank, and beside it the exponential
+    floor (one exp per score at the special-function rate)."""
+    from repro_torch.kernels.flashbias_attn import (flashbias_attention_fwd,
+                                                    flashbias_attention_torch)
+    b, h, n, d = q.shape
+    m, r = k.shape[2], model_fq.shape[-1]
+    scale = d ** -0.5
+    out = {"ms": device_ms(lambda: flashbias_attention_fwd(
+        q, k, v, fq, fk, scale=scale)),
+        "model_ms": device_ms(lambda: flashbias_attention_fwd(
+            q, k, v, model_fq, model_fk, scale=scale))}
+    if plain:
+        out["plain_ms"] = device_ms(lambda: flashbias_attention_torch(
+            q, k, v, fq, fk, scale=scale), iters=5)
+    if library is not None:
+        out["library_ms"] = device_ms(library, iters=5)
+    bytes_ = 2 * (2 * b * h * n * d + 2 * b * h * m * d) + 4 * b * h * (
+        n + m) * r
+    flops = 2 * b * h * n * m * (2 * d + r)
+    out.update(bound(bytes_, flops))
+    out["exp_ms"] = b * h * n * m / SFU_EXP_PER_S * 1e3
+    larger = ("exponentials" if out["exp_ms"] > out["bound_ms"]
+              else out["bound_by"])
+    log(phase, f"{label} (device time per call): kernel alone "
+               f"{out['ms']:.4f} ms, as the model calls it (the wrapper's "
+               f"factor copies included) {out['model_ms']:.4f} ms, plain "
+               f"{out.get('plain_ms', float('nan')):.4f} ms, library "
+               f"{out.get('library_ms', float('nan')):.4f} ms; bound "
+               f"{out['bound_ms']:.4f} ms ({out['bound_by']}: "
+               f"{bytes_ / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), "
+               f"exponential floor {out['exp_ms']:.4f} ms ({b * h * n * m:.3e}"
+               f" exp at {SFU_EXP_PER_S:.1e}/s); the larger: {larger} "
+               f"[{card}]")
+    return out
+
+
+def check_width(cfg, got: tuple, want: tuple) -> None:
+    """The config runs at the published width the phase states."""
+    if got != want:
+        raise AssertionError(f"{cfg.name}: {got} != the published {want}")
+
+
+def phase_swin(seed: int, card: str) -> int:
+    """SwinV2-B at full width on kernel 1 (see the module docstring, phase
+    13). Returns kernel 1's launches in the counted forward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.decomp import reconstruction_error
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, swin
+
+    cfg = get_config("swinv2_b")
+    layers, heads, w, r = cfg.n_layers, cfg.n_heads, cfg.window, cfg.bias_rank
+    check_width(cfg, (layers, cfg.d_model, heads, cfg.resolved_head_dim, w,
+                      r, cfg.d_ff), (24, 512, 16, 32, 576, 16, 2048))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    # exact rank-r tables (std 0.5, the init law's): random normal tables
+    # are full rank, and a FlashBias-vs-dense comparison on them would only
+    # measure truncation
+    a, b = (torch.randn((layers, heads, w, r), generator=gen, device="cuda")
+            for _ in range(2))
+    tables = (a @ b.transpose(-1, -2)) * (0.5 / r ** 0.5)
+    params["layers"]["bias_table"] = tables
+    del a, b
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    factors = swin.svd_factorize(params, r)
+    torch.cuda.synchronize()
+    svd_s = time.monotonic() - t0
+    rel = reconstruction_error(tables, factors["phi_q"], factors["phi_k"])
+    log("swin", f"{cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+                f"{heads} heads x {cfg.resolved_head_dim}, window {w}, "
+                f"d_ff {cfg.d_ff}, {cfg.dtype}; svd_factorize of "
+                f"{layers * heads} tables of {w} x {w} at rank {r}: "
+                f"{svd_s:.2f} s on the host clock (paper: 4.79 s); relative "
+                f"reconstruction error {rel:.3e} [{card}]")
+    if not rel <= SVD_REL_TOL:
+        raise AssertionError(f"swin: exact rank-{r} tables reconstructed "
+                             f"to {rel:.3e}")
+    patches = torch.randn((SWIN_IMAGES, SWIN_WINDOWS, w, 48), generator=gen,
+                          device="cuda")
+    calls: list = []
+    with patched(ops, "flashbias_attention_fwd", in_situ_attention(calls)):
+        logits, launches = counted(lambda: swin.forward(params, patches, cfg,
+                                                        factors))
+    log("swin", f"flashbias forward of {SWIN_IMAGES} images x "
+                f"{SWIN_WINDOWS} windows: logits {tuple(logits.shape)}, "
+                f"launches {launches}")
+    if launches != {"flashbias_attention_fwd": layers}:
+        raise AssertionError(f"swin: launches {launches}, want {layers} of "
+                             f"kernel 1")
+    check_tensor_core("swin", ("flashbias_attention_fwd",))
+    if tuple(logits.shape) != (SWIN_IMAGES, 1000):
+        raise AssertionError(f"swin: logits shape {tuple(logits.shape)}")
+    in_situ_check("swin", calls, layers)
+    runs = {"flashbias": lambda: swin.forward(params, patches, cfg, factors),
+            "dense": lambda: swin.forward(params, patches,
+                                          cfg.replace(bias_mode="dense")),
+            "plain": lambda: swin.forward(params, patches,
+                                          cfg.replace(attn_impl="torch"),
+                                          factors)}
+    with torch.no_grad():
+        for label in ("dense", "plain"):
+            model_gap("swin", f"logits, kernel path against the "
+                              f"{label} path", logits, runs[label](), layers)
+    walls = alternate(runs)
+    with torch.no_grad():
+        for label, fn in runs.items():
+            busy, kernels = profile_steps(fn, 1)
+            log("swin", f"{label} forward: {walls[label]:.2f} ms on the host "
+                        f"clock (median, rounds alternating), device busy "
+                        f"{busy:.2f} ms [{card}]")
+            top_kernels("swin", kernels)
+    # kernel 1 at the path shape, on layer 0's factors
+    bsz = SWIN_IMAGES * SWIN_WINDOWS
+    q, k, v = (torch.randn((bsz, heads, w, cfg.resolved_head_dim),
+                           generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    model_f = [factors[key][0].to(torch.bfloat16)[None].expand(
+        bsz, heads, w, r) for key in ("phi_q", "phi_k")]
+    alone = [f.float().contiguous() for f in model_f]
+    mask = tables[0].to(torch.bfloat16)[None]
+    attention_call("swin", f"kernel 1 at the Swin shape B{bsz} H{heads} "
+                           f"N=M{w} D{cfg.resolved_head_dim} R{r} bf16 phi",
+                   q, k, v, *alone, *model_f, card,
+                   library=lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask))
+    del params, factors, tables, patches, q, k, v, alone, model_f, mask
+    torch.cuda.empty_cache()
+    return launches["flashbias_attention_fwd"]
+
+
+def pde_slices(n: int) -> list:
+    """Query-row slices of the PDE's in-situ check: the first 512 rows, 1024
+    in the middle, and the last 512, which hold the last, partial 64-row
+    tile (32186 = 502 x 64 + 58)."""
+    mid = n // 2 // 64 * 64
+    return [(0, 512), (mid, mid + 1024), (n - 512, n)]
+
+
+def phase_pde(seed: int, card: str) -> int:
+    """The PDE solver at full width on kernel 1 (see the module docstring,
+    phase 14). Returns kernel 1's launches in the counted forward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.bias import sqdist_factors
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, pde
+
+    cfg = get_config("pde_solver")
+    layers, heads, hd = cfg.n_layers, cfg.n_heads, cfg.resolved_head_dim
+    check_width(cfg, (layers, cfg.d_model, heads, hd, cfg.d_ff,
+                      cfg.coord_dim), (8, 128, 8, 16, 256, 3))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    coords = torch.rand((1, PDE_POINTS, cfg.coord_dim), generator=gen,
+                        device="cuda")
+    dense_gb = heads * PDE_POINTS ** 2 * 4 / 1e9
+    log("pde", f"{cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+               f"{heads} heads x {hd}, d_ff {cfg.d_ff}, {cfg.dtype}; "
+               f"{PDE_POINTS} points in the unit cube; the dense float32 "
+               f"bias would be (1, {heads}, {PDE_POINTS}, {PDE_POINTS}) = "
+               f"{dense_gb:.1f} GB per layer (not run)")
+    calls: list = []
+    with patched(ops, "flashbias_attention_fwd",
+                 in_situ_attention(calls, pde_slices)):
+        out, launches = counted(lambda: pde.forward(params, coords, cfg))
+    log("pde", f"flashbias forward at N={PDE_POINTS}: output "
+               f"{tuple(out.shape)}, launches {launches}")
+    if launches != {"flashbias_attention_fwd": layers}:
+        raise AssertionError(f"pde: launches {launches}, want {layers} of "
+                             f"kernel 1")
+    check_tensor_core("pde", ("flashbias_attention_fwd",))
+    if tuple(out.shape) != (1, PDE_POINTS, 4) or not torch.isfinite(out).all():
+        raise AssertionError(f"pde: output {tuple(out.shape)} not finite or "
+                             f"misshapen")
+    in_situ_check("pde", calls, layers)
+    small = torch.rand((1, PDE_PARITY_POINTS, cfg.coord_dim), generator=gen,
+                       device="cuda")
+    runs = {"flashbias": lambda: pde.forward(params, small, cfg),
+            "dense": lambda: pde.forward(params, small,
+                                         cfg.replace(bias_mode="dense")),
+            "plain": lambda: pde.forward(params, small,
+                                         cfg.replace(attn_impl="torch"))}
+    with torch.no_grad():
+        got = runs["flashbias"]()
+        for label in ("dense", "plain"):
+            model_gap("pde", f"N={PDE_PARITY_POINTS} output, kernel path "
+                             f"against the {label} path", got,
+                      runs[label](), layers)
+    full = {"flashbias": lambda: pde.forward(params, coords, cfg)}
+    for label, fns in ((f"N={PDE_POINTS}", full),
+                       (f"N={PDE_PARITY_POINTS}", runs)):
+        walls = alternate(fns)
+        with torch.no_grad():
+            for mode, fn in fns.items():
+                busy, kernels = profile_steps(fn, 1)
+                log("pde", f"{label} {mode} forward: {walls[mode]:.2f} ms on "
+                           f"the host clock (median, rounds alternating), "
+                           f"device busy {busy:.2f} ms [{card}]")
+                top_kernels("pde", kernels)
+    # kernel 1 at the path shape, on layer 0's factors of these points
+    lp0 = {key: val[0] for key, val in params["layers"].items()}
+    for n, pts in ((PDE_POINTS, coords), (PDE_PARITY_POINTS, small)):
+        q, k, v = (torch.randn((1, heads, n, hd), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        alpha = F.softplus(pts @ lp0["alpha_w"] + lp0["alpha_b"])
+        pq0, pk0 = sqdist_factors(pts, pts)
+        model_fq = (alpha[..., None] * pq0[:, :, None]).transpose(1, 2)
+        model_fk = pk0[:, None].expand(1, heads, n, pk0.shape[-1])
+        # the bf16 body's factor rows are 16-byte aligned: R 9 pads to 12
+        alone = [F.pad(f, (0, -f.shape[-1] % 4)).contiguous()
+                 for f in (model_fq, model_fk)]
+        library = None
+        if n == PDE_PARITY_POINTS:
+            mask = torch.einsum("bhnr,bhmr->bhnm", *alone).to(torch.bfloat16)
+            library = (lambda mask=mask: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask))
+        attention_call("pde", f"kernel 1 at the PDE shape B1 H{heads} N=M{n} "
+                              f"D{hd} R{pq0.shape[-1]} bf16 phi (float32 "
+                              f"factors, phi_k shared by the heads)",
+                       q, k, v, *alone, model_fq, model_fk, card,
+                       library=library, plain=n == PDE_PARITY_POINTS)
+        del q, k, v, alone, model_fq, model_fk, library
+    del params, coords, small
+    torch.cuda.empty_cache()
+    return launches["flashbias_attention_fwd"]
+
+
 def bound(bytes_: int, flops: int) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -2584,6 +3042,7 @@ def main(argv=None) -> int:
     times = phase_times(engine, decode_lengths, card)
     phase_chunked(engine, requests, whole_first, args.seed, card)
     phase_prefix(engine, args.seed, card)
+    phase_lm_dense(engine, requests, card)
     del engine, whole_first
     torch.cuda.empty_cache()
 
@@ -2606,6 +3065,9 @@ def main(argv=None) -> int:
     phase_ssm_chunked(ssm, ssm_requests, ssm_first, card)
     del ssm, ssm_first
     torch.cuda.empty_cache()
+
+    launches["flashbias_attention_fwd"] += phase_swin(args.seed, card)
+    launches["flashbias_attention_fwd"] += phase_pde(args.seed, card)
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"
                                            "flashbias_attn.py:149",

@@ -143,10 +143,10 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The architectures the port serves: the dense family, the SSM family and
-# the Pairformer.
+# The architectures the port runs: the dense family, the SSM family and the
+# Pairformer (served), and the paper's vision and PDE models (forward).
 ARCH_IDS = ["gpt2_alibi_15b", "stablelm_12b", "mamba2_130m",
-            "pairformer_lite"]
+            "pairformer_lite", "swinv2_b", "pde_solver"]
 
 
 def _module(arch_id: str):

@@ -1,2 +1,3 @@
-"""Core math: the ALiBi factorization (``bias``), biased attention
-(``attention``) and truncated-SVD bias factors (``decomp``)."""
+"""Core math: the bias factorizations (``bias``), biased attention
+(``attention``), truncated-SVD bias factors (``decomp``) and the low-rank
+measurements and IO model (``lowrank``)."""

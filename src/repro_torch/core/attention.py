@@ -1,10 +1,12 @@
 """Attention with additive bias: dense and chunked online-softmax paths.
 
-The port's counterpart of ``repro.core.attention``, as far as the plain
-versions of the kernels need it. Layouts follow the reference (MaxText
-convention): q ``(B, N, H, D)``; k, v ``(B, M, K, D)`` with ``H % K == 0``
-(GQA); factors ``phi_q (B, N, H, R)``, ``phi_k (B, M, H|1, R)``; dense bias
-``(B|1, H, N, M)``. Masks are computed from positions, never read.
+The port's counterpart of ``repro.core.attention``: the plain versions of
+the kernels, the Eq. 3 concat form ``flashbias_concat_qk`` and the App. I
+multiplicative form ``multiplicative_flashbias_attention``. Layouts follow
+the reference (MaxText convention): q ``(B, N, H, D)``; k, v ``(B, M, K,
+D)`` with ``H % K == 0`` (GQA); factors ``phi_q (B, N, H, R)``, ``phi_k
+(B, M, H|1, R)``; dense bias ``(B|1, H, N, M)``. Masks are computed from
+positions, never read.
 
 Masked logits take ``DEFAULT_MASK_VALUE`` (a large finite negative, as in
 the TPU kernels), not ``-inf``, and a row whose online-softmax sum stays 0
@@ -18,7 +20,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["MaskSpec", "attention", "DEFAULT_MASK_VALUE"]
+__all__ = ["MaskSpec", "attention", "flashbias_concat_qk",
+           "multiplicative_flashbias_attention", "DEFAULT_MASK_VALUE"]
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
@@ -145,3 +148,44 @@ def attention(
         m_i = m_new
     o = acc / torch.where(l_i == 0, 1.0, l_i)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(b, n, h, -1).to(q.dtype)
+
+
+def flashbias_concat_qk(q: torch.Tensor, k: torch.Tensor, phi_q: torch.Tensor,
+                        phi_k: torch.Tensor, scale: Optional[float] = None):
+    """``(q', k')`` of Eq. 3: ``softmax(q' k'^T * scale) == softmax(q k^T *
+    scale + phi_q phi_k^T)`` with ``q' = [q | phi_q / scale]``, ``k' = [k |
+    phi_k]``.
+
+    q ``(B, N, H, D)``, k ``(B, M, Hk, D)``, ``phi_q (B, N, H, R)``,
+    ``phi_k (B|1, M, 1|Hk, R)``: the key factor lives per kv head, so its
+    head dim must be 1 or Hk."""
+    b, n, h, d = q.shape
+    hk = k.shape[2]
+    scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
+    if phi_k.shape[2] not in (1, hk):
+        raise ValueError(f"phi_k head dim {phi_k.shape[2]} incompatible "
+                         f"with {hk} kv heads")
+    phi_k = phi_k.expand(b, k.shape[1], hk, phi_k.shape[-1])
+    q_aug = torch.cat([q, (phi_q / scale).to(q.dtype)], dim=-1)
+    k_aug = torch.cat([k, phi_k.to(k.dtype)], dim=-1)
+    return q_aug, k_aug
+
+
+def multiplicative_flashbias_attention(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        phi_q: torch.Tensor, phi_k: torch.Tensor, *,
+        mask: MaskSpec = MaskSpec("none"),
+        scale: Optional[float] = None) -> torch.Tensor:
+    """``softmax((q k^T * scale) * b) v`` with ``b = phi_q phi_k^T`` of rank
+    R (App. I, Eq. 17): q and k expand channel-wise to ``C * R``,
+    ``q' = [q * phi_q_1, ..., q * phi_q_R]``, so that ``q' k'^T = (q k^T) *
+    b``. Factors broadcast to ``(B, S, H, R)``."""
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
+    r = phi_q.shape[-1]
+    phi_q = phi_q.expand(b, n, h, r)
+    phi_k = phi_k.expand(b, m, h, r)
+    q_exp = (q[..., None, :] * phi_q[..., :, None]).reshape(b, n, h, r * d)
+    k_exp = (k[..., None, :] * phi_k[..., :, None]).reshape(b, m, h, r * d)
+    return attention(q_exp, k_exp, v, mask=mask, scale=scale, impl="dense")

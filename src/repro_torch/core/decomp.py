@@ -1,7 +1,8 @@
 """Truncated-SVD factors of a dense attention bias (Table 1, row b).
 
-Port of ``repro.core.decomp.svd_factors`` at a given rank, the form the
-Pairformer serve path calls. The energy-based rank choice and the neural
+Port of ``repro.core.decomp.svd_factors`` at a given rank (the form the
+Pairformer serve path and ``swin.svd_factorize`` call) and of
+``reconstruction_error``. The energy-based rank choice and the neural
 decomposition fit wait for the training slice (ROADMAP.md Queue A item 9).
 
 SVD factors are unique only up to sign, and up to rotation inside
@@ -13,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["svd_factors"]
+__all__ = ["svd_factors", "reconstruction_error"]
 
 
 def svd_factors(table: torch.Tensor,
@@ -40,3 +41,12 @@ def svd_factors(table: torch.Tensor,
     bad = ~finite.flatten(-2).all(dim=-1)[..., None, None]
     nan = torch.full((), float("nan"), device=mat.device)
     return torch.where(bad, nan, phi_q), torch.where(bad, nan, phi_k)
+
+
+def reconstruction_error(table: torch.Tensor, phi_q: torch.Tensor,
+                         phi_k: torch.Tensor) -> float:
+    """Relative Frobenius error of ``phi_q @ phi_k^T`` against ``table``."""
+    approx = phi_q @ phi_k.transpose(-1, -2)
+    num = torch.linalg.vector_norm((approx - table).flatten())
+    den = torch.linalg.vector_norm(table.flatten())
+    return float(num / den.clamp(min=1e-30))

@@ -1,8 +1,10 @@
-"""Models: the decoder LM (dense FlashBias-ALiBi and Mamba2 SSM families)
-and the Pairformer serve path behind the uniform ``Model`` interface."""
-from repro_torch.models import api, common, lm, pairformer, ssd  # noqa: F401
+"""Models: the decoder LM (dense FlashBias-ALiBi and Mamba2 SSM families),
+the Pairformer serve path, and the paper's SwinV2 window-attention stack and
+PDE solver, behind the uniform ``Model`` interface."""
+from repro_torch.models import (  # noqa: F401
+    api, common, lm, pairformer, pde, ssd, swin)
 from repro_torch.models.api import Model, get_model
 from repro_torch.models.common import init_params
 
-__all__ = ["api", "common", "lm", "pairformer", "ssd", "Model", "get_model",
-           "init_params"]
+__all__ = ["api", "common", "lm", "pairformer", "pde", "ssd", "swin",
+           "Model", "get_model", "init_params"]

@@ -1,9 +1,14 @@
 """Uniform Model interface consumed by the server (port of
-``repro.models.api``: the dense and SSM LM families and the Pairformer).
+``repro.models.api``: the dense and SSM LM families, the Pairformer, and
+the paper's vision (SwinV2) and PDE models).
 
 ``get_model(cfg)`` returns a ``Model`` with:
 
 - ``template()``                           — PDef tree (shapes + init laws),
+- ``loss(params, batch)``                  — the loss value (swin: mean
+  cross-entropy of ``batch["patches"]`` against ``batch["labels"]``; pde:
+  mean squared error of ``batch["coords"]`` against ``batch["targets"]``;
+  None for the families whose loss waits for the training slice),
 - ``prefill(params, batch, max_len, lengths)`` — prompts -> (logits, cache),
 - ``decode(params, cache, tokens, max_pages)`` — one token -> (logits,
   cache), against a contiguous or a paged cache,
@@ -27,6 +32,8 @@ Pairformer's leaves every optional entry None, ``prefill_chunk`` too. The
 Pairformer's ``prefill`` is the admission trunk pass (with the factor MLPs
 as ``factors=``), its ``decode`` one refinement iteration over the slot
 batch, and its ``init_cache`` takes ``factors=`` to size the factor cache.
+The swin and pde models are not served: they have a template and a loss,
+and their inference entry points are ``swin.forward`` and ``pde.forward``.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import functools
 from typing import Callable, Optional
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm, pairformer
+from repro_torch.models import lm, pairformer, pde, swin
 
 __all__ = ["Model", "get_model"]
 
@@ -44,10 +51,11 @@ __all__ = ["Model", "get_model"]
 class Model:
     cfg: ArchConfig
     template: Callable[[], dict]
-    prefill: Callable
-    decode: Callable
-    init_cache: Callable
-    insert_cache: Callable
+    loss: Optional[Callable] = None
+    prefill: Optional[Callable] = None
+    decode: Optional[Callable] = None
+    init_cache: Optional[Callable] = None
+    insert_cache: Optional[Callable] = None
     init_paged_cache: Optional[Callable] = None
     insert_paged: Optional[Callable] = None
     grow_page_table: Optional[Callable] = None
@@ -74,6 +82,13 @@ def _pairformer_model(cfg: ArchConfig) -> Model:
 def get_model(cfg: ArchConfig) -> Model:
     if cfg.family == "pairformer":
         return _pairformer_model(cfg)
+    if cfg.family == "swin":
+        return Model(cfg=cfg, template=lambda: swin.swin_template(cfg),
+                     loss=lambda p, batch: swin.classify_loss(p, batch, cfg))
+    if cfg.family == "pde":
+        return Model(cfg=cfg, template=lambda: pde.pde_template(cfg),
+                     loss=lambda p, batch: pde.regression_loss(p, batch,
+                                                               cfg))
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "

@@ -16,8 +16,10 @@ import torch.nn.functional as F
 from repro_torch.core.bias import alibi_slopes
 
 __all__ = ["PDef", "stack_layers", "materialize", "init_params",
-           "tree_map", "rmsnorm", "swiglu", "gelu_mlp", "embed_lookup",
-           "unembed_logits"]
+           "tree_map", "compute_dtype", "rmsnorm", "swiglu", "gelu_mlp",
+           "embed_lookup", "unembed_logits"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +75,11 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
     """Parameters of ``cfg``'s model (the template of ``get_model(cfg)``)."""
     from repro_torch.models.api import get_model
     return materialize(get_model(cfg).template(), generator, device, dtype)
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """The torch dtype of ``cfg.dtype`` (the compute dtype)."""
+    return _DTYPES[cfg.dtype]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,

@@ -35,8 +35,11 @@ and ``conv_bc`` in the compute dtype. Its prefill runs the SSD chunk scan
 through ``ops.ssd_scan`` (kernel 5 on the card); its decode step updates
 the state and the tails IN PLACE for active rows, as k/v are.
 
-Sliding-window (ring) caches, MoE and the hybrid family wait for later
-slices.
+``cfg.bias_mode="dense"`` is the dense-bias baseline of the dense family:
+its prefill adds the materialized ALiBi bias to the logits (plain chunked
+attention, no kernel); decode and chunked prefill are those of flashbias
+mode, as in the reference. Sliding-window (ring) caches, MoE and the
+hybrid family wait for later slices.
 """
 from __future__ import annotations
 
@@ -47,11 +50,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.attention import MaskSpec, attention
+from repro_torch.core.bias import alibi_dense
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import paged_write_plan
 from repro_torch.models import ssd
 from repro_torch.models.common import (
     PDef,
+    compute_dtype,
     embed_lookup,
     rmsnorm,
     stack_layers,
@@ -65,13 +71,6 @@ __all__ = ["lm_template", "cast_layers", "prefill", "decode_step",
            "init_paged_cache", "insert_paged_cache_at_slots",
            "grow_page_tables_at_slots", "copy_paged_pages"]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _dtype(cfg: ArchConfig) -> torch.dtype:
-    return _DTYPES[cfg.dtype]
-
-
 def _check_supported(cfg: ArchConfig) -> None:
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
@@ -81,9 +80,6 @@ def _check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             "sliding-window (ring) KV caches are not ported yet (ROADMAP.md "
             "Queue A item 8)")
-    if cfg.bias_kind == "alibi" and cfg.bias_mode != "flashbias":
-        raise NotImplementedError(
-            "the dense-bias baseline (bias_mode='dense') is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +152,7 @@ def cast_layers(params: dict, cfg: ArchConfig) -> dict:
     reference's per-call ``_compute_layers`` cast makes them) and
     ``final_norm`` kept as is. Serving casts once with this; the model
     functions then find nothing left to cast."""
-    dt = _dtype(cfg)
+    dt = compute_dtype(cfg)
     out = dict(params)
     out["layers"] = tree_map(lambda x: x.to(dt), params["layers"])
     out["embed"] = params["embed"].to(dt)
@@ -187,7 +183,23 @@ def _slopes(lp: dict, cfg: ArchConfig) -> Optional[torch.Tensor]:
 
 def _attention(lp: dict, x: torch.Tensor, cfg: ArchConfig):
     """Causal prefill attention. Returns (y, k, v) with k, v head-major
-    ``(B, KVH, S, hd)``, the cache layout."""
+    ``(B, KVH, S, hd)``, the cache layout.
+
+    ALiBi with ``bias_mode`` other than "flashbias" is the dense-bias
+    baseline (the paper's A/B): the float32 ``alibi_dense`` bias of the
+    real heads' published slopes (not the layer's ``slopes`` leaf, as in
+    the reference), zero for the padding heads, added to the logits by the
+    plain chunked ``attention`` on canonical projections. Decode and
+    chunked prefill take the slopes in either mode."""
+    if cfg.bias_kind == "alibi" and cfg.bias_mode != "flashbias":
+        n = x.shape[1]
+        bias = alibi_dense(n, n, cfg.n_heads, device=x.device)
+        bias = F.pad(bias, (0, 0, 0, 0, 0, cfg.heads_padded - cfg.n_heads))
+        q, k, v = (_project(x, lp[w]) for w in ("wq", "wk", "wv"))
+        o = attention(q, k, v, mask=MaskSpec("causal"), bias=bias[None],
+                      impl="chunked", chunk_size=cfg.attn_chunk)
+        return (_out_proj(o, lp["wo"]), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous())
     q = _project(x, lp["wq"]).transpose(1, 2).contiguous()
     k = _project(x, lp["wk"]).transpose(1, 2).contiguous()
     v = _project(x, lp["wv"]).transpose(1, 2).contiguous()
@@ -386,7 +398,7 @@ def _ssm_decode(sp: dict, x: torch.Tensor, h: torch.Tensor,
 
 def _embed_in(params: dict, tokens: torch.Tensor,
               cfg: ArchConfig) -> torch.Tensor:
-    x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
+    x = embed_lookup(params["embed"], tokens).to(compute_dtype(cfg))
     return x * float(np.sqrt(cfg.d_model))
 
 
@@ -414,7 +426,7 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *,
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} < prompt width {s}")
-    dt, dev = _dtype(cfg), tokens.device
+    dt, dev = compute_dtype(cfg), tokens.device
     shape = (cfg.n_layers, b, cfg.kv_heads_padded, max_len,
              cfg.resolved_head_dim)
     alloc = torch.zeros if max_len > s else torch.empty
@@ -441,7 +453,7 @@ def _ssm_prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """SSM prefill: the last valid position's logits and the constant-size
     cache (state and conv tails frozen at ``lengths[b]-1``)."""
     b, s = tokens.shape
-    dt, dev = _dtype(cfg), tokens.device
+    dt, dev = compute_dtype(cfg), tokens.device
     if lengths is not None:
         lengths = lengths.to(device=dev, dtype=torch.int32)
     x = _embed_in(params, tokens, cfg)
@@ -468,7 +480,7 @@ def _ssm_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     rows with length 0 keep theirs bit-identical."""
     active = cache["length"] > 0
     lengths = cache["length"] + active.to(torch.int32)
-    dt = _dtype(cfg)
+    dt = compute_dtype(cfg)
     x = _embed_in(params, tokens, cfg)
     keep4 = active[:, None, None, None]
     for i in range(cfg.n_layers):
@@ -501,7 +513,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         return _ssm_decode_step(params, cache, tokens, cfg)
     active = cache["length"] > 0
     lengths = cache["length"] + active.to(torch.int32)
-    dt = _dtype(cfg)
+    dt = compute_dtype(cfg)
     x = _embed_in(params, tokens, cfg)
     # every layer's float32 slopes (and, paged in phi mode, phi_q) at once:
     # one copy per step, not one per layer
@@ -643,7 +655,7 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     per call, not per layer."""
     _check_supported(cfg)
     b, c = tokens.shape
-    dev, dt = tokens.device, _dtype(cfg)
+    dev, dt = tokens.device, compute_dtype(cfg)
     offs, clens, flens = (_host_ids(x)
                           for x in (offsets, chunk_lens, final_lens))
     chunk = _chunk_plan(cache, offs, clens, c, dev)
@@ -681,7 +693,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda",
     _check_supported(cfg)
     cache = {"length": torch.full((batch,), length, dtype=torch.int32,
                                   device=device)}
-    l, dt = cfg.n_layers, _dtype(cfg)
+    l, dt = cfg.n_layers, compute_dtype(cfg)
     if cfg.family == "ssm":
         hs, p, n = cfg.ssm_heads_padded, cfg.ssm_head_dim, cfg.ssm_state
         w = cfg.conv_width
@@ -756,10 +768,11 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
         raise ValueError(f"{cfg.family} caches are constant-size: no pages")
     shape = (cfg.n_layers, cfg.kv_heads_padded, n_pages, page_size,
              cfg.resolved_head_dim)
+    dt = compute_dtype(cfg)
     cache = {
         "length": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "pages_k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
-        "pages_v": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        "pages_k": torch.zeros(shape, dtype=dt, device=device),
+        "pages_v": torch.zeros(shape, dtype=dt, device=device),
         "page_table": torch.zeros((batch, pages_per_slot or n_pages),
                                   dtype=torch.int32, device=device),
     }

@@ -62,6 +62,7 @@ from repro_torch.core.decomp import svd_factors
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
     PDef,
+    compute_dtype,
     gelu_mlp,
     rmsnorm,
     stack_layers,
@@ -72,14 +73,9 @@ __all__ = ["pairformer_template", "factor_mlp_template", "cast_params",
            "init_serve_cache", "serve_prefill", "serve_step",
            "insert_serve_cache_at_slots"]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the weights the reference casts to the compute dtype at use
 _CAST_TOP = ("single_in", "pair_in")
 _CAST_LAYER = ("wqkv", "wo", "wi", "wo_mlp")
-
-
-def _dtype(cfg: ArchConfig) -> torch.dtype:
-    return _DTYPES[cfg.dtype]
 
 
 def pairformer_template(cfg: ArchConfig) -> dict:
@@ -137,7 +133,7 @@ def cast_params(params: dict, cfg: ArchConfig) -> dict:
     ``pair_in``, ``wqkv``, ``wo``, ``wi``, ``wo_mlp``) cast to the compute
     dtype once; the others stay as they are. Serving casts once with this;
     the model functions then find nothing left to cast."""
-    dt = _dtype(cfg)
+    dt = compute_dtype(cfg)
     out = dict(params)
     for key in _CAST_TOP:
         out[key] = params[key].to(dt)
@@ -234,7 +230,7 @@ def init_serve_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Zeroed pair slot cache. ``length`` doubles as the active mask (0 =
     retired slot, frozen by ``serve_step``). ``factors`` only selects the
     factor width; the fitted parameters are not read here."""
-    dt = _dtype(cfg)
+    dt = compute_dtype(cfg)
     ln, h, d = cfg.n_layers, cfg.n_heads, cfg.d_model
     f32 = torch.float32
     cache = {"s": torch.zeros((batch, max_len, d), dtype=dt, device=device),
@@ -267,7 +263,7 @@ def serve_prefill(params: dict, batch: dict, cfg: ArchConfig, factors=None,
     the ``Model`` interface; the wave's own width ``N_pad`` is used.)"""
     feats = batch["feats"]
     b, n = feats.shape[0], feats.shape[1]
-    dt, dev = _dtype(cfg), feats.device
+    dt, dev = compute_dtype(cfg), feats.device
     if lengths is None:
         lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
     lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)

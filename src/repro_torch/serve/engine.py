@@ -178,6 +178,9 @@ class ServeEngine:
             raise _deferred("mesh (sharded serving)", 10)
         if stall_limit < 1:
             raise ValueError(f"stall_limit must be >= 1, got {stall_limit}")
+        if model.prefill is None:
+            raise ValueError(f"the {model.cfg.family} family is not served: "
+                             f"it has no prefill / decode entries")
         self.device = resolve_device(device)
         self.model = model
         self.max_len, self.eos_id = max_len, eos_id
