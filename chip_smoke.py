@@ -173,9 +173,52 @@ as it runs, any failure ending the run:
               its bound and exponential floor (the dense bias at 32186 would
               be 33 GB a layer and is not run).
 
-Kernel 1's ``launches`` in the record adds phases 13 and 14 to the serve
-phase's; its times stay at the LM prefill shape (the Swin and PDE shapes'
-are logged above the record).
+15. faults  — the paged phase's engine and 8 requests again under
+              FAULT_PLAN, which fires every kind on live work (a delay, a
+              NaN written into slot 0's logits on the card, a failed page
+              growth, a failed decode step): every request OK with 32
+              tokens, its stream, greedy and sampled, bit-equal to the
+              paged phase's fault-free run; faults contained >= 2, a
+              quarantine, every page free; kernel 1 launched 48 x waves and
+              the paged decode kernel 48 x the decode steps that
+              dispatched;
+16. checkpoint — engines snapshotted part way (``snapshot_engine``),
+              through ``json.dumps`` / ``json.loads``, the source run on and
+              then deleted, the snapshot restored onto a fresh engine: (a)
+              the prefix phase's engine (paged, chunk 256, prefix cache) on
+              its traffic plus a CHECKPOINT_LONG-token prompt, caught with
+              that prompt mid-ChunkPlan and two live requests sharing
+              prefix pages; (b) the SSM serve phase's engine and mix once
+              every request was submitted; (c) a Pairformer engine at
+              PAIR_CKPT_LAYERS layers (full width) on PAIR_CKPT_COMPLEXES
+              complexes. Every request OK and bit-equal, greedy and
+              sampled, to the uninterrupted run, for the restored and the
+              source engine; the JSON sizes logged;
+17. hybrid  — hymba-1.5b at full width (32 layers, d_model 1600, 48 heads
+              x 64 over 6 kv heads, window 1024, 64 SSM heads x 64, state
+              16, bf16, random weights from ``--seed``) through
+              ``ServeEngine`` on 4 slots x 4096, so the attention cache is
+              a ring: 8 requests (HYBRID_PROMPTS, five at or above the
+              window), 32 new tokens, 6 greedy and 2 sampled, staggered.
+              Every request OK; kernel 1 launched 32 x prefill waves, each
+              in local mode (window 1024) on the tensor-core body and held
+              in situ against its plain version one batch row at a time;
+              kernel 5 32 x waves on the tensor-core body, each held in
+              situ under ``ssd_tolerance``; decode launches no kernel (the
+              ring is attended in plain torch, as the reference does). The
+              first wave's prefill and 4 decode steps again with the plain
+              path, logits within HYBRID_LOGIT_TOL; a chunked engine
+              (chunk 512): every request OK, first-token logits within
+              HYBRID_LOGIT_TOL of the whole-prompt engine's; kernel 1 at
+              the path shape against its plain version, SDPA with the
+              ALiBi + local float mask, its bound (in-window scores only)
+              and exponential floor; kernel 5 at N 16 against its plain
+              version and bound; the prefill wave and the decode step on
+              the host clock, device busy and idle share.
+
+Kernel 1's ``launches`` in the record adds phases 13, 14 and 17 to the
+serve phase's, kernel 5's adds phase 17's; their times stay at the LM
+prefill and SSM shapes (the other shapes' are logged above the record).
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -282,6 +325,25 @@ SVD_REL_TOL = 1e-4
 # special-function (exp) rate of one H100 SXM, the figure FlashAttention-3
 # gives (3.9 TFLOPS of exponentials against 989 TFLOPS of bf16 products)
 SFU_EXP_PER_S = 3.9e12
+# phase 15: the paged phase's traffic under a plan that fires every kind on
+# live work (a CPU run of the same schedule chose the steps: slot 0 is
+# decoding at step 6, a page grows at step 11; delay@1 finds no free slot)
+FAULT_PLAN = "delay@1,nan@6/0,alloc@11,step@12"
+CHECKPOINT_LONG = 1536           # the mid-plan prompt of phase 16a
+CHILD_RESULT = "[child-result] "  # a --phase run's result line
+PAIR_CKPT_LAYERS, PAIR_CKPT_COMPLEXES = 2, 6   # phase 16c's cut depth
+HYBRID_LAYERS, HYBRID_MAX_LEN, HYBRID_CHUNK = 32, 4096, 512
+HYBRID_PROMPTS = (3000, 1900, 1536, 1024, 700, 512, 300, 64)
+HYBRID_DECODE_STEPS = 4          # decode steps of the hybrid parity
+# Hybrid parity, bf16. Each of the 32 layers rounds the attention branch
+# (kernel 1 against the plain float32 softmax: one bf16 rounding of results
+# that differ in the order of float32 sums) and the SSM branch (kernel 5's
+# float32 scan against the plain one, as SSM_LOGIT_TOL argues) to bf16
+# once; a 1-ulp flip of an element spreads through the layers as the LM's
+# do through 48 (phase 5: within 0.125, tolerance 0.25). The ring decode is
+# plain torch on both paths. The bound is LOGIT_TOL's: 4 bf16 ulps of
+# logits in [8, 16), 2 in [16, 32).
+HYBRID_LOGIT_TOL = 0.25
 
 
 def log(phase: str, msg: str) -> None:
@@ -982,7 +1044,7 @@ def phase_paged(engine, requests):
                              f"grew and preempted: {pages}")
     if pages["n_free"] != pages["n_pages"]:
         raise AssertionError(f"pages left in use after the drain: {pages}")
-    return launches, tok_s, pages
+    return launches, tok_s, [paged.result(r) for r in rids]
 
 
 def page_cap(longest: int) -> int:
@@ -2294,7 +2356,7 @@ def ssd_no_carry(x, dt, a, b, c, *, chunk, h0=None):
 
 def ssm_wave(requests):
     """The first admission wave: SSM_SLOTS prompts right-padded to the
-    longest, on the card, with their lengths."""
+    longest, on the card, with their lengths (the SSM and hybrid phases)."""
     import torch
     wave = [p for p, _, _ in requests[:SSM_SLOTS]]
     toks = np.zeros((SSM_SLOTS, max(p.size for p in wave)), np.int64)
@@ -2988,6 +3050,529 @@ def phase_pde(seed: int, card: str) -> int:
     return launches["flashbias_attention_fwd"]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: fault injection on the paged serve path
+# ---------------------------------------------------------------------------
+
+def serve_weights(seed: int):
+    """The serve phase's model and weights again, from ``seed``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, init_params
+    cfg = get_config("gpt2_alibi_15b")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return get_model(cfg), init_params(cfg, gen, device="cuda")
+
+
+def phase_faults(model, params, requests, want: list, card: str) -> None:
+    """The paged phase's engine (the serve phase's weights, made again from
+    the seed) and requests again, under FAULT_PLAN: every
+    request OK with NEW_TOKENS tokens and its stream, greedy and sampled,
+    bit-equal to the paged phase's fault-free run (``want``); every fault
+    kind fired, faults contained >= 2, a quarantine, every page free; the
+    paged decode kernel launched N_LAYERS x the decode steps that
+    dispatched (a ``step`` fault dispatches nothing) and kernel 1 N_LAYERS
+    x waves."""
+    import torch
+    from repro_torch.serve import FAULT_KINDS, FaultPlan, ServeEngine
+
+    plan = FaultPlan.parse(FAULT_PLAN)
+    first = sum(-(-p.size // PAGE) for p, _, _ in requests[:SLOTS])
+    eng = ServeEngine(model, params, max_len=MAX_LEN, n_slots=SLOTS,
+                      prefill_len=PROMPT_MAX, page_size=PAGE,
+                      n_pages=first + 1, pages_per_slot=MAX_LEN // PAGE,
+                      faults=plan, device="cuda")
+    rids, launches, tok_s, wall = drive_counted(eng, requests)
+    stats, pages = eng.stats(), eng.page_stats()
+    same = [bool(np.array_equal(eng.result(r), w))
+            for r, w in zip(rids, want)]
+    kinds = {kind for _, kind, _ in plan.fired}
+    expect = {name: 0 for name in launches}
+    expect["flashbias_attention_fwd"] = N_LAYERS * stats["prefill_waves"]
+    expect["flash_decode_paged_fwd"] = N_LAYERS * stats["decode_steps"]
+    log("faults", f"plan {plan.spec_str()!r}: fired {plan.fired}; "
+                  f"{len(rids)} requests OK x {NEW_TOKENS} tokens in "
+                  f"{wall:.2f}s ({tok_s:.1f} tok/s); streams bit-equal to "
+                  f"the fault-free paged run: {sum(same)}/{len(same)} "
+                  f"(greedy and sampled); {stats['prefill_waves']} prefill "
+                  f"waves, {stats['decode_steps']} decode steps dispatched "
+                  f"in {eng.step_idx} engine steps; launches {launches}; "
+                  f"pages {pages} [{card}]")
+    if not all(same):
+        raise AssertionError(f"faults: streams differ from the fault-free "
+                             f"run: {same}")
+    if kinds != set(FAULT_KINDS):
+        raise AssertionError(f"faults: kinds fired {sorted(kinds)}")
+    if pages["faults_contained"] < 2 or pages["quarantines"] < 1:
+        raise AssertionError(f"faults: contained / quarantined {pages}")
+    if pages["n_free"] != pages["n_pages"]:
+        raise AssertionError(f"faults: pages left in use: {pages}")
+    if launches != expect:
+        raise AssertionError(f"faults: launches {launches} != {expect}")
+    check_tensor_core("faults", ("flashbias_attention_fwd",))
+    del eng
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 16: crash-safe engine checkpoints
+# ---------------------------------------------------------------------------
+
+def resume_from_snapshot(label: str, make, src, want: list,
+                         rids: list) -> int:
+    """Snapshot ``src`` (stepped part way), put it through JSON, run ``src``
+    on, delete it, restore the snapshot onto a fresh engine from ``make``
+    and run that: both must end every request OK, bit-equal to ``want``
+    (the uninterrupted run's results). Returns the snapshot's JSON size."""
+    import torch
+    from repro_torch.serve import OK
+    text = json.dumps(src.snapshot_engine())
+    state = json.loads(text)
+    live = [d["rid"] for d in state["live"]]
+    src.run()
+    on = [bool(np.array_equal(src.result(r), w)) for r, w in zip(rids, want)]
+    del src
+    torch.cuda.empty_cache()
+    dst = make()
+    dst.restore_engine(state)
+    dst.run()
+    torch.cuda.synchronize()
+    recs = [dst.result(r) for r in rids]
+    back = [bool(np.array_equal(rec, w)) for rec, w in zip(recs, want)]
+    ok = all(rec.status == OK for rec in recs)
+    log(label, f"snapshot at engine step {state['step_idx']}: "
+               f"{len(text)} bytes of JSON, live {live}, queued "
+               f"{sum(len(q) for q in state['queue'].values())}; source "
+               f"run on: bit-equal {sum(on)}/{len(on)}; restored "
+               f"onto a fresh engine: all OK {ok}, bit-equal "
+               f"{sum(back)}/{len(back)}")
+    if not (all(on) and all(back) and ok and live):
+        raise AssertionError(f"{label}: run on {on}, restored {back}, OK "
+                             f"{ok}, live {live}")
+    del dst
+    torch.cuda.empty_cache()
+    return len(text)
+
+
+def checkpoint_traffic(seed: int, vocab: int):
+    """The prefix phase's traffic with a CHECKPOINT_LONG-token prompt of its
+    own placed first among the late arrivals: it is still mid-ChunkPlan
+    when the next wave's prefix sharers start decoding."""
+    from repro_torch.serve import SamplingParams
+    traffic = prefix_traffic(seed, vocab)
+    rng = np.random.default_rng(seed + 600)
+    long = (rng.integers(0, vocab, (CHECKPOINT_LONG,)).astype(np.int32),
+            NEW_TOKENS, SamplingParams())
+    return traffic[:SLOTS] + [long] + traffic[SLOTS:]
+
+
+def shared_live_pages(eng) -> bool:
+    """Two live requests hold one page (a prefix share)."""
+    held = [set(p) for p in eng.backend._slot_pages.values()]
+    return any(a & b for i, a in enumerate(held) for b in held[i + 1:])
+
+
+def phase_checkpoint_prefix(model, params, seed: int) -> int:
+    """16a: the prefix phase's engine (paged, chunk CHUNK, prefix cache) on
+    checkpoint traffic, snapshotted while a prompt is mid-ChunkPlan and two
+    live requests share prefix pages, restored onto a fresh engine: streams
+    bit-equal to an uninterrupted run, greedy and sampled. Returns the
+    snapshot's JSON size."""
+    from repro_torch.serve import ServeEngine
+
+    traffic = checkpoint_traffic(seed, model.cfg.vocab)
+
+    def make():
+        return ServeEngine(model, params, max_len=MAX_LEN, n_slots=SLOTS,
+                           page_size=PAGE, pages_per_slot=MAX_LEN // PAGE,
+                           prefill_chunk=CHUNK, prefix_cache=True,
+                           device="cuda")
+
+    def submit(eng, until=None):
+        """The prefix phase's schedule; with ``until`` it stops stepping at
+        the first engine step after which ``until(eng)`` holds."""
+        rids = [eng.submit(p, n, sampling=sp) for p, n, sp in traffic[:SLOTS]]
+        while eng.backend.prefill_pending() or len(eng.scheduler):
+            eng.step()
+        rids += [eng.submit(p, n, sampling=sp) for p, n, sp in traffic[SLOTS:]]
+        while until is not None and not until(eng):
+            if not (eng.occupancy or len(eng.scheduler)):
+                raise AssertionError("checkpoint: drained before the "
+                                     "snapshot point")
+            eng.step()
+        return rids
+
+    ref = make()
+    rids = submit(ref)
+    ref.run()
+    want = [ref.result(r) for r in rids]
+    check_results("checkpoint-prefix", ref, rids, [n for _, n, _ in traffic])
+    del ref
+    src = make()
+    submit(src, lambda e: e.backend._pending and shared_live_pages(e))
+    log("checkpoint-prefix", f"{len(traffic)} requests (a "
+                             f"{CHECKPOINT_LONG}-token prompt among the "
+                             f"prefix traffic); at the snapshot "
+                             f"{len(src.backend._pending)} prompt(s) "
+                             f"mid-ChunkPlan, prefix pages shared by live "
+                             f"requests, "
+                             f"{src.page_stats()['prefix']['tokens_matched']}"
+                             f" tokens matched")
+    return resume_from_snapshot("checkpoint-prefix", make, src, want, rids)
+
+
+def phase_checkpoint_ssm(engine, requests) -> int:
+    """16b: the SSM serve phase's engine and mix (its streams the
+    uninterrupted run), snapshotted once every request was submitted,
+    restored onto a fresh engine. Returns the snapshot's JSON size."""
+    from repro_torch.serve import ServeEngine
+    want = [engine.result(r) for r in range(len(requests))]
+
+    def make():
+        return ServeEngine(engine.model, engine.backend.params,
+                           max_len=SSM_MAX_LEN, n_slots=SSM_SLOTS,
+                           device="cuda")
+
+    src = make()
+    half = len(requests) // 2
+    rids = [src.submit(p, n, sampling=sp) for p, n, sp in requests[:half]]
+    for p, n, sp in requests[half:]:      # the launcher's staggering
+        rids.append(src.submit(p, n, sampling=sp))
+        src.step()
+    return resume_from_snapshot("checkpoint-ssm", make, src, want, rids)
+
+
+def phase_checkpoint_pair(seed: int) -> int:
+    """16c: a Pairformer engine at PAIR_CKPT_LAYERS layers (full width) on
+    PAIR_CKPT_COMPLEXES complexes, snapshotted after 2 steps, restored onto
+    a fresh engine. Returns the snapshot's JSON size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import drive
+    from repro_torch.models import get_model, init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("pairformer_lite").replace(n_layers=PAIR_CKPT_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = get_model(cfg)
+    params = init_params(cfg, gen, device="cuda")
+    complexes = make_complexes(seed)[:PAIR_CKPT_COMPLEXES]
+
+    def make():
+        return ServeEngine(model, params, max_len=PAIR_MAX_LEN,
+                           n_slots=PAIR_SLOTS, device="cuda")
+
+    ref = make()
+    rids = drive(ref, complexes)
+    want = [ref.result(r) for r in rids]
+    del ref
+    src = make()
+    rids = [src.submit(f, n) for f, n, _ in complexes]
+    for _ in range(2):
+        src.step()
+    return resume_from_snapshot("checkpoint-pair", make, src, want, rids)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the hybrid family (hymba-1.5b) on kernel 1 (local) and kernel 5
+# ---------------------------------------------------------------------------
+
+def make_hybrid_requests(seed: int, vocab: int):
+    """HYBRID_PROMPTS tokens each, NEW_TOKENS new tokens, 2 and 6 sampled."""
+    from repro_torch.serve import SamplingParams
+    rng = np.random.default_rng(seed + 500)
+    sampled = {2, 6}
+    return [(rng.integers(0, vocab, (n,)).astype(np.int32), NEW_TOKENS,
+             SamplingParams(0.8, 40, seed=seed + i) if i in sampled
+             else SamplingParams()) for i, n in enumerate(HYBRID_PROMPTS)]
+
+
+def rowwise(fn):
+    """``fn`` (kernel 1's plain version) applied one batch row at a time: a
+    row's output depends on its own q, k, v alone, and the whole (4, 48,
+    3000, 3000) float32 logits would take 6.9 GB per tensor."""
+    import torch
+
+    def call(q, k, v, phi_q=None, phi_k=None, slopes=None, **kw):
+        return torch.cat([fn(q[b:b + 1], k[b:b + 1], v[b:b + 1], phi_q,
+                             phi_k, slopes, **kw)
+                          for b in range(q.shape[0])])
+    return call
+
+
+def in_situ_local(calls: list):
+    """A stand-in for kernel 1's wrapper in ``ops``: the kernel, then its
+    plain version on the same inputs one batch row at a time, appending
+    ((row, mask, window), max |error|, ``tolerance``) to ``calls``."""
+    from repro_torch.kernels.flashbias_attn import (flashbias_attention_fwd,
+                                                    flashbias_attention_torch)
+
+    def call(q, k, v, phi_q=None, phi_k=None, slopes=None, **kw):
+        got = flashbias_attention_fwd(q, k, v, phi_q, phi_k, slopes, **kw)
+        for b in range(q.shape[0]):
+            want = flashbias_attention_torch(q[b:b + 1], k[b:b + 1],
+                                             v[b:b + 1], phi_q, phi_k,
+                                             slopes, **kw)
+            err = float((got[b:b + 1].float() - want.float()).abs().max())
+            calls.append(((b, kw.get("mask_kind"), kw.get("window")), err,
+                          tolerance(q.dtype, want)))
+        return got
+    return call
+
+
+def local_pairs(n: int, w: int) -> int:
+    """Query-key pairs of a causal window of ``w`` over ``n`` positions."""
+    return sum(min(i + 1, w) for i in range(n))
+
+
+def phase_hybrid(seed: int, card: str) -> dict:
+    """hymba-1.5b at full width through ServeEngine with the ring engaged
+    (see the module docstring, phase 17). Returns kernel 1's and kernel 5's
+    launches in the serve drive; their times at the path shapes are logged
+    (the record keeps the earlier shapes')."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flashbias_attn import (flashbias_attention_fwd,
+                                                    flashbias_attention_torch)
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_torch
+    from repro_torch.launch.serve import drive
+    from repro_torch.models import get_model, init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("hymba_15b")
+    check_width(cfg, (cfg.n_layers, cfg.d_model, cfg.heads_padded,
+                      cfg.kv_heads_padded, cfg.resolved_head_dim,
+                      cfg.window, cfg.ssm_heads_padded, cfg.ssm_head_dim,
+                      cfg.ssm_state),
+                (HYBRID_LAYERS, 1600, 48, 6, 64, 1024, 64, 64, 16))
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    model = get_model(cfg)
+    engine = ServeEngine(model, params, max_len=HYBRID_MAX_LEN,
+                         n_slots=SLOTS, device="cuda")
+    del params                       # the engine holds its bf16 copy
+    params = engine.backend.params
+    torch.cuda.synchronize()
+    if not engine.backend.ring or engine.backend.paged:
+        raise AssertionError("hybrid: the ring is not engaged")
+    log("hybrid", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}, {cfg.heads_padded} heads x "
+                  f"{cfg.resolved_head_dim} over {cfg.kv_heads_padded} kv "
+                  f"heads, window {cfg.window}, {cfg.ssm_heads_padded} SSM "
+                  f"heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}, d_ff "
+                  f"{cfg.d_ff}, vocab {cfg.vocab_padded}, {cfg.dtype}; "
+                  f"weights ready in {time.monotonic() - t0:.1f}s")
+    requests = make_hybrid_requests(seed, cfg.vocab)
+    attn_calls, ssd_calls = [], []
+    counters = reset_counters()
+    t0 = time.monotonic()
+    with patched(ops, "flashbias_attention_fwd", in_situ_local(attn_calls)), \
+            patched(ops, "ssd_scan_fwd", in_situ_ssd(ssd_scan_fwd,
+                                                     ssd_calls)), \
+            observe(engine) as obs:
+        rids = drive(engine, requests)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check_results("hybrid", engine, rids, [n for _, n, _ in requests])
+    stats = engine.stats()
+    want = {name: 0 for name in launches}
+    want["flashbias_attention_fwd"] = HYBRID_LAYERS * stats["prefill_waves"]
+    want["ssd_scan_fwd"] = HYBRID_LAYERS * stats["prefill_waves"]
+    log("hybrid", f"{len(rids)} requests OK x {NEW_TOKENS} tokens (prompts "
+                  f"{list(HYBRID_PROMPTS)}, max_len {HYBRID_MAX_LEN}) in "
+                  f"{wall:.2f}s, the in-situ checks included; "
+                  f"{stats['prefill_waves']} prefill waves, "
+                  f"{stats['decode_steps']} decode steps; launches "
+                  f"{launches}")
+    if launches != want or not stats["decode_steps"]:
+        raise AssertionError(f"hybrid: kernel launches {launches} != {want}")
+    check_tensor_core("hybrid", ("flashbias_attention_fwd", "ssd_scan_fwd"))
+    modes = {c[0][1:] for c in attn_calls}
+    if modes != {("local", cfg.window)}:
+        raise AssertionError(f"hybrid: kernel 1 modes {modes}")
+    if len(attn_calls) != SLOTS * want["flashbias_attention_fwd"]:
+        raise AssertionError(f"hybrid: {len(attn_calls)} in-situ rows")
+    in_situ_check("hybrid", attn_calls, want["flashbias_attention_fwd"])
+    if len(ssd_calls) != want["ssd_scan_fwd"] or not in_situ_report(
+            "hybrid", "kernel 5 at N 16", ssd_calls):
+        raise AssertionError("hybrid: SSD kernel calls off their plain "
+                             "version")
+    whole_first = {i: obs.first[rid] for i, rid in enumerate(rids)}
+
+    # parity: the first wave's prefill and HYBRID_DECODE_STEPS decode steps,
+    # kernel path against plain path fed the kernel path's greedy tokens
+    batch, lens = ssm_wave(requests)         # SSM_SLOTS == SLOTS prompts
+    models = {impl: get_model(cfg.replace(attn_impl=impl))
+              for impl in ("cuda", "torch")}
+
+    def run(m, fed=None):
+        logits, cache = m.prefill(params, batch, max_len=HYBRID_MAX_LEN,
+                                  lengths=lens)
+        out, tokens = [], []
+        for step in range(HYBRID_DECODE_STEPS + 1):
+            out.append(logits[:, 0, :cfg.vocab].float())
+            if step == HYBRID_DECODE_STEPS:
+                return out, tokens
+            nxt = fed[step] if fed else out[-1].argmax(-1)[:, None]
+            tokens.append(nxt)
+            logits, cache = m.decode(params, cache, nxt)
+
+    with torch.no_grad():
+        (got, fed), launched = counted(lambda: run(models["cuda"]))
+        with patched(ops, "flashbias_attention_torch",
+                     rowwise(flashbias_attention_torch)):
+            want_l, _ = run(models["torch"], fed)
+    gaps = [float((a - b).abs().max()) for a, b in zip(got, want_l)]
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(got, want_l))
+    log("hybrid-parity", f"kernel path vs plain path, prefill of "
+                         f"{lens.tolist()} tokens then {HYBRID_DECODE_STEPS} "
+                         f"decode steps over the ring: max |logits gap| per "
+                         f"step {', '.join(f'{g:.3e}' for g in gaps)} (tol "
+                         f"{HYBRID_LOGIT_TOL}); greedy agreement {agree}/"
+                         f"{len(got) * SLOTS}; max |logit| "
+                         f"{float(want_l[0].abs().max()):.3f}; kernel path "
+                         f"launches {launched}")
+    if not (max(gaps) <= HYBRID_LOGIT_TOL
+            and all(bool(torch.isfinite(x).all()) for x in got)):
+        raise AssertionError(f"hybrid parity: gap {max(gaps):.3e}")
+    if launched != {"flashbias_attention_fwd": HYBRID_LAYERS,
+                    "ssd_scan_fwd": HYBRID_LAYERS}:
+        raise AssertionError(f"hybrid parity: launches {launched}")
+    del got, want_l
+    torch.cuda.empty_cache()
+
+    # the chunked engine: chunk HYBRID_CHUNK over the ring
+    eng = ServeEngine(model, params, max_len=HYBRID_MAX_LEN, n_slots=SLOTS,
+                      prefill_chunk=HYBRID_CHUNK, device="cuda")
+    counters = reset_counters()
+    t0 = time.monotonic()
+    with observe(eng) as cobs:
+        crids = drive(eng, requests)
+    torch.cuda.synchronize()
+    cwall = time.monotonic() - t0
+    check_results("hybrid-chunked", eng, crids, [n for _, n, _ in requests])
+    claunch = {name: fn.launches for name, fn in counters.items()}
+    cstats = eng.stats()
+    cwant = {name: 0 for name in claunch}
+    cwant["ssd_scan_fwd"] = HYBRID_LAYERS * cstats["chunk_steps"]
+    log("hybrid-chunked", f"{len(crids)} requests OK (chunk "
+                          f"{eng.backend.chunk_size}) in {cwall:.2f}s; "
+                          f"{cstats['chunk_steps']} chunk steps, "
+                          f"{cstats['decode_steps']} decode steps; launches "
+                          f"{claunch}")
+    if claunch != cwant:
+        raise AssertionError(f"hybrid-chunked: launches {claunch} != {cwant}")
+    first_gaps("hybrid-chunked",
+               {i: cobs.first[rid] for i, rid in enumerate(crids)},
+               whole_first, HYBRID_LOGIT_TOL)
+    del eng
+    torch.cuda.empty_cache()
+
+    # times at the path shapes
+    b, h, kvh, d, w = (SLOTS, cfg.heads_padded, cfg.kv_heads_padded,
+                       cfg.resolved_head_dim, cfg.window)
+    n = int(lens.max())
+    q = torch.randn((b, h, n, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, kvh, n, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    slopes = params["layers"]["attn"]["slopes"][0].float()
+    kw = dict(scale=d ** -0.5, mask_kind="local", window=w)
+    pos = torch.arange(n, device="cuda")
+    rel = (pos[None, :] - pos[:, None]).float()
+    inside = (rel <= 0) & (rel > -w)
+    mask = torch.where(inside[None], slopes[:, None, None] * rel[None],
+                       torch.tensor(float("-inf"), device="cuda")).to(
+        torch.bfloat16)[None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=d ** -0.5, enable_gqa=True)
+
+    pairs = local_pairs(n, w)
+    a_out = {"ms": device_ms(lambda: flashbias_attention_fwd(
+        q, k, v, None, None, slopes, **kw)),
+        "plain_ms": device_ms(lambda: flashbias_attention_torch(
+            q, k, v, None, None, slopes, **kw), iters=3),
+        "library_ms": device_ms(sdpa, iters=5)}
+    a_bytes = 2 * (2 * b * h * n * d + 2 * b * kvh * n * d) + 4 * h
+    a_flops = 4 * b * h * pairs * d
+    a_out.update(bound(a_bytes, a_flops))
+    a_out["exp_ms"] = b * h * pairs / SFU_EXP_PER_S * 1e3
+    log("hybrid-times", f"kernel 1, local (B{b} H{h} KVH{kvh} N{n} D{d} "
+                        f"window {w}, ALiBi, bf16; device time per call): "
+                        f"kernel {a_out['ms']:.4f} ms, plain "
+                        f"{a_out['plain_ms']:.4f} ms, SDPA with the ALiBi + "
+                        f"local float mask {a_out['library_ms']:.4f} ms; "
+                        f"bound {a_out['bound_ms']:.4f} ms "
+                        f"({a_out['bound_by']}: {a_bytes / 1e6:.1f} MB, "
+                        f"{a_flops / 1e9:.2f} GFLOP over the {pairs} "
+                        f"in-window scores per head), exponential floor "
+                        f"{a_out['exp_ms']:.4f} ms [{card}]")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+
+    hs, p, ns, qc = (cfg.ssm_heads_padded, cfg.ssm_head_dim, cfg.ssm_state,
+                     cfg.ssd_chunk)
+    args, _ = ssd_inputs(gen, b, n, hs, p, ns, torch.float32)
+    chunks = [min(qc, n - s0) for s0 in range(0, n, qc)]
+    s_flops = b * hs * sum(ln * (ln + 1) // 2 * (2 * ns + 2 * p)
+                           + 4 * ln * ns * p for ln in chunks)
+    s_bytes = (2 * b * n * hs * p * 4 + 2 * b * n * ns * 4 + b * n * hs * 4
+               + hs * 4 + b * hs * p * ns * 4)
+    ms, stages = ssd_stage_ms(lambda: ssd_scan_fwd(*args, chunk=qc))
+    s_out = dict(ms=ms, plain_ms=device_ms(
+        lambda: ssd_scan_torch(*args, chunk=qc), iters=5), library_ms=None,
+        **bound(s_bytes, s_flops))
+    log("hybrid-times", f"kernel 5 at N {ns} (B{b} H{hs} S{n} P{p} chunk "
+                        f"{qc}, float32; device time per call): kernel "
+                        f"{s_out['ms']:.4f} ms (" + ", ".join(
+                            f"{st} {t:.4f}" for st, t in stages.items())
+        + f"), plain {s_out['plain_ms']:.4f} ms, library none; bound "
+          f"{s_out['bound_ms']:.4f} ms ({s_out['bound_by']}: "
+          f"{s_bytes / 1e6:.1f} MB, {s_flops / 1e9:.2f} GFLOP) [{card}]")
+    del args
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        def wave():
+            return model.prefill(params, batch, max_len=HYBRID_MAX_LEN,
+                                 lengths=lens)
+        walls = alternate({"wave": wave})
+        busy, kernels = profile_steps(wave, 1)
+        log("hybrid-times", f"prefill wave ({SLOTS} x {n}, prompts "
+                            f"{lens.tolist()}): {walls['wave']:.1f} ms on "
+                            f"the host clock, device busy {busy:.1f} ms, "
+                            f"idle share {1 - busy / walls['wave']:.3f} "
+                            f"[{card}]")
+        top_kernels("hybrid-times", kernels)
+        logits, cache = wave()
+        tokens = logits[:, 0, :cfg.vocab].argmax(-1)[:, None]
+
+        def step():
+            model.decode(params, cache, tokens)
+
+        walls = alternate({"step": step}, rounds=6)
+        kernels = profiled(step, 3)
+        busy = sum(device_us(e) for e in kernels) / 3 / 1e3
+        log("hybrid-times", f"decode step ({SLOTS} slots over the ring, "
+                            f"{HYBRID_LAYERS} layers): {walls['step']:.3f} "
+                            f"ms on the host clock, device busy {busy:.3f} "
+                            f"ms, idle share "
+                            f"{1 - busy / walls['step']:.3f}; "
+                            f"{sum(e.count for e in kernels) // 3} device "
+                            f"calls per step [{card}]")
+        top_kernels("hybrid-times", kernels)
+    del engine, cache, logits
+    torch.cuda.empty_cache()
+    return {name: launches[name]
+            for name in ("flashbias_attention_fwd", "ssd_scan_fwd")}
+
+
 def bound(bytes_: int, flops: int) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -2995,9 +3580,32 @@ def bound(bytes_: int, flops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def run_child(phase: str, seed: int) -> dict:
+    """Run ``phase`` in a fresh process of this script (``--phase``), its
+    log lines passed through; returns the result it prints. A fresh
+    process gets complete profiles: late in a long one torch.profiler
+    drops device events (PERF.md section 7)."""
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--phase", phase, "--seed", str(seed)],
+                            stdout=subprocess.PIPE, text=True)
+    result = None
+    for line in proc.stdout:
+        if line.startswith(CHILD_RESULT):
+            result = json.loads(line[len(CHILD_RESULT):])
+        else:
+            print(line, end="", flush=True)
+    if proc.wait() != 0 or result is None:
+        raise AssertionError(f"phase {phase} failed in its process (exit "
+                             f"{proc.returncode})")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", choices=("hybrid",), default=None,
+                    help="run one phase alone (the full run starts phase "
+                         "17 this way, in a process of its own)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3013,6 +3621,11 @@ def main(argv=None) -> int:
                   f"{torch.cuda.device_count()}; torch {torch.__version__}, "
                   f"CUDA {torch.version.cuda}; TF32 off; [{card}]")
 
+    if args.phase == "hybrid":
+        build.build()
+        print(CHILD_RESULT + json.dumps(phase_hybrid(args.seed, card_line())),
+              flush=True)
+        return 0
     t_start = t0 = time.monotonic()
     report = build.build()
     log("build", f"{sorted(report)} built in {time.monotonic() - t0:.1f}s")
@@ -3030,7 +3643,8 @@ def main(argv=None) -> int:
 
     errors = phase_kernels(args.seed)
     engine, requests, launches, tok_s, whole_first = phase_serve(args.seed)
-    paged_launches, paged_tok_s, _ = phase_paged(engine, requests)
+    paged_launches, paged_tok_s, paged_streams = phase_paged(engine,
+                                                             requests)
     launches["flash_decode_paged_fwd"] = \
         paged_launches["flash_decode_paged_fwd"]
     traces, decode_lengths = phase_parity(engine, requests)
@@ -3063,11 +3677,30 @@ def main(argv=None) -> int:
     times["ssd_scan_fwd"] = phase_ssm_times(ssm, ssm_requests, ssm_tok_s,
                                             card)
     phase_ssm_chunked(ssm, ssm_requests, ssm_first, card)
-    del ssm, ssm_first
+    del ssm_first                    # the SSM engine serves phase 16b
     torch.cuda.empty_cache()
 
     launches["flashbias_attention_fwd"] += phase_swin(args.seed, card)
     launches["flashbias_attention_fwd"] += phase_pde(args.seed, card)
+    torch.cuda.empty_cache()
+
+    # phases 15-16 take no profile: they run after the profiled phases,
+    # which then see the process as old as before them (PERF.md section 7)
+    model, params = serve_weights(args.seed)
+    phase_faults(model, params, requests, paged_streams, card)
+    ckpt = {"prefix": phase_checkpoint_prefix(model, params, args.seed)}
+    del model, params
+    ckpt["ssm"] = phase_checkpoint_ssm(ssm, ssm_requests)
+    del ssm
+    torch.cuda.empty_cache()
+    ckpt["pair"] = phase_checkpoint_pair(args.seed)
+    log("checkpoint", f"snapshot JSON sizes (bytes): {ckpt}; the prefix "
+                      f"and SSM engines at full width, the Pairformer at "
+                      f"{PAIR_CKPT_LAYERS} of {PAIR_LAYERS} layers [{card}]")
+    torch.cuda.empty_cache()
+    hybrid = run_child("hybrid", args.seed)
+    for name in ("flashbias_attention_fwd", "ssd_scan_fwd"):
+        launches[name] += hybrid[name]
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"
                                            "flashbias_attn.py:149",

@@ -143,9 +143,9 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The architectures the port runs: the dense family, the SSM family and the
-# Pairformer (served), and the paper's vision and PDE models (forward).
-ARCH_IDS = ["gpt2_alibi_15b", "stablelm_12b", "mamba2_130m",
+# The architectures the port runs: the dense, SSM and hybrid families and
+# the Pairformer (served), and the paper's vision and PDE models (forward).
+ARCH_IDS = ["gpt2_alibi_15b", "stablelm_12b", "mamba2_130m", "hymba_15b",
             "pairformer_lite", "swinv2_b", "pde_solver"]
 
 

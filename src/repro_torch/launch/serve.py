@@ -10,6 +10,10 @@ the pool, small enough to watch it preempt). ``--prefill-chunk N`` lands
 prompts N tokens per engine step between decode steps; ``--prefix-cache``
 (with ``--page-size``) shares completed prompt pages between requests, and
 ``--shared-prefix N`` gives every prompt a common N-token head to share.
+``--inject-fault PLAN`` drives the engine under a fault plan
+(``kind@step[/slot][xcount]``, comma-separated; kinds alloc, nan, step,
+delay) and prints every fault that fired; ``--deadline-steps`` and
+``--max-retries`` set every request's deadline and quarantine retries.
 """
 from __future__ import annotations
 
@@ -22,21 +26,25 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import get_model, init_params
-from repro_torch.serve import SamplingParams, ServeEngine, resolve_device
+from repro_torch.serve import (FaultPlan, SamplingParams, ServeEngine,
+                               resolve_device)
 
 
 def drive(engine: ServeEngine,
-          requests: List[Tuple[np.ndarray, int, SamplingParams]]) -> list:
+          requests: List[Tuple[np.ndarray, int, SamplingParams]],
+          **submit) -> list:
     """Submit ``requests`` (prompt, new tokens, sampling) with staggered
     arrivals — the first half up front, then one per engine step — and step
-    the engine until everything drains. Returns the request ids."""
+    the engine until everything drains. ``submit`` goes to every
+    ``engine.submit`` (deadline, retries). Returns the request ids."""
     half = len(requests) // 2
-    rids = [engine.submit(p, n, sampling=s) for p, n, s in requests[:half]]
+    rids = [engine.submit(p, n, sampling=s, **submit)
+            for p, n, s in requests[:half]]
     pending = list(requests[half:])
     while len(engine.scheduler) or engine.occupancy or pending:
         if pending:
             p, n, s = pending.pop(0)
-            rids.append(engine.submit(p, n, sampling=s))
+            rids.append(engine.submit(p, n, sampling=s, **submit))
         engine.step()
     return rids
 
@@ -80,6 +88,18 @@ def main(argv=None):
                     help="> 0: prepend a common prefix of this many tokens "
                          "to every request (system-prompt traffic — watch "
                          "--prefix-cache hit rates)")
+    ap.add_argument("--deadline-steps", type=int, default=0,
+                    help="> 0: per-request deadline — a request still live "
+                         "or queued after this many engine steps ends "
+                         "TIMED_OUT")
+    ap.add_argument("--max-retries", type=int, default=1,
+                    help="quarantine retries per request before a guard "
+                         "fault ends it FAILED (0: fail on the first "
+                         "non-finite emission)")
+    ap.add_argument("--inject-fault", default="",
+                    help="fault plan, e.g. 'nan@6/0x2,alloc@3x4' — "
+                         "kind@step[/slot][xcount], comma-separated; kinds: "
+                         "alloc, nan, step, delay")
     args = ap.parse_args(argv)
     if args.pool_pages and not args.page_size:
         ap.error("--pool-pages requires --page-size (paged KV)")
@@ -107,6 +127,8 @@ def main(argv=None):
         kw["prefill_chunk"] = args.prefill_chunk
     if args.prefix_cache:
         kw["prefix_cache"] = True
+    if args.inject_fault:
+        kw["faults"] = FaultPlan.parse(args.inject_fault)
     engine = ServeEngine(model, params, max_len=max_len, n_slots=args.slots,
                          prefill_len=args.shared_prefix + args.prompt_len,
                          device=device, **kw)
@@ -121,7 +143,8 @@ def main(argv=None):
                  SamplingParams(args.temperature, args.top_k, seed=i))
                 for i, n in enumerate(lens)]
     t0 = time.monotonic()
-    rids = drive(engine, requests)
+    rids = drive(engine, requests, deadline_steps=args.deadline_steps or None,
+                 max_retries=args.max_retries)
     dt = time.monotonic() - t0
 
     n_tok = sum(engine.result(r).size for r in rids)
@@ -130,7 +153,12 @@ def main(argv=None):
           f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s)")
     counts = engine.status_counts()
     line = ", ".join(f"{k}={v}" for k, v in sorted(counts.items()))
-    print(f"[serve] lifecycle: {line}; {engine.n_quarantines} quarantines")
+    print(f"[serve] lifecycle: {line}; {engine.n_quarantines} quarantines, "
+          f"{engine.n_faults_contained} faults contained")
+    if engine.faults is not None:
+        for step, kind, slot in engine.faults.fired:
+            at = f" slot {slot}" if slot >= 0 else ""
+            print(f"[serve] fault fired: {kind}@{step}{at}")
     stats = engine.page_stats()
     if stats:
         print(f"[serve] pages: {stats['watermark']}/{stats['n_pages']} peak "

@@ -1,6 +1,6 @@
 """Uniform Model interface consumed by the server (port of
-``repro.models.api``: the dense and SSM LM families, the Pairformer, and
-the paper's vision (SwinV2) and PDE models).
+``repro.models.api``: the dense, SSM and hybrid LM families, the
+Pairformer, and the paper's vision (SwinV2) and PDE models).
 
 ``get_model(cfg)`` returns a ``Model`` with:
 
@@ -27,7 +27,9 @@ the paper's vision (SwinV2) and PDE models).
   caching's copy-on-write).
 
 The paged entries and ``copy_pages`` are the dense LM family's; the SSM
-family's ``Model`` (constant-size caches) leaves them None, and the
+and hybrid families' ``Model`` leaves them None (constant-size SSM state; a
+hybrid model's attention keeps a ring of its window or, where the window
+covers ``max_len``, a contiguous cache), and the
 Pairformer's leaves every optional entry None, ``prefill_chunk`` too. The
 Pairformer's ``prefill`` is the admission trunk pass (with the factor MLPs
 as ``factors=``), its ``decode`` one refinement iteration over the slot
@@ -89,7 +91,7 @@ def get_model(cfg: ArchConfig) -> Model:
         return Model(cfg=cfg, template=lambda: pde.pde_template(cfg),
                      loss=lambda p, batch: pde.regression_loss(p, batch,
                                                                cfg))
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "
             f"item 8)")

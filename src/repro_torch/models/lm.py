@@ -1,10 +1,11 @@
-"""Decoder LM, dense and SSM families: FlashBias-ALiBi attention + SwiGLU
-MLP (dense), or the Mamba2 SSD block alone (ssm).
+"""Decoder LM, dense, SSM and hybrid families: FlashBias-ALiBi attention +
+SwiGLU MLP (dense), the Mamba2 SSD block alone (ssm), or attention and SSD
+branches side by side, each rms-normed and averaged, + SwiGLU MLP (hybrid).
 
-Port of the dense and SSM paths of ``repro.models.lm``. The parameter tree
-has the reference's nested keys and stacked leading-``L`` shapes
-(``lm_template``), so the reference's parameters carry across as a dict
-copy. Layers run as a Python loop in place of ``jax.lax.scan``; each
+Port of the dense, SSM and hybrid paths of ``repro.models.lm``. The
+parameter tree has the reference's nested keys and stacked leading-``L``
+shapes (``lm_template``), so the reference's parameters carry across as a
+dict copy. Layers run as a Python loop in place of ``jax.lax.scan``; each
 layer's weights are cast to the compute dtype as they are used (an
 already-cast tree passes through untouched, which is how the serve backend
 avoids re-casting every step).
@@ -35,11 +36,20 @@ and ``conv_bc`` in the compute dtype. Its prefill runs the SSD chunk scan
 through ``ops.ssd_scan`` (kernel 5 on the card); its decode step updates
 the state and the tails IN PLACE for active rows, as k/v are.
 
+Sliding-window attention (``cfg.window``): prefill runs kernel 1 in its
+``local`` mask mode. Where the window is shorter than the slot length
+(``max_len``) the attention cache is a RING of ``window`` rows per slot:
+slot ``s`` holds the last position ``p`` with ``p = s (mod window)``. Decode
+writes the new row at ``(len-1) % window`` and attends over the ring in
+plain torch (the reference's dense XLA window path; no decode kernel runs
+there); a chunk attends to the ring as it was plus its own keys and only
+then rotates in. The hybrid family (``hymba_15b``) carries the SSM state
+beside its ring and runs kernel 5 in its prefill.
+
 ``cfg.bias_mode="dense"`` is the dense-bias baseline of the dense family:
 its prefill adds the materialized ALiBi bias to the logits (plain chunked
 attention, no kernel); decode and chunked prefill are those of flashbias
-mode, as in the reference. Sliding-window (ring) caches, MoE and the
-hybrid family wait for later slices.
+mode, as in the reference. MoE and the frontends wait for a later slice.
 """
 from __future__ import annotations
 
@@ -71,15 +81,25 @@ __all__ = ["lm_template", "cast_layers", "prefill", "decode_step",
            "init_paged_cache", "insert_paged_cache_at_slots",
            "grow_page_tables_at_slots", "copy_paged_pages"]
 
+_ATTN = ("dense", "hybrid")              # families with attention layers
+_SSM = ("ssm", "hybrid")                 # families with SSD layers
+
+
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "
             f"item 8)")
-    if cfg.window:
+    if cfg.frontend != "none":
         raise NotImplementedError(
-            "sliding-window (ring) KV caches are not ported yet (ROADMAP.md "
-            "Queue A item 8)")
+            f"the {cfg.frontend} frontend is not ported yet (ROADMAP.md "
+            f"Queue A item 8)")
+
+
+def _is_ring(cfg: ArchConfig, k_cache: torch.Tensor) -> bool:
+    """A layer's contiguous cache ``(B, KVH, S, hd)`` is a ring when it
+    holds exactly ``window`` rows (the reference's test)."""
+    return bool(cfg.window) and k_cache.shape[2] == cfg.window
 
 
 # ---------------------------------------------------------------------------
@@ -129,12 +149,16 @@ def _ssm_template(cfg: ArchConfig) -> dict:
 
 def _layer_template(cfg: ArchConfig) -> dict:
     layer = {"ln1": PDef((cfg.d_model,), ("zeros",))}
-    if cfg.family == "ssm":
+    if cfg.family in _ATTN:
+        layer["attn"] = _attn_template(cfg)
+    if cfg.family in _SSM:
         layer["ssm"] = _ssm_template(cfg)
-        return layer
-    layer["attn"] = _attn_template(cfg)
-    layer["mlp"] = _mlp_template(cfg)
-    layer["ln2"] = PDef((cfg.d_model,), ("zeros",))
+    if cfg.family == "hybrid":
+        layer["branch_norm_attn"] = PDef((cfg.d_model,), ("zeros",))
+        layer["branch_norm_ssm"] = PDef((cfg.d_model,), ("zeros",))
+    if cfg.family in _ATTN:
+        layer["mlp"] = _mlp_template(cfg)
+        layer["ln2"] = PDef((cfg.d_model,), ("zeros",))
     return layer
 
 
@@ -182,8 +206,9 @@ def _slopes(lp: dict, cfg: ArchConfig) -> Optional[torch.Tensor]:
 
 
 def _attention(lp: dict, x: torch.Tensor, cfg: ArchConfig):
-    """Causal prefill attention. Returns (y, k, v) with k, v head-major
-    ``(B, KVH, S, hd)``, the cache layout.
+    """Causal prefill attention, or with ``cfg.window`` causal within the
+    last ``window`` positions (kernel 1's ``local`` mode). Returns (y, k, v)
+    with k, v head-major ``(B, KVH, S, hd)``, the cache layout.
 
     ALiBi with ``bias_mode`` other than "flashbias" is the dense-bias
     baseline (the paper's A/B): the float32 ``alibi_dense`` bias of the
@@ -196,17 +221,22 @@ def _attention(lp: dict, x: torch.Tensor, cfg: ArchConfig):
         bias = alibi_dense(n, n, cfg.n_heads, device=x.device)
         bias = F.pad(bias, (0, 0, 0, 0, 0, cfg.heads_padded - cfg.n_heads))
         q, k, v = (_project(x, lp[w]) for w in ("wq", "wk", "wv"))
-        o = attention(q, k, v, mask=MaskSpec("causal"), bias=bias[None],
-                      impl="chunked", chunk_size=cfg.attn_chunk)
+        o = attention(q, k, v, mask=MaskSpec(_mask_kind(cfg), cfg.window),
+                      bias=bias[None], impl="chunked",
+                      chunk_size=cfg.attn_chunk)
         return (_out_proj(o, lp["wo"]), k.transpose(1, 2).contiguous(),
                 v.transpose(1, 2).contiguous())
     q = _project(x, lp["wq"]).transpose(1, 2).contiguous()
     k = _project(x, lp["wk"]).transpose(1, 2).contiguous()
     v = _project(x, lp["wv"]).transpose(1, 2).contiguous()
     o = ops.flash_attention(q, k, v, slopes=_slopes(lp, cfg),
-                            mask_kind="causal", impl=cfg.attn_impl,
-                            layout="bhsd")
+                            mask_kind=_mask_kind(cfg), window=cfg.window,
+                            impl=cfg.attn_impl, layout="bhsd")
     return _out_proj(o.transpose(1, 2), lp["wo"]), k, v
+
+
+def _mask_kind(cfg: ArchConfig) -> str:
+    return "local" if cfg.window else "causal"
 
 
 def _attention_decode(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
@@ -225,10 +255,18 @@ def _attention_decode(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
     factor slab, ``phi_q`` (this layer's ``slope * [-(len-1), 1]``, built
     once per step) selects phi mode: the ALiBi bias comes from the cached
     key factors ``[1, pos]`` (FlashBias Sec. 4.3), as the reference's paged
-    path computes it."""
+    path computes it.
+
+    A ring cache (``window`` rows) takes the new row at slot ``(len-1) %
+    window`` and is attended in plain torch (``_ring_window_attention``),
+    as the reference does outside any kernel."""
     q = _project(x, lp["wq"])                                # (B, 1, H, E)
     new = {"k_new": _project(x, lp["wk"])[:, 0],             # (B, KVH, E)
            "v_new": _project(x, lp["wv"])[:, 0]}
+    if paged is None and _is_ring(cfg, k_cache):
+        _ring_write(k_cache, v_cache, new["k_new"], new["v_new"], lengths)
+        o = _ring_window_attention(q, k_cache, v_cache, lengths, slopes)
+        return _out_proj(o, lp["wo"])
     if paged is None:
         o = ops.flash_decode(q, k_cache, v_cache, lengths, slopes=slopes,
                              impl=cfg.attn_impl, **new)
@@ -243,6 +281,102 @@ def _attention_decode(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
     return _out_proj(o, lp["wo"])
 
 
+def _ring_positions(last: torch.Tensor, w: int) -> torch.Tensor:
+    """(B, W) absolute position each ring slot holds after position
+    ``last`` (B,) was written: ``last - ((last - s) mod w)``, negative for
+    a slot nothing has been written to."""
+    slot = torch.arange(w, device=last.device)
+    last = last.long()[:, None]
+    return last - torch.remainder(last - slot[None, :], w)
+
+
+def _ring_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor,
+                lengths: torch.Tensor) -> None:
+    """Write each active row's new k/v ``(B, KVH, hd)`` at ring slot
+    ``(len-1) % window``, in place; a frozen row (length 0) writes back
+    what its slot holds. No host read-back."""
+    b, w = k_cache.shape[0], k_cache.shape[2]
+    rows = torch.arange(b, device=k_cache.device)
+    slot = torch.remainder(lengths.long() - 1, w)
+    keep = (lengths > 0)[:, None, None]
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[rows, :, slot] = torch.where(keep, new.to(cache.dtype),
+                                           cache[rows, :, slot])
+
+
+def _ring_window_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lengths: torch.Tensor,
+                           slopes: Optional[torch.Tensor]) -> torch.Tensor:
+    """One-token attention over a ring ``(B, KVH, W, hd)`` in float32, as
+    the reference's ``_ring_window_attention``: slot ``s`` holds absolute
+    position ``p = len-1 - ((len-1 - s) mod W)``, valid iff ``p >= 0``; the
+    ALiBi bias comes from the absolute positions. q (B, 1, H, E) -> (B, 1,
+    H, E) in q's dtype."""
+    b, _, h, e = q.shape
+    kvh, w = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    last = lengths.long() - 1
+    pos = _ring_positions(last, w)                       # (B, W)
+    qg = q[:, 0].reshape(b, kvh, g, e).float()
+    s = torch.einsum("bkge,bkwe->bkgw", qg, k_cache.float()) * (
+        1.0 / float(np.sqrt(e)))
+    if slopes is not None:
+        rel = (pos - last[:, None]).float()              # <= 0
+        s = s + slopes.reshape(kvh, g)[None, :, :, None] \
+            * rel[:, None, None, :]
+    s = torch.where((pos >= 0)[:, None, None, :], s,
+                    torch.full((), -1e30, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgw,bkwe->bkge", p, v_cache.float())
+    return o.reshape(b, 1, h, e).to(q.dtype)
+
+
+def _ring_chunk_attention(q: torch.Tensor, k_new: torch.Tensor,
+                          v_new: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, offsets: torch.Tensor,
+                          chunk_lens: torch.Tensor,
+                          slopes: Optional[torch.Tensor]) -> torch.Tensor:
+    """C-token chunk attention against a ring ``(B, KVH, W, hd)`` that the
+    chunk has NOT been written to yet, in float32, as the reference's ring
+    branch of ``_attention_chunk``: a later chunk position may alias the
+    ring slot an earlier query still needs, so queries read old keys from
+    the ring as it was (slot valid if written and inside the query's
+    window) plus the chunk's own keys (causal, inside the window). q (B, C,
+    H, E), k_new / v_new (B, C, KVH, E) -> (B, C, H, E) in q's dtype."""
+    b, c, h, e = q.shape
+    kvh, w = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    dev = q.device
+    scale = 1.0 / float(np.sqrt(e))
+    i = torch.arange(c, device=dev)
+    offs = offsets.long()
+    pos = offs[:, None] + i[None, :]                             # (B, C)
+    p_old = _ring_positions(offs - 1, w)                         # (B, W)
+    written = (p_old >= 0) & (offs[:, None] > 0)
+    qg = q.reshape(b, c, kvh, g, e).permute(0, 2, 3, 1, 4).float()
+    kn = k_new.permute(0, 2, 1, 3).float()                       # (B,KVH,C,E)
+    vn = v_new.permute(0, 2, 1, 3).float()
+    s_old = torch.einsum("bkgce,bkwe->bkgcw", qg, k_cache.float()) * scale
+    s_in = torch.einsum("bkgce,bkje->bkgcj", qg, kn) * scale
+    if slopes is not None:
+        sl = slopes.reshape(kvh, g)[None, :, :, None, None]
+        rel_old = (p_old[:, None, :] - pos[:, :, None]).float()
+        rel_in = (i[None, :] - i[:, None]).float()               # (C, C)
+        s_old = s_old + sl * rel_old[:, None, None]
+        s_in = s_in + sl * rel_in[None, None, None]
+    m_old = written[:, None, :] & (p_old[:, None, :] > pos[:, :, None] - w)
+    m_in = (((i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < w))
+            [None] & (i[None, None, :] < chunk_lens.long()[:, None, None]))
+    neg = torch.full((), -1e30, device=dev)
+    p_all = torch.softmax(torch.cat([
+        torch.where(m_old[:, None, None], s_old, neg),
+        torch.where(m_in[:, None, None], s_in, neg)], dim=-1), dim=-1)
+    o = (torch.einsum("bkgcw,bkwe->bkgce", p_all[..., :w], v_cache.float())
+         + torch.einsum("bkgcj,bkje->bkgce", p_all[..., w:], vn))
+    return o.permute(0, 3, 1, 2, 4).reshape(b, c, h, e).to(q.dtype)
+
+
 def _attention_chunk(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cfg: ArchConfig, *,
                      slopes: Optional[torch.Tensor], chunk: dict,
@@ -253,9 +387,20 @@ def _attention_chunk(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
     place, at the places ``chunk`` planned (``_chunk_plan``: rows with
     ``chunk_lens 0`` write nothing), and the queries then attend to the
     written cache under the offset causal mask
-    (``ops.flash_chunk_attention``)."""
+    (``ops.flash_chunk_attention``). A ring cache attends FIRST
+    (``_ring_chunk_attention``) and then takes the chunk's rows at their
+    ring slots."""
     q = _project(x, lp["wq"])                                # (B, C, H, E)
     k_new, v_new = _project(x, lp["wk"]), _project(x, lp["wv"])
+    if paged is None and _is_ring(cfg, k_cache):
+        o = _ring_chunk_attention(q, k_new, v_new, k_cache, v_cache,
+                                  chunk["offsets"], chunk["chunk_lens"],
+                                  slopes)
+        rows, cols, pos = chunk["rows"], chunk["cols"], chunk["pos"]
+        if rows is not None:
+            k_cache[rows, :, pos] = k_new[rows, cols]
+            v_cache[rows, :, pos] = v_new[rows, cols]
+        return _out_proj(o, lp["wo"])
     if paged is None:
         rows, cols, pos = chunk["rows"], chunk["cols"], chunk["pos"]
         if rows is not None:
@@ -407,6 +552,29 @@ def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return unembed_logits(hid, params["embed"].to(hid.dtype))
 
 
+def _mix(lp: dict, x: torch.Tensor, y: Optional[torch.Tensor],
+         ys: Optional[torch.Tensor], cfg: ArchConfig) -> torch.Tensor:
+    """The residual update of a layer's token mixers: the attention output
+    (dense), the SSD output (ssm), or their rms-normed mean (hybrid)."""
+    if cfg.family == "dense":
+        return x + y
+    if cfg.family == "ssm":
+        return x + ys
+    return x + 0.5 * (rmsnorm(y, lp["branch_norm_attn"])
+                      + rmsnorm(ys, lp["branch_norm_ssm"]))
+
+
+def _ring_gather(k: torch.Tensor, lengths: torch.Tensor,
+                 w: int) -> torch.Tensor:
+    """The ring a prompt longer than the window leaves: slot ``s`` of row
+    ``b`` holds position ``p = len_b-1 - ((len_b-1 - s) mod w)``, clipped to
+    0 where no such position exists (junk that decode's ``p >= 0`` test
+    never reads). k (B, KVH, S, hd) -> (B, KVH, w, hd)."""
+    pos = _ring_positions(lengths - 1, w).clamp(0, k.shape[2] - 1)
+    idx = pos[:, None, :, None].expand(-1, k.shape[1], -1, k.shape[3])
+    return torch.gather(k, 2, idx)
+
+
 def prefill(params: dict, batch: dict, cfg: ArchConfig, *,
             max_len: Optional[int] = None,
             lengths: Optional[torch.Tensor] = None):
@@ -414,85 +582,78 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *,
 
     ``lengths`` (B,) enables ragged right-padded prompts: row ``b``'s
     prompt is positions ``0 .. lengths[b]-1`` and its logits are gathered
-    there (the causal mask already keeps padding out of real queries). The
-    cache holds every computed position, zero-padded to ``max_len``."""
+    there (the causal mask already keeps padding out of real queries; the
+    SSD state and conv tails freeze at ``lengths[b]-1``). The attention
+    cache holds every computed position, zero-padded to ``max_len``; with a
+    window shorter than ``max_len`` it is a ring of ``window`` rows, padded
+    when the prompt fits the window and gathered otherwise (slot ``s`` holds
+    the last position ``p = s (mod window)`` of each row's prompt). The SSM
+    and hybrid families carry ``ssm_h`` / ``conv_x`` / ``conv_bc``."""
     _check_supported(cfg)
     if batch.get("frontend") is not None:
         raise NotImplementedError("frontend embeddings are not ported yet")
-    if cfg.family == "ssm":
-        return _ssm_prefill(params, batch["tokens"], cfg, lengths)
     tokens = batch["tokens"]
     b, s = tokens.shape
     max_len = max_len or s
-    if max_len < s:
-        raise ValueError(f"max_len {max_len} < prompt width {s}")
-    dt, dev = compute_dtype(cfg), tokens.device
-    shape = (cfg.n_layers, b, cfg.kv_heads_padded, max_len,
-             cfg.resolved_head_dim)
-    alloc = torch.zeros if max_len > s else torch.empty
-    k_cache = alloc(shape, dtype=dt, device=dev)
-    v_cache = alloc(shape, dtype=dt, device=dev)
-    x = _embed_in(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i, dt)
-        y, k, v = _attention(lp["attn"], rmsnorm(x, lp["ln1"]), cfg)
-        k_cache[i, :, :, :s] = k
-        v_cache[i, :, :, :s] = v
-        x = x + y
-        x = x + _mlp(lp, x)
-    if lengths is None:
-        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
-    lengths = lengths.to(device=dev, dtype=torch.int32)
-    last = x[torch.arange(b, device=dev), (lengths - 1).long()][:, None]
-    cache = {"length": lengths, "k": k_cache, "v": v_cache}
-    return _logits(params, last, cfg), cache
-
-
-def _ssm_prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-                 lengths: Optional[torch.Tensor]):
-    """SSM prefill: the last valid position's logits and the constant-size
-    cache (state and conv tails frozen at ``lengths[b]-1``)."""
-    b, s = tokens.shape
     dt, dev = compute_dtype(cfg), tokens.device
     if lengths is not None:
         lengths = lengths.to(device=dev, dtype=torch.int32)
-    x = _embed_in(params, tokens, cfg)
+    full = torch.full((b,), s, dtype=torch.int32, device=dev)
+    cache = {}
+    if cfg.family in _ATTN:
+        ring = bool(cfg.window) and cfg.window < max_len
+        sc = cfg.window if ring else max_len
+        if sc < s and not ring:
+            raise ValueError(f"max_len {max_len} < prompt width {s}")
+        shape = (cfg.n_layers, b, cfg.kv_heads_padded, sc,
+                 cfg.resolved_head_dim)
+        alloc = torch.zeros if sc > s else torch.empty
+        cache["k"] = alloc(shape, dtype=dt, device=dev)
+        cache["v"] = alloc(shape, dtype=dt, device=dev)
     states, tails_x, tails_bc = [], [], []
+    x = _embed_in(params, tokens, cfg)
     for i in range(cfg.n_layers):
         lp = _layer(params, i, dt)
-        y, h_fin, tail_x, tail_bc = _ssm_forward(
-            lp["ssm"], rmsnorm(x, lp["ln1"]), cfg, lengths=lengths)
-        states.append(h_fin)
-        tails_x.append(tail_x)
-        tails_bc.append(tail_bc)
-        x = x + y
+        h = rmsnorm(x, lp["ln1"])
+        y = ys = None
+        if cfg.family in _ATTN:
+            y, k, v = _attention(lp["attn"], h, cfg)
+            for key, new in (("k", k), ("v", v)):
+                if sc >= s:
+                    cache[key][i, :, :, :s] = new
+                else:
+                    cache[key][i] = _ring_gather(
+                        new, full if lengths is None else lengths, sc)
+        if cfg.family in _SSM:
+            ys, h_fin, tail_x, tail_bc = _ssm_forward(lp["ssm"], h, cfg,
+                                                      lengths=lengths)
+            states.append(h_fin)
+            tails_x.append(tail_x)
+            tails_bc.append(tail_bc)
+        x = _mix(lp, x, y, ys, cfg)
+        if cfg.family in _ATTN:
+            x = x + _mlp(lp, x)
     if lengths is None:
-        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+        lengths = full
     last = x[torch.arange(b, device=dev), (lengths - 1).long()][:, None]
-    cache = {"length": lengths, "ssm_h": torch.stack(states),
-             "conv_x": torch.stack(tails_x), "conv_bc": torch.stack(tails_bc)}
+    cache["length"] = lengths
+    if states:
+        cache.update(ssm_h=torch.stack(states), conv_x=torch.stack(tails_x),
+                     conv_bc=torch.stack(tails_bc))
     return _logits(params, last, cfg), cache
 
 
-def _ssm_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                     cfg: ArchConfig):
-    """SSM decode: state and conv tails of active rows updated in place;
-    rows with length 0 keep theirs bit-identical."""
-    active = cache["length"] > 0
-    lengths = cache["length"] + active.to(torch.int32)
-    dt = compute_dtype(cfg)
-    x = _embed_in(params, tokens, cfg)
+def _ssm_decode_layer(sp: dict, x: torch.Tensor, cache: dict, i: int,
+                      active: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Layer ``i``'s SSD decode: state and conv tails of active rows updated
+    in place; rows with length 0 keep theirs bit-identical."""
+    h, tx, tbc = cache["ssm_h"][i], cache["conv_x"][i], cache["conv_bc"][i]
+    y, h_new, tx_new, tbc_new = _ssm_decode(sp, x, h, tx, tbc, cfg)
     keep4 = active[:, None, None, None]
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i, dt)
-        h, tx, tbc = cache["ssm_h"][i], cache["conv_x"][i], cache["conv_bc"][i]
-        y, h_new, tx_new, tbc_new = _ssm_decode(
-            lp["ssm"], rmsnorm(x, lp["ln1"]), h, tx, tbc, cfg)
-        h.copy_(torch.where(keep4, h_new, h))
-        tx.copy_(torch.where(keep4, tx_new, tx))
-        tbc.copy_(torch.where(active[:, None, None], tbc_new, tbc))
-        x = x + y
-    return _logits(params, x, cfg), {**cache, "length": lengths}
+    h.copy_(torch.where(keep4, h_new, h))
+    tx.copy_(torch.where(keep4, tx_new, tx))
+    tbc.copy_(torch.where(active[:, None, None], tbc_new, tbc))
+    return y
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -500,17 +661,16 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     """One decode step: ``tokens (B, 1)`` land at position
     ``cache["length"]``. Rows with length 0 are inactive and frozen: no
     cache write, no length advance. Returns (logits (B, 1, V), cache) — the
-    new cache dict shares the k/v tensors (or pools), which were updated in
-    place.
+    new cache dict shares the k/v tensors (or pools) and the SSM state,
+    which were updated in place.
 
     A paged cache (``"pages_k"`` in it) is read through its page table;
     ``max_pages`` caps the pages any row references this step (the serve
     engine passes a power-of-two rounding of its host-side longest length)
     and bounds the plain path's gather. The new position's factor row
-    ``[1, pos]`` is written to the slab once, outside the layer loop."""
+    ``[1, pos]`` is written to the slab once, outside the layer loop. A
+    ring cache takes the new row at ``(len-1) % window``."""
     _check_supported(cfg)
-    if cfg.family == "ssm":
-        return _ssm_decode_step(params, cache, tokens, cfg)
     active = cache["length"] > 0
     lengths = cache["length"] + active.to(torch.int32)
     dt = compute_dtype(cfg)
@@ -518,7 +678,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     # every layer's float32 slopes (and, paged in phi mode, phi_q) at once:
     # one copy per step, not one per layer
     slopes = phi_q = paged = None
-    if cfg.bias_kind == "alibi":
+    if cfg.family in _ATTN and cfg.bias_kind == "alibi":
         slopes = params["layers"]["attn"]["slopes"].to(dt).float()  # (L, H)
     if "pages_k" in cache:
         n_pages, ps = cache["pages_k"].shape[2], cache["pages_k"].shape[3]
@@ -538,23 +698,31 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                          * slopes[:, None, None, :, None])
         k_all, v_all = cache["pages_k"], cache["pages_v"]
     else:
-        k_all, v_all = cache["k"], cache["v"]
+        k_all, v_all = cache.get("k"), cache.get("v")
     for i in range(cfg.n_layers):
         lp = _layer(params, i, dt)
-        x = x + _attention_decode(
-            lp["attn"], rmsnorm(x, lp["ln1"]), k_all[i], v_all[i], lengths,
-            cfg, slopes=None if slopes is None else slopes[i],
-            phi_q=None if phi_q is None else phi_q[i], paged=paged)
-        x = x + _mlp(lp, x)
+        h = rmsnorm(x, lp["ln1"])
+        y = ys = None
+        if cfg.family in _ATTN:
+            y = _attention_decode(
+                lp["attn"], h, k_all[i], v_all[i], lengths, cfg,
+                slopes=None if slopes is None else slopes[i],
+                phi_q=None if phi_q is None else phi_q[i], paged=paged)
+        if cfg.family in _SSM:
+            ys = _ssm_decode_layer(lp["ssm"], h, cache, i, active, cfg)
+        x = _mix(lp, x, y, ys, cfg)
+        if cfg.family in _ATTN:
+            x = x + _mlp(lp, x)
     return _logits(params, x, cfg), {**cache, "length": lengths}
 
 
 def _chunk_plan(cache: dict, offsets: np.ndarray, chunk_lens: np.ndarray,
-                c: int, dev) -> dict:
+                c: int, dev, ring: int = 0) -> dict:
     """Where a chunk's valid positions land, planned once per call from the
     host arrays: ``offsets`` / ``chunk_lens`` on the device, and for
     contiguous caches the ``(rows, cols, pos)`` of every valid entry (None
-    when no row writes). Paged, ``paged_write_plan`` finds the pages in the
+    when no row writes); a ring of ``ring`` rows takes position ``p`` at
+    slot ``p % ring``. Paged, ``paged_write_plan`` finds the pages in the
     device table (an entry whose table entry lies outside the pool repeats
     another's write, ``keep`` False), and ``src_rows`` / ``src_cols`` say
     which chunk row each write carries."""
@@ -568,7 +736,12 @@ def _chunk_plan(cache: dict, offsets: np.ndarray, chunk_lens: np.ndarray,
     rows_t, cols_t = (torch.as_tensor(a, device=dev) for a in (rows, cols))
     if "pages_k" not in cache:
         s_len = cache["k"].shape[3]
-        if pos.max() >= s_len:
+        if ring:
+            if c > ring:
+                raise ValueError(f"a chunk of {c} exceeds the {ring}-row "
+                                 f"ring: its positions would share slots")
+            pos = pos % ring
+        elif pos.max() >= s_len:
             raise ValueError(f"chunk reaches position {pos.max()} of a "
                              f"{s_len}-position cache")
         plan.update(rows=rows_t, cols=cols_t,
@@ -601,13 +774,18 @@ def _layer_chunk(lp: dict, i: int, cache: dict, x: torch.Tensor,
     0) start from zero state, since the slot may hold a prior occupant's;
     continuation chunks carry the cached state and conv tails."""
     h = rmsnorm(x, lp["ln1"])
-    if cfg.family == "ssm":
+    y = ys = None
+    if cfg.family in _ATTN:
+        kk, vv = ("pages_k", "pages_v") if paged is not None else ("k", "v")
+        y = _attention_chunk(lp["attn"], h, cache[kk][i], cache[vv][i], cfg,
+                             slopes=slopes, chunk=chunk, paged=paged)
+    if cfg.family in _SSM:
         first, part = chunk["offsets"] == 0, chunk["chunk_lens"] > 0
         st, tx = cache["ssm_h"][i], cache["conv_x"][i]
         tbc = cache["conv_bc"][i]
         zero = torch.zeros((), dtype=st.dtype, device=st.device)
         f4, p4 = first[:, None, None, None], part[:, None, None, None]
-        y, h_fin, tx_new, tbc_new = _ssm_forward(
+        ys, h_fin, tx_new, tbc_new = _ssm_forward(
             lp["ssm"], h, cfg, h0=torch.where(f4, zero, st),
             tail_x=torch.where(f4, zero.to(tx.dtype), tx),
             tail_bc=torch.where(first[:, None, None], zero.to(tbc.dtype), tbc),
@@ -615,11 +793,10 @@ def _layer_chunk(lp: dict, i: int, cache: dict, x: torch.Tensor,
         st.copy_(torch.where(p4, h_fin, st))
         tx.copy_(torch.where(p4, tx_new, tx))
         tbc.copy_(torch.where(part[:, None, None], tbc_new, tbc))
-        return x + y
-    kk, vv = ("pages_k", "pages_v") if paged is not None else ("k", "v")
-    x = x + _attention_chunk(lp["attn"], h, cache[kk][i], cache[vv][i], cfg,
-                             slopes=slopes, chunk=chunk, paged=paged)
-    return x + _mlp(lp, x)
+    x = _mix(lp, x, y, ys, cfg)
+    if cfg.family in _ATTN:
+        x = x + _mlp(lp, x)
+    return x
 
 
 def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
@@ -638,7 +815,8 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
       bit-identical.
     - ``offsets[b] == 0`` starts a prompt: the SSM state and conv tails
       restart from zero; KV needs no reset, as the offset causal mask never
-      reads past the written prefix.
+      reads past the written prefix (a ring's slots count as unwritten at
+      offset 0). A ring takes chunks of at most ``window`` tokens.
     - ``final_lens`` (B,) is the row's new ``length`` where ``>= 0`` and
       "keep" where negative. Mid-prompt chunks pass -1, so the length stays
       0 and interleaved ``decode_step`` calls keep the lane frozen; the
@@ -658,9 +836,10 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     dev, dt = tokens.device, compute_dtype(cfg)
     offs, clens, flens = (_host_ids(x)
                           for x in (offsets, chunk_lens, final_lens))
-    chunk = _chunk_plan(cache, offs, clens, c, dev)
+    ring = cfg.window if "k" in cache and _is_ring(cfg, cache["k"][0]) else 0
+    chunk = _chunk_plan(cache, offs, clens, c, dev, ring=ring)
     slopes = paged = None
-    if cfg.family == "dense" and cfg.bias_kind == "alibi":
+    if cfg.family in _ATTN and cfg.bias_kind == "alibi":
         slopes = params["layers"]["attn"]["slopes"].to(dt).float()  # (L, H)
     if "pages_k" in cache:
         ps = cache["pages_k"].shape[3]
@@ -686,15 +865,22 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda",
                length: int = 0) -> dict:
-    """Zeroed cache: kernel-layout k/v ``(L, B, KVH, max_len, hd)``, or for
-    the SSM family the constant-size ``ssm_h (L, B, Hs, P, N)`` float32
-    state and the conv tails ``conv_x (L, B, W-1, Hs, P)`` and ``conv_bc
-    (L, B, W-1, 2N)`` (``max_len`` does not size them)."""
+    """Zeroed cache: kernel-layout k/v ``(L, B, KVH, S, hd)`` with ``S =
+    max_len``, or ``S = window`` (a ring) where the window is shorter; for
+    the SSM and hybrid families the constant-size ``ssm_h (L, B, Hs, P,
+    N)`` float32 state and the conv tails ``conv_x (L, B, W-1, Hs, P)`` and
+    ``conv_bc (L, B, W-1, 2N)``. The head dim is stored unpadded."""
     _check_supported(cfg)
     cache = {"length": torch.full((batch,), length, dtype=torch.int32,
                                   device=device)}
     l, dt = cfg.n_layers, compute_dtype(cfg)
-    if cfg.family == "ssm":
+    if cfg.family in _ATTN:
+        ring = bool(cfg.window) and cfg.window < max_len
+        shape = (l, batch, cfg.kv_heads_padded,
+                 cfg.window if ring else max_len, cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    if cfg.family in _SSM:
         hs, p, n = cfg.ssm_heads_padded, cfg.ssm_head_dim, cfg.ssm_state
         w = cfg.conv_width
         cache["ssm_h"] = torch.zeros((l, batch, hs, p, n),
@@ -703,10 +889,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda",
                                       device=device)
         cache["conv_bc"] = torch.zeros((l, batch, w - 1, 2 * n), dtype=dt,
                                        device=device)
-        return cache
-    shape = (l, batch, cfg.kv_heads_padded, max_len, cfg.resolved_head_dim)
-    cache["k"] = torch.zeros(shape, dtype=dt, device=device)
-    cache["v"] = torch.zeros(shape, dtype=dt, device=device)
     return cache
 
 

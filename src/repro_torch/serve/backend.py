@@ -23,9 +23,12 @@ attention over the padded slot batch, masked per slot at its own ``n_res``.
   ``max_len`` bound on prompt + budget does not apply: the page table and
   the pool bound a request instead.
 
-The SSM family's cache is constant-size per slot: it accepts prompts of
-any length, and ``page_size`` is a no-op for it (the backend does not
-page), as in the reference.
+The SSM family's cache is constant-size per slot, and a sliding-window
+model whose window is shorter than ``max_len`` keeps a ring of the last
+``window`` keys (the hybrid family also carries the SSM state): both accept
+prompts of any length, and ``page_size`` is a no-op for them (the backend
+does not page), as in the reference. A ring model's prefill chunk is
+clamped to the window, and it refuses ``prefix_cache``.
 
 ``prefill_chunk`` makes admission a planner: it reserves a prompt's pages,
 arms its sampling state and queues a ``ChunkPlan``; the engine then runs
@@ -35,6 +38,10 @@ call that appends a chunk for every pending slot, between decode steps.
 prompt's full pages by content (``serve/prefix.py``): a request whose
 prompt starts with indexed pages shares them through its page table and
 prefills only the rest, copying on write any shared page it must write.
+
+A ``serve.faults.FaultPlan`` set as ``faults`` injects faults: ``alloc``
+fails a lazy page growth before it touches the pool, ``nan`` overwrites a
+slot's logits with NaN on the device before the guard and the sampler.
 
 Mesh sharding waits for a later slice.
 """
@@ -50,7 +57,8 @@ from repro_torch.models import pairformer
 from repro_torch.models.api import Model
 from repro_torch.models.common import tree_map
 from repro_torch.models.lm import cast_layers
-from repro_torch.serve.lifecycle import AdmissionRejected, PoolError
+from repro_torch.serve.lifecycle import (AdmissionRejected, PoolError,
+                                         PoolExhausted)
 from repro_torch.serve.pages import PagePool
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import sample_tokens, sample_tokens_guarded
@@ -72,6 +80,7 @@ class Backend:
     paged: bool = False        # admission gated on page accounting
     lazy: bool = False         # pages grow mid-flight (may force preemption)
     guards: bool = True        # host-side non-finite guards
+    faults = None              # serve.faults.FaultPlan injection hook
 
     def ensure_state(self) -> None:
         """Allocate device state on first use (idempotent)."""
@@ -209,6 +218,12 @@ class TokenDecodeBackend(Backend):
             if model.prefill_chunk is None:
                 raise ValueError(
                     f"{model.cfg.family} model has no chunked-prefill path")
+        cfg = model.cfg
+        # a ring cache keeps the last `window` keys: a chunk's positions
+        # must land on distinct ring slots, so the chunk never exceeds it
+        self.ring = bool(cfg.window) and cfg.window < max_len
+        if prefill_chunk is not None and self.ring:
+            prefill_chunk = min(prefill_chunk, cfg.window)
         self.chunk_size = prefill_chunk
         self._pending: Dict[int, ChunkPlan] = {}
         self._slot_kept: Dict[int, int] = {}   # shared (unwritten) pages
@@ -219,9 +234,12 @@ class TokenDecodeBackend(Backend):
         self._vocab = model.cfg.vocab
         self._guard_bad: Dict[int, str] = {}
         # full-KV caches must fit prompt + budget inside the slot segment
-        # (contiguous) or the page pool (paged); SSM state is constant-size
-        self._bounded_cache = model.cfg.family == "dense"
-        self.paged = page_size is not None and self._bounded_cache
+        # (contiguous) or the page pool (paged); SSM state and ring caches
+        # are constant-size
+        self._bounded_cache = (cfg.family in ("dense", "hybrid")
+                               and not self.ring)
+        self.paged = (page_size is not None and self._bounded_cache
+                      and model.init_paged_cache is not None)
         self.lazy = self.paged and page_reservation == "lazy"
         if self.paged:
             self.page_size = page_size
@@ -235,17 +253,17 @@ class TokenDecodeBackend(Backend):
         # that lives entirely in pages (no recurrent state)
         self._prefix: Optional[PrefixCache] = None
         if prefix_cache:
-            if model.cfg.family != "dense":
-                raise ValueError(
-                    f"prefix_cache shares KV pages only: family "
-                    f"'{model.cfg.family}' carries per-slot recurrent state "
-                    f"a mid-prompt prefill start cannot rebuild")
             if not (self.paged and self.chunk_size):
                 raise ValueError(
                     "prefix_cache needs paged KV (page_size) + chunked "
                     "prefill (prefill_chunk): shared pages map through the "
                     "page table and novel tails land via mid-prompt "
                     "ChunkPlans")
+            if cfg.family != "dense":
+                raise ValueError(
+                    f"prefix_cache shares KV pages only: family "
+                    f"'{model.cfg.family}' carries per-slot recurrent state "
+                    f"a mid-prompt prefill start cannot rebuild")
             if model.copy_pages is None:
                 raise ValueError(
                     "prefix_cache needs the model's copy_pages program")
@@ -403,8 +421,11 @@ class TokenDecodeBackend(Backend):
     def grow_slots(self, growing: List[int]) -> None:
         """Give every growing slot its next page and write the new table
         rows. Atomic: every check and the allocation happen before any
-        table changes, so a ``PoolExhausted`` leaves ``_slot_pages`` and
-        the device tables as they were."""
+        table changes, so a ``PoolExhausted`` (real, or a fault plan's
+        ``alloc``) leaves ``_slot_pages`` and the device tables as they
+        were."""
+        if self.faults is not None and self.faults.alloc_fails():
+            raise PoolExhausted("injected page-alloc failure (fault plan)")
         for slot in growing:
             if len(self._slot_pages[slot]) + 1 > self.pages_per_slot:
                 raise PoolError(
@@ -441,9 +462,14 @@ class TokenDecodeBackend(Backend):
             toks[i, :r.tokens.size] = r.tokens
             lengths[i] = r.prompt_len
         # paged: the wave cache holds the padded prompt, page-aligned, not
-        # a max_len segment; its pages scatter into the pool
-        pf_len = (-(-padded // self.page_size) * self.page_size
-                  if self.paged else None)
+        # a max_len segment; its pages scatter into the pool. A windowed
+        # model's prefill needs the slot length to tell a ring cache from
+        # a full one
+        pf_len = None
+        if self.paged:
+            pf_len = -(-padded // self.page_size) * self.page_size
+        elif self.model.cfg.window:
+            pf_len = max(self.max_len, padded)
         with torch.no_grad():
             logits, wave_cache = self.model.prefill(
                 self.params, {"tokens": torch.as_tensor(toks,
@@ -618,7 +644,16 @@ class TokenDecodeBackend(Backend):
         (NaN, +inf, or an all(-inf) row: the row max says which) has its
         commit withheld and is recorded for the engine to quarantine; its
         stream state stays aligned with its committed token count, so the
-        retry resumes bit-identically."""
+        retry resumes bit-identically. A fault plan's ``nan`` slots have
+        their logits overwritten with NaN on the device first, so a drill
+        flows through the same guard as a real fault."""
+        if self.faults is not None:
+            bad = self.faults.nan_slots()
+            if bad:
+                rows = (torch.arange(self.n_slots, device=self.device)
+                        if -1 in bad else
+                        torch.as_tensor(bad, device=self.device))
+                logits2d = logits2d.index_fill(0, rows, float("nan"))
         args = (self._temps, self._topks, self._seeds, self._counts,
                 self._vocab)
         commit = mask

@@ -53,6 +53,17 @@ an earlier prompt completed shares them and prefills only the rest, with
 streams bit-equal to the unshared chunked engine's; a quarantined slot's
 written pages leave the index.
 
+Fault injection (``faults``, a ``serve.faults.FaultPlan``): the engine
+ticks the plan once per step; a ``delay`` skips admission, a ``step`` fault
+replaces the decode dispatch with an ``InjectedFault`` that the engine
+contains (nothing advanced, so the next step retries), an ``alloc`` fault
+fails a lazy page growth (the growing slots are preempted and resume
+bit-identically), and a ``nan`` fault poisons a slot's logits on the device
+so the real guard quarantines it. ``snapshot_engine`` serializes the whole
+host state to a JSON-compatible dict and ``restore_engine`` resumes it on a
+fresh engine of the same config, bit-identically, by re-prefill (no device
+state is captured).
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device, constructing the engine with no
 ``device`` raises.
@@ -68,14 +79,21 @@ import torch
 
 from repro_torch.models.api import Model
 from repro_torch.serve.backend import PairBatchBackend, TokenDecodeBackend
+from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.lifecycle import (
     CANCELLED, FAILED, OK, QUEUED, REJECTED, RUNNING, TERMINAL_STATUSES,
-    TIMED_OUT, AdmissionRejected, EngineStalled, PoolExhausted,
-    RequestNotLive, RequestRecord)
+    TIMED_OUT, AdmissionRejected, EngineStalled, InjectedFault,
+    PoolExhausted, RequestNotLive, RequestRecord)
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import FIFOScheduler, Request
 
-__all__ = ["ServeEngine", "resolve_device"]
+__all__ = ["ServeEngine", "resolve_device", "SNAPSHOT_FORMAT"]
+
+# The snapshot's own format: its sampling-stream state is the port's
+# (seed, count) pair, not the reference's threefry key, so a snapshot of
+# one package cannot resume in the other
+SNAPSHOT_FORMAT = "repro_torch.serve"
+_SNAPSHOT_VERSION = 1
 
 
 def resolve_device(device=None) -> torch.device:
@@ -112,6 +130,22 @@ class _ReqMeta:
     retries: int = 0                  # quarantine retries consumed
     max_retries: int = 1
     deadline: Optional[int] = None    # absolute engine step, None = never
+
+
+def _ser_arr(x) -> dict:
+    """JSON-compatible encoding of a payload: a token-id list (mid-flight
+    results) or an ndarray (prompts, stream keys, pair results)."""
+    if isinstance(x, np.ndarray):
+        return {"kind": "array", "dtype": str(x.dtype),
+                "shape": list(x.shape), "data": x.ravel().tolist()}
+    return {"kind": "ids", "data": [int(t) for t in x]}
+
+
+def _de_arr(d: dict):
+    if d["kind"] == "array":
+        return np.asarray(d["data"], dtype=np.dtype(d["dtype"])).reshape(
+            d["shape"])
+    return list(d["data"])
 
 
 class ServeEngine:
@@ -152,7 +186,9 @@ class ServeEngine:
         prefix_cache: content-hashed prefix caching (needs ``page_size``,
             ``prefill_chunk`` and the dense family): completed prompt pages
             are shared by later prompts that start with them.
-        mesh, faults: later slices of the port; passing either raises
+        faults: a ``serve.faults.FaultPlan`` for deterministic fault
+            injection (drills); None injects nothing.
+        mesh: a later slice of the port; passing it raises
             ``NotImplementedError``.
     """
 
@@ -168,12 +204,10 @@ class ServeEngine:
                  prefix_cache: bool = False,
                  mesh=None,
                  guards: bool = True,
-                 faults=None,
+                 faults: Optional[FaultPlan] = None,
                  stall_limit: int = 64,
                  factors: Optional[dict] = None,
                  device=None):
-        if faults is not None:
-            raise _deferred("faults (fault injection)", 4)
         if mesh is not None:
             raise _deferred("mesh (sharded serving)", 10)
         if stall_limit < 1:
@@ -206,11 +240,13 @@ class ServeEngine:
             self.pages_per_slot = self.backend.pages_per_slot
         self.guards = guards
         self.backend.guards = guards
+        self.faults = faults
+        self.backend.faults = faults
         self.stall_limit = stall_limit
-        self.step_idx = 0               # engine steps taken
+        self.step_idx = 0               # engine steps taken (fault clock)
         self.n_preemptions = 0
         self.n_quarantines = 0          # guard trips contained
-        self.n_faults_contained = 0     # pool exhaustions at growth
+        self.n_faults_contained = 0     # step / alloc faults contained
         self.scheduler = FIFOScheduler(policy=scheduler_policy)
         self._next_rid = 0
         self._results: Dict[int, object] = {}   # rid -> [ids] | ndarray
@@ -358,14 +394,23 @@ class ServeEngine:
         pending prompt (chunked prefill), then advance every decoding slot
         one token. Returns rids that reached a terminal status."""
         self.backend.ensure_state()
+        if self.faults is not None:
+            self.faults.tick(self.step_idx)
         finished = self._expire_deadlines()
-        if self._free and len(self.scheduler):
+        delayed = (self.faults is not None
+                   and self.faults.admission_delayed())
+        if self._free and len(self.scheduler) and not delayed:
             finished += self.admit()
         if self.backend.prefill_pending():
             emissions, mask = self.backend.prefill_step()
             finished += self._commit_guarded(emissions, mask)
         if self._live:
-            finished += self.decode()
+            try:
+                finished += self.decode()
+            except InjectedFault:
+                # the failed step dispatched nothing and advanced no state:
+                # containment is retrying next step
+                self.n_faults_contained += 1
         self.step_idx += 1
         return finished
 
@@ -466,11 +511,18 @@ class ServeEngine:
         mode first grows every slot whose write position crossed a page
         boundary, preempting the lowest-priority live request while the
         pool is dry, so the step itself never allocates. Skipped while
-        every live slot is still mid-chunked-prefill."""
+        every live slot is still mid-chunked-prefill.
+
+        A fault plan's ``step`` fault raises ``InjectedFault`` before
+        anything is dispatched; a ``PoolExhausted`` out of growth
+        (injected, or an accounting bug) preempts the growing slots, whose
+        snapshots resume bit-identically."""
         self.backend.ensure_state()
         pending = self.backend.pending_slots()
         if pending and all(s in pending for s in self._live):
             return []               # nothing decoding yet: chunks only
+        if self.faults is not None and self.faults.step_fails():
+            raise InjectedFault("injected decode-step failure (fault plan)")
         if self.backend.lazy:
             # (priority, arrival) is a total order, so the highest-priority
             # earliest request always progresses: no preemption livelock
@@ -483,8 +535,8 @@ class ServeEngine:
                 try:
                     self.backend.grow_slots(growing)
                 except PoolExhausted:
-                    # reached only through an accounting bug: growth is
-                    # atomic, so preempting the growing slots is safe
+                    # growth is atomic (no partial table state), so
+                    # preempting the growing slots is safe
                     self.n_faults_contained += 1
                     for slot in growing:
                         if slot in self._live:
@@ -594,14 +646,146 @@ class ServeEngine:
         return finished + self._commit(emissions, mask)
 
     # ------------------------------------------------------------------
-    # Checkpoint (later slice)
+    # Crash-safe checkpoint / restore
     # ------------------------------------------------------------------
 
+    def _ser_req(self, req: Request) -> dict:
+        """Serialize one request descriptor. ``on_token`` callbacks are host
+        closures that cannot cross a process boundary: they are dropped."""
+        return {
+            "rid": req.rid,
+            "tokens": _ser_arr(np.asarray(req.tokens)),
+            "max_new_tokens": req.max_new_tokens,
+            "sampling": {"temperature": req.sampling.temperature,
+                         "top_k": req.sampling.top_k,
+                         "seed": req.sampling.seed},
+            "frontend": (None if req.frontend is None
+                         else _ser_arr(np.asarray(req.frontend))),
+            "key_override": (None if req.key_override is None
+                             else _ser_arr(np.asarray(req.key_override))),
+            "priority": req.priority,
+        }
+
+    def _de_req(self, d: dict) -> Request:
+        return Request(
+            d["rid"], _de_arr(d["tokens"]), d["max_new_tokens"],
+            SamplingParams(d["sampling"]["temperature"],
+                           d["sampling"]["top_k"], d["sampling"]["seed"]),
+            None if d["frontend"] is None else _de_arr(d["frontend"]),
+            key_override=(None if d["key_override"] is None
+                          else np.asarray(_de_arr(d["key_override"]),
+                                          np.int64)),
+            priority=d["priority"])
+
+    def _config_sig(self) -> dict:
+        """The config facts a restore target must agree on."""
+        backend = self.backend
+        return {"family": self.model.cfg.family, "arch": self.model.cfg.name,
+                "n_slots": self.n_slots, "max_len": self.max_len,
+                "prefill_len": self.prefill_len,
+                "paged": backend.paged, "lazy": backend.lazy,
+                "page_size": getattr(backend, "page_size", None),
+                "n_pages": getattr(backend, "n_pages", None),
+                "chunk_size": getattr(backend, "chunk_size", None),
+                "prefix_cache": getattr(backend, "_prefix", None)
+                is not None}
+
     def snapshot_engine(self) -> dict:
-        raise _deferred("snapshot_engine (crash-safe checkpoint)", 5)
+        """Serialize all host state to a JSON-compatible dict, without
+        perturbing the running engine: lifecycle records, results so far,
+        the scheduler's queues, and every live slot as its preemption
+        resume request (generated tokens folded into the prompt, the
+        sampling stream's ``(seed, count)`` in ``key_override``; a slot
+        mid-``ChunkPlan`` serializes as its whole original request, having
+        emitted nothing).
+
+        Device state is not captured: caches, pages and the prefix index
+        are rebuilt by re-prefill on the restored engine, which the
+        preemption contract makes bit-identical. The prefix index's chain
+        digests ride along for audit only."""
+        front, arrivals = self.scheduler.snapshot()
+        live = [self._ser_req(self.backend.snapshot_request(
+                    slot, st, self._results[st.req.rid]))
+                for slot, st in sorted(self._live.items())]
+        prefix = getattr(self.backend, "_prefix", None)
+        return {
+            "format": SNAPSHOT_FORMAT,
+            "version": _SNAPSHOT_VERSION,
+            "config": self._config_sig(),
+            "step_idx": self.step_idx,
+            "next_rid": self._next_rid,
+            "counters": {"preemptions": self.n_preemptions,
+                         "quarantines": self.n_quarantines,
+                         "faults_contained": self.n_faults_contained,
+                         "advanced": self._advanced},
+            "meta": {str(rid): {"status": m.status, "error": m.error,
+                                "retries": m.retries,
+                                "max_retries": m.max_retries,
+                                "deadline": m.deadline}
+                     for rid, m in self._meta.items()},
+            "results": {str(rid): _ser_arr(res)
+                        for rid, res in self._results.items()},
+            "done": {str(rid): bool(v) for rid, v in self._done.items()},
+            "queue": {"front": [self._ser_req(r) for r in front],
+                      "arrivals": [self._ser_req(r) for r in arrivals]},
+            "live": live,
+            "prefix_digests": ([k.hex() for k in prefix._entries]
+                               if prefix is not None else []),
+        }
 
     def restore_engine(self, state: dict) -> None:
-        raise _deferred("restore_engine (crash-safe checkpoint)", 5)
+        """Rebuild a snapshot's host state on this engine (freshly
+        constructed, same config, nothing submitted). Live requests
+        re-enter at the head of the queue as preempted requests do; the
+        next ``step`` / ``run`` re-admits them and resumes them
+        bit-identically. Refuses (``ValueError``) a snapshot of another
+        format (the JAX engine's among them), of another version, of
+        another config (naming the keys that differ), and an engine that
+        is not fresh."""
+        if state.get("format") != SNAPSHOT_FORMAT:
+            raise ValueError(
+                f"engine snapshot format {state.get('format')!r} != "
+                f"{SNAPSHOT_FORMAT!r} — refusing to restore (a snapshot "
+                f"of another engine carries another sampling-stream state)")
+        if state.get("version") != _SNAPSHOT_VERSION:
+            raise ValueError(
+                f"engine snapshot version {state.get('version')!r} != "
+                f"{_SNAPSHOT_VERSION} — refusing to restore")
+        if self._live or len(self.scheduler) or self._results:
+            raise ValueError("restore_engine needs a fresh engine: this "
+                             "one already has requests")
+        mine, theirs = self._config_sig(), state["config"]
+        if mine != theirs:
+            diff = {k: (theirs.get(k), mine.get(k))
+                    for k in set(mine) | set(theirs)
+                    if theirs.get(k) != mine.get(k)}
+            raise ValueError(f"engine config mismatch (snapshot vs this "
+                             f"engine): {diff}")
+        self.step_idx = state["step_idx"]
+        self._next_rid = state["next_rid"]
+        counters = state["counters"]
+        self.n_preemptions = counters["preemptions"]
+        self.n_quarantines = counters["quarantines"]
+        self.n_faults_contained = counters["faults_contained"]
+        self._advanced = counters["advanced"]
+        self._meta = {int(rid): _ReqMeta(status=m["status"],
+                                         error=m["error"],
+                                         retries=m["retries"],
+                                         max_retries=m["max_retries"],
+                                         deadline=m["deadline"])
+                      for rid, m in state["meta"].items()}
+        self._results = {int(rid): _de_arr(res)
+                         for rid, res in state["results"].items()}
+        self._done = {int(rid): v for rid, v in state["done"].items()}
+        live = [self._de_req(d) for d in state["live"]]
+        front = [self._de_req(d) for d in state["queue"]["front"]]
+        arrivals = [self._de_req(d) for d in state["queue"]["arrivals"]]
+        for req in live:
+            # a live slot resumes as a preempted request does: at the
+            # queue head, QUEUED until re-admission
+            self._meta[req.rid].status = QUEUED
+        self.scheduler.restore(
+            sorted(live + front, key=lambda r: r._order), arrivals)
 
     # ------------------------------------------------------------------
     # Internals

@@ -19,9 +19,8 @@ counterpart of ``tests/test_chunked_prefill.py``).
   unchunked backend reports nothing pending; a request preempted mid-chunk
   resumes bit-identically.
 
-The reference's ring-KV (sliding-window) case is left out: the port
-refuses ``window`` until its ring caches are ported (ROADMAP.md Queue A
-item 8). Inputs come from numpy seeds; the reference's parameters are
+The reference's ring-KV (sliding-window) case is in ``test_torch_hybrid.py``.
+Inputs come from numpy seeds; the reference's parameters are
 carried across with ``params_from_numpy``.
 """
 import jax

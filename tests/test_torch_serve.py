@@ -2,8 +2,8 @@
 engine on the same staggered schedule, and the engine's in-port contracts
 (sampled streams independent of batch packing, lifecycle statuses, cancel,
 deadlines, bit-identical preemption resume, guard quarantine) plus the
-constructor arguments that belong to later slices and the prefix cache's
-requirements (paged serving is in ``test_torch_paged.py``, chunked prefill
+constructor argument that belongs to a later slice (``mesh``) and the prefix
+cache's requirements (paged serving is in ``test_torch_paged.py``, chunked prefill
 and prefix caching in ``test_torch_chunked_prefill.py`` and
 ``test_torch_prefix_cache.py``)."""
 import jax
@@ -219,9 +219,9 @@ def test_guards_off_lets_poison_through(gpt2):
     {"prefill_chunk": 8, "prefix_cache": True},          # no page_size
     {"arch": "mamba2_130m", "page_size": 16, "prefill_chunk": 8,
      "prefix_cache": True},                              # recurrent state
-    {"mesh": object()}, {"faults": object()}])
+    {"mesh": object()}])
 def test_later_slice_arguments_raise(gpt2, kwarg):
-    """``mesh`` and ``faults`` belong to later slices of the port; a prefix
+    """``mesh`` belongs to a later slice of the port; a prefix
     cache without paged KV, without chunked prefill or on the SSM family
     raises the reference's ``ValueError``."""
     kwarg = dict(kwarg)
@@ -231,21 +231,12 @@ def test_later_slice_arguments_raise(gpt2, kwarg):
         model = get_model(cfg)
         params = init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
-    if "mesh" in kwarg or "faults" in kwarg:
+    if "mesh" in kwarg:
         err, match = NotImplementedError, "ROADMAP.md Queue A item"
     else:
         err, match = ValueError, "prefix_cache"
     with pytest.raises(err, match=match):
         ServeEngine(model, params, device="cpu", **KW, **kwarg)
-
-
-def test_checkpoint_is_a_later_slice(gpt2):
-    model, params = gpt2
-    eng = ServeEngine(model, params, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.snapshot_engine()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.restore_engine({})
 
 
 def test_generate_fills_after_eos(gpt2):
