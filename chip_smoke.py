@@ -30,7 +30,9 @@ as it runs, any failure ending the run:
               row (the path shapes among them; paged, one with its write
               block the sentinel) must leave the caches bit-equal to the
               plain version's; the path shapes, called twice, must give
-              bit-identical outputs;
+              bit-identical outputs; kernels 3 and 4 also at 12 and 16 q
+              heads per kv head (KVH 8, D 128, the MG = 16 body) at
+              SPLIT_LENGTHS;
 3. serve    — GPT-2-ALiBi-1.5B at full width (48 layers, d_model 1600,
               bf16, random weights from ``--seed``) through ``ServeEngine``
               on 4 slots x 2048 positions: 8 ragged requests (prompts
@@ -54,9 +56,11 @@ as it runs, any failure ending the run:
               kernel paths timed and traced with torch.profiler (device
               busy time, idle share, top kernels, and the indexing kernels'
               calls and time per step);
-6. times    — kernel, plain-version and library device times per call at
-              the path shapes (torch.profiler), the least time the card
-              could take (bound), decode step times and end-to-end tokens/s;
+6. times    — each kernel at the path shapes checked against its plain
+              version on the timed tensors, then kernel, plain-version and
+              library device times per call (torch.profiler), the least
+              time the card could take (bound), decode step times and
+              end-to-end tokens/s;
               the decode kernels' calls write the new row, as on the serve
               path, and their bounds count its bytes (the library calls
               write none);
@@ -216,9 +220,65 @@ as it runs, any failure ending the run:
               version and bound; the prefill wave and the decode step on
               the host clock, device busy and idle share.
 
-Kernel 1's ``launches`` in the record adds phases 13, 14 and 17 to the
-serve phase's, kernel 5's adds phase 17's; their times stay at the LM
-prefill and SSM shapes (the other shapes' are logged above the record).
+18. paged-hybrid — hymba-1.5b at full width (32 layers, random bf16
+              weights from ``--seed``) through a paged ``ServeEngine`` on
+              4 slots x PAGED_HYBRID_MAX_LEN = 1024, which the window
+              covers: no ring, the attention cache pages (page size 16,
+              lazy, a pool that grows and preempts), the SSM state rides
+              per slot. 8 requests (PAGED_HYBRID_PROMPTS), 32 new tokens,
+              6 greedy and 2 sampled, staggered. Every request OK, every
+              page free after the drain; kernel 4 launched 32 x decode
+              steps (G 8, D 64, phi against the [1, pos] slab) and kernel
+              3 never; kernels 1 (local, window 1024) and 5 32 x waves,
+              held in situ as in phase 17. The first wave's prefill and 4
+              decode steps on the contiguous and the paged cache against
+              the plain path, within HYBRID_LOGIT_TOL (the contiguous
+              cache of 1024 rows is a ring of the window, attended in
+              plain torch, as the reference does). Kernel 1 (local) and
+              kernel 4 at this config's shapes checked against their plain
+              versions, then timed with them, bounds and library calls
+              (``model_kernel_times``);
+              the prefill wave and the paged decode step on the host
+              clock, device busy, idle share and top kernels;
+19. moe     — granite-moe-3b-a800m whole (32 layers, d_model 1536, 32
+              heads x 64 over 8 kv heads, 40 experts padded to 48, top 8,
+              bf16) on the LM phase's traffic, contiguous and then paged
+              (a pool that preempts): every request OK; kernel 1 32 x
+              waves, kernel 3 (contiguous) or 4 (paged) 32 x steps; the
+              paged first-token logits within LOGIT_TOL of the contiguous
+              ones (greedy streams compared and logged); phase 5's parity
+              on the first wave and 4 decode steps, with launch counts,
+              every path fed the contiguous kernel path's expert choices
+              (``RouteFeed``; the share of the other paths' routings whose
+              own top-k set differs within ROUTE_SET_SHARE); kernels 1, 3
+              and 4 at the config's shapes checked against their plain
+              versions, then timed; phase 6b's prefix engines (chunk 256, a
+              512-token shared prefix), streams bit-equal; the wave's and
+              the decode step's top device kernels (the dispatch's share).
+              Then
+              llama4-scout-17b-a16e at MOE_LLAMA_LAYERS = 4 of 48 layers,
+              full width (16 experts, top 1, G 6, D 128): a short serve (4
+              requests, SHORT_PROMPTS, 16 new tokens), contiguous and paged,
+              with the same checks (the pool grows; a preemption is not
+              required of 4 requests);
+20. dense-configs — codeqwen1.5-7b (32 layers, MHA 32 x 128) and
+              minicpm-2b (40 layers, 48 heads x 64) whole, and
+              command-r-plus-104b at DENSE_R_LAYERS = 4 of 64 layers, full
+              width (96 heads x 128 over 8 kv heads, G 12): a short paged
+              serve each (every request OK, launch counts, the pool grows
+              and drains) and phase 5's parity on the first wave and 2
+              decode steps, within LOGIT_ULPS bf16 ulps at the config's top
+              |logit| (at least LOGIT_TOL); kernels 1, 3 and 4 at each
+              config's shapes checked against their plain versions, then
+              timed with them, bounds and library calls; kernels 3 and 4
+              at command-r-plus's shape at SPLIT_LENGTHS against their
+              plain versions.
+
+Phases 17-20 each run in a process of their own (``run_child``). Kernel 1's
+``launches`` in the record adds phases 13, 14 and 17-20 to the serve
+phase's, kernels 3 and 4 add phases 18-20's, kernel 5's adds phases 17 and
+18's; their times stay at the LM prefill, LM decode and SSM shapes (the
+other shapes' are logged above the record).
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -247,6 +307,14 @@ N_LAYERS = 48
 SLOTS, MAX_LEN, PROMPT_MAX, NEW_TOKENS = 4, 2048, 512, 32
 PAGE = 16                        # page size of the paged phases
 LOGIT_TOL = 0.25                 # bf16 logits, 48 layers deep (see phase 5)
+# LOGIT_TOL is 4 bf16 ulps of logits in [8, 16), GPT-2's top scale. Wider
+# models' logits reach higher (random embeddings: std 0.02 * sqrt(d_model),
+# 2.2 at command-r-plus's 12288), where a bf16 ulp is larger: 0.25 is one
+# ulp of logits in [32, 64). Phase 20 holds its configs to LOGIT_ULPS = 2
+# ulps at their own top |logit| (never below LOGIT_TOL); its readings were
+# one ulp (0.25 at top logits of 39.5-63.0). Its kernels are also held at
+# the model shapes directly (``model_kernel_times``).
+LOGIT_ULPS = 2
 # decode lengths across the split kernel's span boundaries (128 keys at D 32,
 # 32 at D 160) and the whole cache
 SPLIT_LENGTHS = [0, 1, 63, 64, 65, 127, 128, 129, 777, 2048]
@@ -344,6 +412,24 @@ HYBRID_DECODE_STEPS = 4          # decode steps of the hybrid parity
 # plain torch on both paths. The bound is LOGIT_TOL's: 4 bf16 ulps of
 # logits in [8, 16), 2 in [16, 32).
 HYBRID_LOGIT_TOL = 0.25
+# phase 18: hymba with max_len 1024, which its window covers: no ring, the
+# attention cache pages (kernel 4 at G 8, D 64), the SSM state per slot
+PAGED_HYBRID_MAX_LEN = 1024
+PAGED_HYBRID_PROMPTS = (960, 700, 512, 300, 64, 900, 400, 128)
+# phases 19-20: depth cut where the whole model would not fit one card
+# (llama4-scout 100.7 B parameters, command-r-plus 103.8 B; bf16 weights
+# of 201 and 208 GB), and the short serves' traffic
+MOE_LLAMA_LAYERS, DENSE_R_LAYERS = 4, 4
+# MoE parity: the share of the router calls of the parity's other paths
+# (plain, paged kernel, paged plain) whose own top-k expert set differs from
+# the fed one (``RouteFeed``). Rounding re-routes a token only at a near tie
+# of the k-th and (k+1)-th router probability; a fault that moves the
+# router's inputs re-routes a large share. Each limit is 4 times the
+# config's reading on the card (granite 1783 of 67072 routings, 2.66%;
+# llama4 30 of 8384, 0.36%; PERF.md, PR 21).
+ROUTE_SET_SHARE = {"granite-moe-3b-a800m": 0.1063,
+                   "llama4-scout-17b-a16e": 0.0143}
+SHORT_PROMPTS, SHORT_NEW_TOKENS = (512, 300, 64, 450), 16
 
 
 def log(phase: str, msg: str) -> None:
@@ -729,6 +815,104 @@ def paged_inputs(gen, rng, b, kvh, g, d, ps, dtype, bias, lengths, r=4):
     return q, kp, vp, lens, pt, extra
 
 
+def check_kernel(worst: dict, name, got, want, dtype, path=False,
+                 wrapper=None, before=0, label="kernels"):
+    """One kernel call against its plain version under ``tolerance``
+    (and, with ``wrapper``, on the body its dtype selects); a path shape's
+    error goes into ``worst`` under the kernel's name."""
+    import torch
+    torch.cuda.synchronize()
+    if wrapper is not None:
+        tc = wrapper.tensor_core_launches - before
+        if tc != (dtype == torch.bfloat16):
+            raise AssertionError(f"{name}: {tc} tensor-core launches")
+    err = float((got.float() - want.float()).abs().max())
+    tol = tolerance(dtype, want)
+    ok = bool(torch.isfinite(got).all()) and err <= tol
+    log(label, f"{name}: max_abs_err {err:.3e} (tol {tol:.1e}) "
+               f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version ({err:.3e} > {tol:.1e})")
+    if path:
+        worst[name.split(" ")[0]] = err
+    return err
+
+
+def decode_case(gen, check, name, fn, plain, q, k, v, lens, extra, kw,
+                dtype, path, write, new=None):
+    """A decode kernel call against its plain version (``check``). Where it
+    writes the new token's row (k_new, v_new, as the serve path does; drawn
+    from ``gen`` unless ``new`` gives them) the caches after the call must
+    be bit-equal to the plain version's; every length-0 row must be exactly
+    0; a path shape runs twice and must be bit-identical."""
+    import torch
+    b, kvh, _, d = q.shape
+    if not write:
+        new = {}
+    elif new is None:
+        new = {"k_new": torch.randn((b, kvh, d), generator=gen,
+                                    device="cuda").to(dtype),
+               "v_new": torch.randn((b, kvh, v.shape[-1]), generator=gen,
+                                    device="cuda").to(dtype)}
+
+    def run(f):
+        kc, vc = k.clone(), v.clone()
+        return f(q, kc, vc, lens, *extra, **kw, **new), kc, vc
+
+    got, k_got, v_got = run(fn)
+    want, k_want, v_want = run(plain)
+    check(name, got, want, dtype, path)
+    if bool(got[lens == 0].any()):
+        raise AssertionError(f"{name}: rows of length 0 are not 0")
+    if write and not (torch.equal(k_got, k_want)
+                      and torch.equal(v_got, v_want)):
+        raise AssertionError(f"{name}: the caches after the fused row "
+                             f"write differ from the plain version's")
+    if path:
+        again, _, _ = run(fn)
+        torch.cuda.synchronize()
+        if not torch.equal(again, got):
+            raise AssertionError(f"{name}: two calls on the same inputs "
+                                 f"are not bit-identical")
+        log("kernels", f"{name}: caches bit-equal to the plain "
+                       f"version's, two calls bit-identical")
+
+
+def wide_group_decode(gen, rng, check, g: int, kvh: int = 8,
+                      d: int = 128) -> None:
+    """Kernels 3 and 4 at ``g`` q heads per kv head (12 is command-r-plus's
+    group, 6 llama4-scout's; 9 to 16 take the MG = 16 body), ``kvh`` kv
+    heads, D ``d``, at
+    SPLIT_LENGTHS, writing the new row: contiguous with ALiBi slopes (bf16)
+    and phi (float32), paged at page size PAGE on the serve path's [1, pos]
+    slab (bf16) and with random phi factors (float32)."""
+    import torch
+    from repro_torch.kernels.flash_decode import (flash_decode_fwd,
+                                                  flash_decode_paged_fwd,
+                                                  flash_decode_paged_torch,
+                                                  flash_decode_torch)
+    b = len(SPLIT_LENGTHS)
+    for dtype, bias in ((torch.bfloat16, "alibi"), (torch.float32, "phi")):
+        q, k, v, lens, extra = decode_inputs(gen, b, kvh, g, 2048, d, dtype,
+                                             bias, SPLIT_LENGTHS)
+        decode_case(gen, check, f"flash_decode_fwd splits KVH{kvh} G{g} "
+                                f"D{d} {str(dtype)[6:]} {bias} write",
+                    flash_decode_fwd, flash_decode_torch, q, k, v, lens, (),
+                    dict(scale=d ** -0.5, **extra), dtype, False, True)
+    for dtype, bias in ((torch.bfloat16, "alibi_slab"),
+                        (torch.float32, "phi")):
+        q, kp, vp, lens, pt, extra = paged_inputs(gen, rng, b, kvh, g, d,
+                                                  PAGE, dtype, bias,
+                                                  SPLIT_LENGTHS)
+        decode_case(gen, check, f"flash_decode_paged_fwd splits KVH{kvh} "
+                                f"G{g} D{d} ps{PAGE} {str(dtype)[6:]} "
+                                f"{bias} write",
+                    flash_decode_paged_fwd, flash_decode_paged_torch, q, kp,
+                    vp, lens, (pt,), dict(scale=d ** -0.5, **extra), dtype,
+                    False, True)
+
+
 def phase_kernels(seed: int) -> dict:
     import torch
     from repro_torch.kernels.flash_decode import (flash_decode_fwd,
@@ -741,23 +925,7 @@ def phase_kernels(seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.default_rng(seed)
     worst = {}
-
-    def check(name, got, want, dtype, path=False, wrapper=None, before=0):
-        torch.cuda.synchronize()
-        if wrapper is not None:
-            tc = wrapper.tensor_core_launches - before
-            if tc != (dtype == torch.bfloat16):
-                raise AssertionError(f"{name}: {tc} tensor-core launches")
-        err = float((got.float() - want.float()).abs().max())
-        tol = tolerance(dtype, want)
-        ok = bool(torch.isfinite(got).all()) and err <= tol
-        log("kernels", f"{name}: max_abs_err {err:.3e} (tol {tol:.1e}) "
-                       f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version ({err:.3e} > {tol:.1e})")
-        if path:
-            worst[name.split(" ")[0]] = err
+    check = functools.partial(check_kernel, worst)
 
     # prefill kernel: the serving path's shape, then off-path modes
     cases = [("flashbias_attention_fwd path B4 H64 N512 D32 bf16 alibi "
@@ -792,41 +960,8 @@ def phase_kernels(seed: int) -> dict:
               flashbias_attention_torch(q, k, v, **kw), dtype, path,
               flashbias_attention_fwd, before)
 
-    # decode kernels (3 and 4). Where a case writes the new token's row
-    # (k_new, v_new, as the serve path does) the caches after the call must
-    # be bit-equal to the plain version's; every length-0 row must be
-    # exactly 0; the path shapes run twice and must be bit-identical.
-    def decode_case(name, fn, plain, q, k, v, lens, extra, kw, dtype, path,
-                    write):
-        b, kvh, _, d = q.shape
-        new = {}
-        if write:
-            new = {"k_new": torch.randn((b, kvh, d), generator=gen,
-                                        device="cuda").to(dtype),
-                   "v_new": torch.randn((b, kvh, v.shape[-1]), generator=gen,
-                                        device="cuda").to(dtype)}
-
-        def run(f):
-            kc, vc = k.clone(), v.clone()
-            return f(q, kc, vc, lens, *extra, **kw, **new), kc, vc
-
-        got, k_got, v_got = run(fn)
-        want, k_want, v_want = run(plain)
-        check(name, got, want, dtype, path)
-        if bool(got[lens == 0].any()):
-            raise AssertionError(f"{name}: rows of length 0 are not 0")
-        if write and not (torch.equal(k_got, k_want)
-                          and torch.equal(v_got, v_want)):
-            raise AssertionError(f"{name}: the caches after the fused row "
-                                 f"write differ from the plain version's")
-        if path:
-            again, _, _ = run(fn)
-            torch.cuda.synchronize()
-            if not torch.equal(again, got):
-                raise AssertionError(f"{name}: two calls on the same inputs "
-                                     f"are not bit-identical")
-            log("kernels", f"{name}: caches bit-equal to the plain "
-                           f"version's, two calls bit-identical")
+    # decode kernels (3 and 4), each case through ``decode_case``
+    decode = functools.partial(decode_case, gen, check)
 
     # contiguous: the serving path's shape (writing the row), phi mode and
     # GQA, then lengths across the split boundaries (SPLIT_LENGTHS)
@@ -852,9 +987,8 @@ def phase_kernels(seed: int) -> dict:
     for name, b, kvh, g, s, d, dtype, bias, lengths, path, write in cases:
         q, k, v, lens, extra = decode_inputs(gen, b, kvh, g, s, d, dtype,
                                              bias, lengths)
-        decode_case(name, flash_decode_fwd, flash_decode_torch, q, k, v,
-                    lens, (), dict(scale=d ** -0.5, **extra), dtype, path,
-                    write)
+        decode(name, flash_decode_fwd, flash_decode_torch, q, k, v, lens, (),
+               dict(scale=d ** -0.5, **extra), dtype, path, write)
 
     # paged: the paged serving path's shape (phi mode against the shared
     # [1, pos] slab, page size 16, writing the row), then GQA, the other
@@ -885,9 +1019,14 @@ def phase_kernels(seed: int) -> dict:
         if write == "sentinel":
             pt = sentinel_write(pt, lengths.index(65), 64 // ps,
                                 -(-max(lengths) // ps), kp.shape[1])
-        decode_case(name, flash_decode_paged_fwd, flash_decode_paged_torch,
-                    q, kp, vp, lens, (pt,), dict(scale=d ** -0.5, **extra),
-                    dtype, path, bool(write))
+        decode(name, flash_decode_paged_fwd, flash_decode_paged_torch, q, kp,
+               vp, lens, (pt,), dict(scale=d ** -0.5, **extra), dtype, path,
+               bool(write))
+    # the model groups off the powers of two and the wide ones: llama4's 6
+    # (MG 8, two rows masked), command-r-plus's 12 (phase 20's shape) and
+    # 16, the MG = 16 body's top
+    for g in (6, 12, 16):
+        wide_group_decode(gen, rng, check, g)
 
     # ragged attention kernel (kernel 2): the Pairformer path's shape (4
     # slots, H = KVH 4, N = M = 384, D = Dv = R = 96, bf16 q/k/v, float32
@@ -969,9 +1108,9 @@ def drive_counted(engine, requests):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    check_results(engine.model.cfg.name, engine, rids,
-                  [NEW_TOKENS] * len(rids))
-    return rids, launches, NEW_TOKENS * len(rids) / wall, wall
+    budgets = [n for _, n, _ in requests]
+    check_results(engine.model.cfg.name, engine, rids, budgets)
+    return rids, launches, sum(budgets) / wall, wall
 
 
 def phase_serve(seed: int):
@@ -1075,21 +1214,75 @@ PARITY_PAIRS = (("cuda", "torch"), ("paged_cuda", "paged_torch"),
                 ("paged_cuda", "cuda"))
 
 
-def phase_parity(engine, requests):
-    """The first wave again, on the card: prefill, then 4 greedy decode
+class RouteFeed:
+    """MoE expert choices fed across the parity's paths, as its greedy
+    tokens are: the contiguous kernel path's router calls
+    (``lm._moe_route``) recorded in order, and replayed in the same order
+    on the other paths, each with its own router probabilities gathered at
+    the fed experts. A choice is a discontinuous function of the router's
+    input: a near tie that bf16 rounding tips the other way sends a token
+    to another expert, whose output differs by O(1) (top 1 replaces all of
+    it), so without the feed the paths' gap measures routing ties, not the
+    kernels. The choices the other paths would have made are counted where
+    they differ: in order (``differ``) and as top-k sets (``set_differ``,
+    the count ``phase_parity`` bounds with ROUTE_SET_SHARE)."""
+
+    def __init__(self, route):
+        self.route, self.calls, self.pos = route, [], 0
+        self.differ = self.set_differ = self.total = 0
+
+    def record(self, mp, x, cfg):
+        out = self.route(mp, x, cfg)
+        self.calls.append(out[2])
+        return out
+
+    def replay(self, mp, x, cfg):
+        probs, _, own = self.route(mp, x, cfg)
+        idx = self.calls[self.pos]
+        self.pos += 1
+        self.differ += int((own != idx).any(-1).sum())
+        self.set_differ += int((own.sort(-1).values
+                                != idx.sort(-1).values).any(-1).sum())
+        self.total += own[..., 0].numel()
+        gates = probs.gather(-1, idx)
+        return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+    def calling(self, name: str, fn):
+        """``fn()`` on path ``name``: "cuda" records, the others replay."""
+        from repro_torch.models import lm
+        if name == "cuda":
+            self.calls.clear()
+        self.pos = 0
+        with patched(lm, "_moe_route",
+                     self.record if name == "cuda" else self.replay):
+            return fn()
+
+
+def phase_parity(engine, requests, *, max_len: int = MAX_LEN,
+                 steps: int = 4, tol: float | None = LOGIT_TOL,
+                 trace: bool = True, label: str = "parity"):
+    """The first wave again, on the card: prefill (right-padded to
+    PROMPT_MAX, or the longest prompt's pages), then ``steps`` greedy decode
     steps fed the contiguous kernel path's tokens, through four paths —
     contiguous and paged caches, each with impl="cuda" and impl="torch".
     The kernel path is held against the plain path on both caches, and the
-    paged kernel path against the contiguous one. Then decode steps of
-    both kernel paths are traced."""
+    paged kernel path against the contiguous one, within ``tol`` (None:
+    LOGIT_ULPS bf16 ulps at the plain path's top |logit|, at least
+    LOGIT_TOL); MoE paths
+    are fed the contiguous kernel path's expert choices (``RouteFeed``); the
+    kernel paths launched kernel 1 (and kernel 5, where the model has SSM
+    layers) once per layer and the decode kernels once per layer and step
+    (kernel 3 not where the contiguous cache is a ring, which decode
+    attends in plain torch). Then, with ``trace``, decode steps of both
+    kernel paths are traced: returns (traces, the decode lengths)."""
     import torch
-    from repro_torch.models import get_model
+    from repro_torch.models import get_model, lm
 
     cfg = engine.model.cfg
     params = engine.backend.params
     wave = requests[:SLOTS]
-    toks = np.zeros((SLOTS, PROMPT_MAX), np.int64)
     lengths = np.array([p.size for p, _, _ in wave], np.int32)
+    toks = np.zeros((SLOTS, wave_width(requests)), np.int64)
     for i, (p, _, _) in enumerate(wave):
         toks[i, :p.size] = p
     batch = {"tokens": torch.as_tensor(toks, device="cuda")}
@@ -1099,19 +1292,26 @@ def phase_parity(engine, requests):
     worst = {pair: 0.0 for pair in PARITY_PAIRS}
     agree = {pair: 0 for pair in PARITY_PAIRS}
     logits, caches = {}, {}
+    top_logit = 0.0
+    feed = RouteFeed(lm._moe_route)
+
+    def call(name, fn):
+        return feed.calling(name, fn) if cfg.family == "moe" else fn()
+
+    counters = reset_counters()
     with torch.no_grad():
         for impl, m in models.items():
-            logits[impl], caches[impl] = m.prefill(params, batch,
-                                                   max_len=MAX_LEN,
-                                                   lengths=lens)
+            logits[impl], caches[impl] = call(impl, lambda: m.prefill(
+                params, batch, max_len=max_len, lengths=lens))
             logits[f"paged_{impl}"] = logits[impl]
             caches[f"paged_{impl}"] = paged_copy(m, caches[impl], lengths,
-                                                 4 + TRACE_STEPS + 1)
-        for step in range(5):
+                                                 steps + TRACE_STEPS + 1)
+        for step in range(steps + 1):
             top = {}
             for name, lg in logits.items():
                 lg = lg[:, 0, :cfg.vocab].float()
                 top[name] = (lg, lg.argmax(-1))
+            top_logit = max(top_logit, float(top["torch"][0].abs().max()))
             parts = []
             for a, b in PARITY_PAIRS:
                 err = float((top[a][0] - top[b][0]).abs().max())
@@ -1119,30 +1319,60 @@ def phase_parity(engine, requests):
                 worst[(a, b)] = max(worst[(a, b)], err)
                 agree[(a, b)] += same
                 parts.append(f"{a} vs {b} {err:.3e} ({same}/{SLOTS})")
-            log("parity", f"{'prefill' if step == 0 else f'decode {step}'}: "
-                          f"max |logits gap| (greedy agree) "
-                          + "; ".join(parts))
-            if step == 4:
+            log(label, f"{'prefill' if step == 0 else f'decode {step}'}: "
+                       f"max |logits gap| (greedy agree) " + "; ".join(parts))
+            if step == steps:
                 break
             nxt = top["cuda"][1][:, None]
             cap = page_cap(int(lengths.max()) + step + 2)
             for name in logits:
                 m = models[name.removeprefix("paged_")]
                 kw = {"max_pages": cap} if name.startswith("paged") else {}
-                logits[name], caches[name] = m.decode(params, caches[name],
-                                                      nxt, **kw)
+                logits[name], caches[name] = call(name, lambda: m.decode(
+                    params, caches[name], nxt, **kw))
+        torch.cuda.synchronize()
         decode_lengths = caches["cuda"]["length"].clone()
+    launched = {name: fn.launches for name, fn in counters.items()}
+    layers = cfg.n_layers
+    ring = "k" in caches["cuda"] and lm._is_ring(cfg, caches["cuda"]["k"][0])
+    want = {name: 0 for name in launched}
+    want.update(flashbias_attention_fwd=layers,
+                flash_decode_fwd=0 if ring else layers * steps,
+                flash_decode_paged_fwd=layers * steps)
+    if "ssm_h" in caches["cuda"]:
+        want["ssd_scan_fwd"] = layers
+    if tol is None:
+        tol = max(LOGIT_TOL, LOGIT_ULPS * float(bf16_ulp(
+            torch.tensor(top_logit))))
+    log(label, f"max |logit| of the plain path {top_logit:.3f}; tol {tol}")
     for a, b in PARITY_PAIRS:
-        log("parity", f"{a} vs {b}: worst |logits| gap "
-                      f"{worst[(a, b)]:.3e} (tol {LOGIT_TOL}); greedy "
-                      f"agreement {agree[(a, b)]}/{5 * SLOTS}")
-        if not worst[(a, b)] <= LOGIT_TOL:
-            raise AssertionError(f"{a} and {b} paths disagree: "
+        log(label, f"{a} vs {b}: worst |logits| gap {worst[(a, b)]:.3e} "
+                   f"(tol {tol}); greedy agreement {agree[(a, b)]}/"
+                   f"{(steps + 1) * SLOTS}")
+        if not worst[(a, b)] <= tol:
+            raise AssertionError(f"{label}: {a} and {b} paths disagree: "
                                  f"{worst[(a, b)]:.3e}")
+    log(label, f"kernel paths' launches {launched}")
+    if feed.total:
+        share, limit = feed.set_differ / feed.total, ROUTE_SET_SHARE[cfg.name]
+        log(label, f"MoE: every path fed the contiguous kernel path's "
+                   f"expert choices; the other paths' own choices differed "
+                   f"for {feed.differ} of {feed.total} token routings, as "
+                   f"top-k sets for {feed.set_differ} ({share:.4%}; limit "
+                   f"{limit:.2%})")
+        if not share <= limit:
+            raise AssertionError(f"{label}: {share:.4%} of the routings "
+                                 f"chose other experts (limit {limit:.2%})")
+    if launched != want:
+        raise AssertionError(f"{label}: launches {launched} != {want}")
     for name in ("torch", "paged_torch"):
         del caches[name]
     torch.cuda.empty_cache()
-    cap = page_cap(int(lengths.max()) + 4 + TRACE_STEPS + 1)
+    if not trace:
+        del caches
+        torch.cuda.empty_cache()
+        return None, decode_lengths
+    cap = page_cap(int(lengths.max()) + steps + TRACE_STEPS + 1)
     traces = trace_decode(models["cuda"], params, nxt, {
         "contiguous": (caches["cuda"], {}),
         "paged": (caches["paged_cuda"], {"max_pages": cap})})
@@ -1222,51 +1452,39 @@ def trace_decode(model, params, tokens, paths: dict) -> dict:
 # phase 6: times and bounds
 # ---------------------------------------------------------------------------
 
-def phase_times(engine, decode_lengths, card: str):
+def decode_kernel_times(gen, kvh: int, g: int, d: int, decode_lengths,
+                        slopes, s: int, paged_only: bool = False,
+                        label: str = "times"):
+    """Kernels 3 and 4 at one decode shape (B rows at ``decode_lengths``,
+    ``kvh`` kv heads of ``g`` q heads, D ``d``, bf16, each call writing the
+    new token's row as the serve path does): each call first held against
+    its plain version on the same tensors (``decode_case``, ``tolerance()``),
+    then timed with its plain version, the library call and the bound:
+    ({name: times}, {name: the kernel's call}).
+
+    Contiguous: ALiBi ``slopes`` (H,) in the kernel, caches of ``s`` rows;
+    library SDPA with a float ALiBi mask. Paged: phi mode against the
+    shared [1, pos] slab, page size PAGE, pages in random order, a table
+    ``s // PAGE`` wide (the serve engine's); library: gather each row's
+    pages, then SDPA with the float mask (two calls). The bounds count the
+    live rows read once, q, phi_q and the output, the lengths and page ids,
+    and the row write (k_new and v_new read once and written once); the
+    library calls write no row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode_fwd,
                                                   flash_decode_paged_fwd,
                                                   flash_decode_paged_torch,
                                                   flash_decode_torch)
-    from repro_torch.kernels.flashbias_attn import (
-        flashbias_attention_fwd, flashbias_attention_torch)
-
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    slopes = engine.backend.params["layers"]["attn"]["slopes"][0].float()
-    b, h, n, d = SLOTS, slopes.shape[0], PROMPT_MAX, 32
-    scale = d ** -0.5
     bf = torch.bfloat16
-    out = {}
-
-    # prefill kernel at the path shape: alibi + causal, bf16
-    q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(bf)
-               for _ in range(3))
-    kw = dict(slopes=slopes, scale=scale, mask_kind="causal")
-    pos = torch.arange(n, device="cuda")
-    mask = slopes[:, None, None] * (pos[None, None, :] - pos[None, :, None])
-    mask = mask.masked_fill(pos[None, None, :] > pos[None, :, None],
-                            -torch.inf).to(bf)[None]
-    pairs = n * (n + 1) // 2
-    bytes_ = (4 * b * h * n * d) * 2 + h * 4
-    flops = b * h * pairs * 4 * d
-    kernel = (lambda: flashbias_attention_fwd(q, k, v, **kw))
-    out["flashbias_attention_fwd"] = dict(
-        ms=device_ms(kernel),
-        plain_ms=device_ms(lambda: flashbias_attention_torch(q, k, v, **kw)),
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=scale)),
-        **bound(bytes_, flops))
-    events = {"flashbias_attention_fwd": event_ms(kernel)}
-
-    # decode kernel at the path shape: alibi, bf16, this run's lengths
-    s = MAX_LEN
-    kvh = h
-    qd = torch.randn((b, kvh, 1, d), generator=gen, device="cuda").to(bf)
+    b, h, scale = len(decode_lengths), kvh * g, d ** -0.5
+    gqa = {"enable_gqa": True} if g > 1 else {}
+    qd = torch.randn((b, kvh, g, d), generator=gen, device="cuda").to(bf)
     kc, vc = (torch.randn((b, kvh, s, d), generator=gen,
                           device="cuda").to(bf) for _ in range(2))
-    lens = decode_lengths.to(torch.int32).contiguous()
-    kwd = dict(slopes=slopes.reshape(kvh, 1), scale=scale)
+    lens = torch.as_tensor(decode_lengths, device="cuda").to(
+        torch.int32).contiguous()
+    kwd = dict(slopes=slopes.reshape(kvh, g), scale=scale)
     kpos = torch.arange(s, device="cuda")
     dmask = slopes[None, :, None, None] * (
         kpos[None, None, None, :] - (lens - 1)[:, None, None, None]).float()
@@ -1274,36 +1492,38 @@ def phase_times(engine, decode_lengths, card: str):
         kpos[None, None, None, :] >= lens[:, None, None, None],
         -torch.inf).to(bf)
     live = int(lens.sum())
-    # each call writes the new token's row, as the serve path does: k_new
-    # and v_new read once and written to the caches once (ROW_BYTES)
     new = {"k_new": torch.randn((b, kvh, d), generator=gen,
                                 device="cuda").to(bf),
            "v_new": torch.randn((b, kvh, d), generator=gen,
                                 device="cuda").to(bf)}
     row_bytes = 2 * 2 * b * kvh * d * 2
-    bytes_ = (live * kvh * 2 * d * 2 + 2 * b * kvh * d * 2 + b * 4 + h * 4
-              + row_bytes)
-    flops = live * kvh * 4 * d
-    kernel = (lambda: flash_decode_fwd(qd, kc, vc, lens, **kwd, **new))
-    out["flash_decode_fwd"] = dict(
-        ms=device_ms(kernel),
-        plain_ms=device_ms(lambda: flash_decode_torch(qd, kc, vc, lens,
-                                                      **kwd, **new)),
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-            qd, kc, vc, attn_mask=dmask, scale=scale)),
-        **bound(bytes_, flops))
-    events["flash_decode_fwd"] = event_ms(kernel)
+    out, calls = {}, {}
+    shape = f"B{b} KVH{kvh} G{g} D{d} bf16"
+    check = functools.partial(decode_case, gen, functools.partial(
+        check_kernel, {}, label=label))
+    if not paged_only:
+        check(f"flash_decode_fwd {shape} alibi write", flash_decode_fwd,
+              flash_decode_torch, qd, kc, vc, lens, (), kwd, bf, False, True,
+              new)
+        bytes_ = (live * kvh * 2 * d * 2 + 2 * b * h * d * 2 + b * 4
+                  + h * 4 + row_bytes)
+        flops = live * h * 4 * d
+        calls["flash_decode_fwd"] = (lambda: flash_decode_fwd(
+            qd, kc, vc, lens, **kwd, **new))
+        out["flash_decode_fwd"] = dict(
+            ms=device_ms(calls["flash_decode_fwd"]),
+            plain_ms=device_ms(lambda: flash_decode_torch(qd, kc, vc, lens,
+                                                          **kwd, **new)),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qd.reshape(b, h, 1, d), kc, vc, attn_mask=dmask,
+                scale=scale, **gqa)),
+            **bound(bytes_, flops))
 
-    # paged decode kernel at the paged path shape: phi mode against the
-    # shared [1, pos] slab, page size 16, pages in random order, the serve
-    # engine's table width, bf16, this run's lengths, each call writing the
-    # row. Library: gather each row's pages, then SDPA with a float ALiBi
-    # mask (two calls).
     lengths = [int(n) for n in lens.tolist()]
     qp, kp, vp, lens_p, pt, extra = paged_inputs(
-        gen, np.random.default_rng(2), b, kvh, 1, d, PAGE, bf, "alibi_slab",
+        gen, np.random.default_rng(2), b, kvh, g, d, PAGE, bf, "alibi_slab",
         lengths)
-    pt = widen_table(pt, MAX_LEN // PAGE, kp.shape[1])
+    pt = widen_table(pt, max(s // PAGE, pt.shape[1]), kp.shape[1])
     n_live = -(-max(lengths) // PAGE)
     last = (lens_p.long() - 1).clamp(min=0) // PAGE
     pages = pt.long()[:, :n_live].gather(
@@ -1315,22 +1535,123 @@ def phase_times(engine, decode_lengths, card: str):
     def gather_sdpa():
         kv = kvp[:, :, pages].reshape(2, kvh, b, n_live * PAGE, d)
         return F.scaled_dot_product_attention(
-            qp, kv[0].transpose(0, 1),
-            kv[1].transpose(0, 1), attn_mask=pmask, scale=scale)
+            qp.reshape(b, h, 1, d), kv[0].transpose(0, 1),
+            kv[1].transpose(0, 1), attn_mask=pmask, scale=scale, **gqa)
 
     n_pages_read = sum(-(-n // PAGE) for n in lengths)
-    bytes_ = (live * kvh * 2 * d * 2 + live * 2 * 4 + 2 * b * kvh * d * 2
-              + b * kvh * 2 * 4 + b * 4 + n_pages_read * 4 + row_bytes)
-    flops = live * kvh * (4 * d + 4)
-    kernel = (lambda: flash_decode_paged_fwd(qp, kp, vp, lens_p, pt,
-                                             scale=scale, **extra, **new))
+    bytes_ = (live * kvh * 2 * d * 2 + live * 2 * 4 + 2 * b * h * d * 2
+              + b * h * 2 * 4 + b * 4 + n_pages_read * 4 + row_bytes)
+    flops = live * h * (4 * d + 4)
+    check(f"flash_decode_paged_fwd {shape} ps{PAGE} alibi-slab write",
+          flash_decode_paged_fwd, flash_decode_paged_torch, qp, kp, vp, lens_p,
+          (pt,), dict(scale=scale, **extra), bf, False, True, new)
+    calls["flash_decode_paged_fwd"] = (lambda: flash_decode_paged_fwd(
+        qp, kp, vp, lens_p, pt, scale=scale, **extra, **new))
     out["flash_decode_paged_fwd"] = dict(
-        ms=device_ms(kernel),
+        ms=device_ms(calls["flash_decode_paged_fwd"]),
         plain_ms=device_ms(lambda: flash_decode_paged_torch(
             qp, kp, vp, lens_p, pt, scale=scale, **extra, **new)),
         library_ms=device_ms(gather_sdpa),
         **bound(bytes_, flops))
-    events["flash_decode_paged_fwd"] = event_ms(kernel)
+    return out, calls
+
+
+def prefill_kernel_times(gen, h: int, kvh: int, n: int, d: int, slopes,
+                         window: int = 0, label: str = "times"):
+    """Kernel 1 at one prefill shape (SLOTS rows of ``n`` positions, ``h``
+    heads over ``kvh`` kv heads, D ``d``, bf16, ALiBi ``slopes`` (H,),
+    causal, or local with ``window``), first held against its plain version
+    on the same tensors (``check_kernel``: ``tolerance()``, finite, the
+    tensor-core body), then timed with its plain version, SDPA with the
+    ALiBi + mask as a float mask, and the bound (q, k, v, o once; the
+    scores the mask keeps): ({ms, plain_ms, library_ms, bound}, the
+    kernel's call)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flashbias_attn import (
+        flashbias_attention_fwd, flashbias_attention_torch)
+    bf, b, scale = torch.bfloat16, SLOTS, d ** -0.5
+    q = torch.randn((b, h, n, d), generator=gen, device="cuda").to(bf)
+    k, v = (torch.randn((b, kvh, n, d), generator=gen, device="cuda").to(bf)
+            for _ in range(2))
+    kw = dict(slopes=slopes, scale=scale,
+              mask_kind="local" if window else "causal", window=window)
+    pos = torch.arange(n, device="cuda")
+    rel = pos[None, :] - pos[:, None]
+    keep = (rel <= 0) & ((rel > -window) if window else True)
+    mask = (slopes[:, None, None] * rel[None]).masked_fill(
+        ~keep[None], -torch.inf).to(bf)[None]
+    pairs = local_pairs(n, window) if window else n * (n + 1) // 2
+    bytes_ = (2 * b * h * n * d + 2 * b * kvh * n * d) * 2 + h * 4
+    gqa = {"enable_gqa": True} if kvh != h else {}
+
+    def kernel():
+        return flashbias_attention_fwd(q, k, v, **kw)
+    before = flashbias_attention_fwd.tensor_core_launches
+    check_kernel({}, f"flashbias_attention_fwd B{b} H{h} KVH{kvh} N{n} D{d} "
+                     f"bf16 {kw['mask_kind']}", kernel(),
+                 flashbias_attention_torch(q, k, v, **kw), bf,
+                 wrapper=flashbias_attention_fwd, before=before, label=label)
+    return dict(
+        ms=device_ms(kernel),
+        plain_ms=device_ms(lambda: flashbias_attention_torch(q, k, v, **kw)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale, **gqa)),
+        **bound(bytes_, b * h * pairs * 4 * d)), kernel
+
+
+def log_prefill_times(label: str, shape: str, t: dict, card: str) -> None:
+    log(label, f"flashbias_attention_fwd at {shape} (device time per "
+               f"call): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+               f"ms, library (SDPA, ALiBi and mask as a float mask) "
+               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+               f"({t['bound_by']}) [{card}]")
+
+
+def wave_width(requests) -> int:
+    """The first wave's padded width: PROMPT_MAX, or its longest prompt's
+    pages where that is longer."""
+    longest = max(p.size for p, _, _ in requests[:SLOTS])
+    return max(PROMPT_MAX, -(-longest // PAGE) * PAGE)
+
+
+def model_kernel_times(label: str, cfg, params, n: int, lengths, card: str,
+                       window: int = 0, paged_only: bool = False) -> dict:
+    """Kernel 1 at the config's prefill shape (SLOTS x ``n``) and kernels 3
+    and 4 (or 4 alone) at its decode shape (``lengths``), each checked
+    against its plain version, then timed with it, the library call and
+    the bound, logged: {name: times}."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    slopes = params["layers"]["attn"]["slopes"][0].float()
+    h, kvh, d = cfg.heads_padded, cfg.kv_heads_padded, cfg.resolved_head_dim
+    t1, _ = prefill_kernel_times(gen, h, kvh, n, d, slopes, window, label)
+    log_prefill_times(label, f"B{SLOTS} H{h} KVH{kvh} N{n} D{d} bf16 "
+                      f"{'local' if window else 'causal'}", t1, card)
+    times, _ = decode_kernel_times(gen, kvh, cfg.kv_groups, d, lengths,
+                                   slopes, MAX_LEN, paged_only=paged_only,
+                                   label=label)
+    log_decode_times(label, f"B{SLOTS} KVH{kvh} G{cfg.kv_groups} D{d} bf16, "
+                     f"lengths {list(lengths)}", times, card)
+    return {"flashbias_attention_fwd": t1, **times}
+
+
+def phase_times(engine, decode_lengths, card: str):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    slopes = engine.backend.params["layers"]["attn"]["slopes"][0].float()
+    h, d = slopes.shape[0], 32
+    # prefill kernel at the path shape: alibi + causal, bf16
+    times, kernel = prefill_kernel_times(gen, h, h, PROMPT_MAX, d, slopes)
+    out = {"flashbias_attention_fwd": times}
+    events = {"flashbias_attention_fwd": event_ms(kernel)}
+
+    # decode kernels at the path shapes, this run's lengths
+    times, kernels = decode_kernel_times(gen, h, 1, d, decode_lengths,
+                                         slopes, MAX_LEN)
+    out.update(times)
+    events.update({name: event_ms(fn) for name, fn in kernels.items()})
     library = {"flashbias_attention_fwd": "SDPA, dense float mask",
                "flash_decode_fwd": "SDPA, float mask, no row write",
                "flash_decode_paged_fwd": "page gather + SDPA with a float "
@@ -1460,12 +1781,12 @@ def check_results(label, engine, rids, budgets) -> None:
 
 
 def check_launches(label, engine, decode: str) -> dict:
-    """The decode kernel launched N_LAYERS x decode steps since the counters
+    """The decode kernel launched layers x decode steps since the counters
     were set to 0, and no other kernel (a chunked engine runs no
     whole-prompt wave)."""
     launches = {name: fn.launches for name, fn in launch_counters().items()}
     want = {name: 0 for name in launches}
-    want[decode] = N_LAYERS * engine.stats()["decode_steps"]
+    want[decode] = engine.model.cfg.n_layers * engine.stats()["decode_steps"]
     if launches != want or not want[decode]:
         raise AssertionError(f"{label}: kernel launches {launches} != "
                              f"{want}")
@@ -1648,7 +1969,7 @@ def prefix_traffic(seed: int, vocab: int):
     return out + [(common.copy(), NEW_TOKENS, SamplingParams())]
 
 
-def phase_prefix(engine, seed: int, card: str) -> dict:
+def phase_prefix(engine, seed: int, card: str, label: str = "prefix") -> dict:
     """Shared-prefix traffic through a paged chunked engine with the prefix
     cache and through one without, on the same weights and schedule: the
     first SLOTS requests, stepped until their prompts have landed (a
@@ -1662,7 +1983,7 @@ def phase_prefix(engine, seed: int, card: str) -> dict:
     traffic = prefix_traffic(seed, model.cfg.vocab)
 
     def run(prefix_cache: bool):
-        label = "prefix" if prefix_cache else "prefix-off"
+        name = label if prefix_cache else f"{label}-off"
         eng = ServeEngine(model, params, max_len=MAX_LEN, n_slots=SLOTS,
                           page_size=PAGE, pages_per_slot=MAX_LEN // PAGE,
                           prefill_chunk=CHUNK, prefix_cache=prefix_cache,
@@ -1678,10 +1999,10 @@ def phase_prefix(engine, seed: int, card: str) -> dict:
         eng.run()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        check_results(label, eng, rids, [n for _, n, _ in traffic])
-        launches = check_launches(label, eng, "flash_decode_paged_fwd")
+        check_results(name, eng, rids, [n for _, n, _ in traffic])
+        launches = check_launches(name, eng, "flash_decode_paged_fwd")
         stats = eng.stats()
-        log(label, f"{len(rids)} requests OK in {wall:.2f}s; "
+        log(name, f"{len(rids)} requests OK in {wall:.2f}s; "
                    f"{stats['chunk_steps']} chunk steps, "
                    f"{stats['decode_steps']} decode steps; launches "
                    f"{launches}")
@@ -1694,18 +2015,18 @@ def phase_prefix(engine, seed: int, card: str) -> dict:
     pool, index = on.backend._pool, on.backend._prefix
     held = {e.page for e in index._entries.values()}
     refs = {pool.refcount(p) for p in held}
-    log("prefix", f"streams equal to the unshared engine's: {sum(same)}/"
+    log(label, f"streams equal to the unshared engine's: {sum(same)}/"
                   f"{len(same)} (greedy and sampled); prefix stats {pf}; "
                   f"after the drain {pool.n_free} pages free + {len(held)} "
                   f"held by the index of {pool.n_pages}, their refcounts "
                   f"{sorted(refs)} [{card}]")
     if not all(same):
-        raise AssertionError(f"prefix: streams differ from the unshared "
+        raise AssertionError(f"{label}: streams differ from the unshared "
                              f"engine's: {same}")
     if not (pf["tokens_matched"] > 0 and pf["cow_copies"] >= 1):
-        raise AssertionError(f"prefix: no hit or no copy-on-write: {pf}")
+        raise AssertionError(f"{label}: no hit or no copy-on-write: {pf}")
     if pool.n_free + len(held) != pool.n_pages or refs - {1}:
-        raise AssertionError(f"prefix: pages unaccounted for after the "
+        raise AssertionError(f"{label}: pages unaccounted for after the "
                              f"drain: {pool.n_free} free, {len(held)} "
                              f"index-held, refcounts {refs}")
     out = {"matched": pf["tokens_matched"], "cow": pf["cow_copies"],
@@ -3277,14 +3598,16 @@ def phase_checkpoint_pair(seed: int) -> int:
 # phase 17: the hybrid family (hymba-1.5b) on kernel 1 (local) and kernel 5
 # ---------------------------------------------------------------------------
 
-def make_hybrid_requests(seed: int, vocab: int):
-    """HYBRID_PROMPTS tokens each, NEW_TOKENS new tokens, 2 and 6 sampled."""
+def make_traffic(seed: int, vocab: int, prompts, new_tokens: int,
+                 sampled=(2, 6), stream: int = 0):
+    """Requests of ``prompts`` tokens each (drawn from ``seed + stream``),
+    ``new_tokens`` new tokens, ``sampled`` of them sampled (temperature
+    0.8, top-k 40), the rest greedy."""
     from repro_torch.serve import SamplingParams
-    rng = np.random.default_rng(seed + 500)
-    sampled = {2, 6}
-    return [(rng.integers(0, vocab, (n,)).astype(np.int32), NEW_TOKENS,
+    rng = np.random.default_rng(seed + stream)
+    return [(rng.integers(0, vocab, (int(n),)).astype(np.int32), new_tokens,
              SamplingParams(0.8, 40, seed=seed + i) if i in sampled
-             else SamplingParams()) for i, n in enumerate(HYBRID_PROMPTS)]
+             else SamplingParams()) for i, n in enumerate(prompts)]
 
 
 def rowwise(fn):
@@ -3364,7 +3687,8 @@ def phase_hybrid(seed: int, card: str) -> dict:
                   f"heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}, d_ff "
                   f"{cfg.d_ff}, vocab {cfg.vocab_padded}, {cfg.dtype}; "
                   f"weights ready in {time.monotonic() - t0:.1f}s")
-    requests = make_hybrid_requests(seed, cfg.vocab)
+    requests = make_traffic(seed, cfg.vocab, HYBRID_PROMPTS, NEW_TOKENS,
+                            stream=500)
     attn_calls, ssd_calls = [], []
     counters = reset_counters()
     t0 = time.monotonic()
@@ -3538,39 +3862,365 @@ def phase_hybrid(seed: int, card: str) -> dict:
     del args
     torch.cuda.empty_cache()
 
+    step_profile("hybrid-times", model, params, batch, lens, HYBRID_MAX_LEN,
+                 card, paged=False)
+    del engine
+    torch.cuda.empty_cache()
+    return {name: launches[name]
+            for name in ("flashbias_attention_fwd", "ssd_scan_fwd")}
+
+
+# ---------------------------------------------------------------------------
+# phases 18-20: the paged hybrid, the MoE family, the plain dense configs
+# ---------------------------------------------------------------------------
+
+def bf16_params(cfg, seed: int) -> dict:
+    """Random weights of ``cfg``'s model made on the card from ``seed`` in
+    bf16, the layer-stacked leaves one layer at a time: a float32 copy of a
+    whole model (or of one stacked leaf) of the larger configs would not fit
+    beside the rest."""
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.models.common import PDef, materialize, tree_map
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+
+    def one(p, stacked):
+        if not stacked:
+            return materialize({"w": p}, gen, device="cuda", dtype=bf)["w"]
+        out = torch.empty(p.shape, dtype=bf, device="cuda")
+        for i in range(p.shape[0]):
+            out[i] = materialize({"w": PDef(p.shape[1:], p.init)}, gen,
+                                 device="cuda", dtype=bf)["w"]
+        return out
+
+    tmpl = get_model(cfg).template()
+    params = {k: one(v, False) for k, v in tmpl.items() if k != "layers"}
+    params["layers"] = tree_map(lambda p: one(p, True), tmpl["layers"])
+    torch.cuda.synchronize()
+    return params
+
+
+def serve_checked(label: str, engine, requests, *, paged: bool,
+                  ssd: bool = False, preempt: bool = True):
+    """Drive ``requests`` through ``engine`` (``drive_counted``: every
+    request OK with its budget) and hold the launch counters to one kernel
+    1 (and kernel 5 with ``ssd``) launch per layer and wave and one decode
+    launch (kernel 4 paged, else kernel 3) per layer and step, every
+    prefill launch on the tensor-core body; paged, the pool must have grown
+    (and, with ``preempt``, preempted) and be free after the drain.
+    Returns (rids, launches, tok/s, first-token logits by request
+    index)."""
+    layers = engine.model.cfg.n_layers
+    with observe(engine) as obs:
+        rids, launches, tok_s, wall = drive_counted(engine, requests)
+    stats = engine.stats()
+    decode = "flash_decode_paged_fwd" if paged else "flash_decode_fwd"
+    want = {name: 0 for name in launches}
+    want["flashbias_attention_fwd"] = layers * stats["prefill_waves"]
+    want[decode] = layers * stats["decode_steps"]
+    if ssd:
+        want["ssd_scan_fwd"] = layers * stats["prefill_waves"]
+    pages = engine.page_stats()
+    log(label, f"{len(rids)} requests OK in {wall:.2f}s ({tok_s:.1f} tok/s);"
+               f" {stats['prefill_waves']} prefill waves, "
+               f"{stats['decode_steps']} decode steps; launches {launches}"
+               + (f"; pages {pages}" if paged else ""))
+    if launches != want or not want[decode]:
+        raise AssertionError(f"{label}: kernel launches {launches} != {want}")
+    check_tensor_core(label, ("flashbias_attention_fwd",)
+                      + (("ssd_scan_fwd",) if ssd else ()))
+    if paged and not (pages["grown"] >= 1 and pages["n_free"]
+                      == pages["n_pages"] and (pages["preemptions"] >= 1
+                                               or not preempt)):
+        raise AssertionError(f"{label}: the pool did not grow, "
+                             f"{'preempt, ' if preempt else ''}and drain: "
+                             f"{pages}")
+    return rids, launches, tok_s, {i: obs.first[r]
+                                   for i, r in enumerate(rids)}
+
+
+def paged_engine(model, params, requests, max_len: int, **kw):
+    """A paged engine (page size PAGE, lazy) whose pool holds the first
+    wave's prompt pages and one more, as phase 4's: the first page grown
+    takes the spare, the next finds the pool dry and preempts."""
+    from repro_torch.serve import ServeEngine
+    first = sum(-(-p.size // PAGE) for p, _, _ in requests[:SLOTS])
+    return ServeEngine(model, params, max_len=max_len, n_slots=SLOTS,
+                       page_size=PAGE, n_pages=first + 1,
+                       pages_per_slot=max_len // PAGE, device="cuda", **kw)
+
+
+def merge_launches(total: dict, *more) -> dict:
+    for launches in more:
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def step_profile(label: str, model, params, batch, lens, max_len: int,
+                 card: str, paged: bool = True) -> dict:
+    """The first wave's prefill (whole, through the model) and a decode step
+    of its 4 slots on a paged (or contiguous) cache: host clock in
+    alternating rounds, device busy from a complete profile, idle share,
+    and each one's top device kernels."""
+    import torch
+    from repro_torch.models import lm
     with torch.no_grad():
         def wave():
-            return model.prefill(params, batch, max_len=HYBRID_MAX_LEN,
+            return model.prefill(params, batch, max_len=max_len,
                                  lengths=lens)
         walls = alternate({"wave": wave})
         busy, kernels = profile_steps(wave, 1)
-        log("hybrid-times", f"prefill wave ({SLOTS} x {n}, prompts "
-                            f"{lens.tolist()}): {walls['wave']:.1f} ms on "
-                            f"the host clock, device busy {busy:.1f} ms, "
-                            f"idle share {1 - busy / walls['wave']:.3f} "
-                            f"[{card}]")
-        top_kernels("hybrid-times", kernels)
+        log(label, f"prefill wave ({SLOTS} x {batch['tokens'].shape[1]}, "
+                   f"prompts {lens.tolist()}): {walls['wave']:.1f} ms on "
+                   f"the host clock, device busy {busy:.1f} ms, idle share "
+                   f"{1 - busy / walls['wave']:.3f} [{card}]")
+        top_kernels(label, kernels)
+        out = {"wave_ms": walls["wave"], "wave_busy_ms": busy}
         logits, cache = wave()
-        tokens = logits[:, 0, :cfg.vocab].argmax(-1)[:, None]
+        lengths = lens.cpu().numpy()
+        kw = {}
+        if paged:
+            cache = paged_copy(model, cache, lengths, 1 + TRACE_STEPS)
+            kw["max_pages"] = page_cap(int(lengths.max()) + 1 + TRACE_STEPS)
+        tokens = logits[:, 0, :model.cfg.vocab].argmax(-1)[:, None]
+        kind = ("paged" if paged else "over the ring"
+                if lm._is_ring(model.cfg, cache["k"][0]) else "contiguous")
 
         def step():
-            model.decode(params, cache, tokens)
+            model.decode(params, cache, tokens, **kw)
 
         walls = alternate({"step": step}, rounds=6)
         kernels = profiled(step, 3)
         busy = sum(device_us(e) for e in kernels) / 3 / 1e3
-        log("hybrid-times", f"decode step ({SLOTS} slots over the ring, "
-                            f"{HYBRID_LAYERS} layers): {walls['step']:.3f} "
-                            f"ms on the host clock, device busy {busy:.3f} "
-                            f"ms, idle share "
-                            f"{1 - busy / walls['step']:.3f}; "
-                            f"{sum(e.count for e in kernels) // 3} device "
-                            f"calls per step [{card}]")
-        top_kernels("hybrid-times", kernels)
-    del engine, cache, logits
+        log(label, f"decode step ({SLOTS} slots {kind}, "
+                   f"{model.cfg.n_layers} layers): {walls['step']:.3f} ms on "
+                   f"the host clock, device busy {busy:.3f} ms, idle share "
+                   f"{1 - busy / walls['step']:.3f}; "
+                   f"{sum(e.count for e in kernels) // 3} device calls per "
+                   f"step [{card}]")
+        top_kernels(label, kernels)
+    out.update(step_ms=walls["step"], step_busy_ms=busy)
+    return out
+
+
+def log_decode_times(label: str, shape: str, times: dict, card: str) -> None:
+    library = {"flash_decode_fwd": "SDPA, float mask, no row write",
+               "flash_decode_paged_fwd": "page gather + SDPA with a float "
+                                         "mask, two calls, no row write"}
+    for name, t in times.items():
+        log(label, f"{name} at {shape} (device time per call): kernel "
+                   f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                   f"({library[name]}) {t['library_ms']:.4f} ms, bound "
+                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+
+
+def phase_paged_hybrid(seed: int, card: str) -> dict:
+    """hymba-1.5b at full width through a paged ServeEngine whose window
+    covers max_len (see the module docstring, phase 18). Returns the
+    serve's launches and kernel 4's times at this shape."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flashbias_attn import flashbias_attention_torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+    from repro_torch.models import get_model
+
+    cfg = get_config("hymba_15b")
+    check_width(cfg, (cfg.n_layers, cfg.d_model, cfg.heads_padded,
+                      cfg.kv_heads_padded, cfg.resolved_head_dim,
+                      cfg.window, cfg.ssm_state),
+                (32, 1600, 48, 6, 64, 1024, 16))
+    t0 = time.monotonic()
+    model = get_model(cfg)
+    params = bf16_params(cfg, seed)
+    requests = make_traffic(seed, cfg.vocab, PAGED_HYBRID_PROMPTS,
+                            NEW_TOKENS, stream=600)
+    engine = paged_engine(model, params, requests, PAGED_HYBRID_MAX_LEN)
+    del params
+    params = engine.backend.params
+    if engine.backend.ring or not engine.backend.paged:
+        raise AssertionError("paged-hybrid: the engine keeps a ring or "
+                             "does not page")
+    log("paged-hybrid", f"{cfg.name}: {cfg.n_layers} layers, "
+                        f"{cfg.heads_padded} heads x "
+                        f"{cfg.resolved_head_dim} over "
+                        f"{cfg.kv_heads_padded} kv heads, window "
+                        f"{cfg.window} covering max_len "
+                        f"{PAGED_HYBRID_MAX_LEN}, SSM state "
+                        f"{cfg.ssm_state}; page size {PAGE}, pool "
+                        f"{engine.n_pages} pages; weights ready in "
+                        f"{time.monotonic() - t0:.1f}s")
+    attn_calls, ssd_calls = [], []
+    with patched(ops, "flashbias_attention_fwd", in_situ_local(attn_calls)), \
+            patched(ops, "ssd_scan_fwd", in_situ_ssd(ssd_scan_fwd,
+                                                     ssd_calls)):
+        rids, launches, tok_s, _ = serve_checked(
+            "paged-hybrid", engine, requests, paged=True, ssd=True)
+    waves = engine.stats()["prefill_waves"]
+    modes = {c[0][1:] for c in attn_calls}
+    if modes != {("local", cfg.window)}:
+        raise AssertionError(f"paged-hybrid: kernel 1 modes {modes}")
+    in_situ_check("paged-hybrid", attn_calls, cfg.n_layers * waves)
+    if len(ssd_calls) != cfg.n_layers * waves or not in_situ_report(
+            "paged-hybrid", f"kernel 5 at N {cfg.ssm_state}", ssd_calls):
+        raise AssertionError("paged-hybrid: SSD kernel calls off their "
+                             "plain version")
+
+    with patched(ops, "flashbias_attention_torch",
+                 rowwise(flashbias_attention_torch)):
+        _, lengths = phase_parity(engine, requests,
+                                  max_len=PAGED_HYBRID_MAX_LEN,
+                                  steps=HYBRID_DECODE_STEPS,
+                                  tol=HYBRID_LOGIT_TOL, trace=False,
+                                  label="paged-hybrid-parity")
+    times = model_kernel_times("paged-hybrid-times", cfg, params,
+                               wave_width(requests), lengths.tolist(), card,
+                               window=cfg.window, paged_only=True)
+    batch, lens = ssm_wave(requests)
+    steps = step_profile("paged-hybrid-times", model, params, batch, lens,
+                         PAGED_HYBRID_MAX_LEN, card)
+    del engine
     torch.cuda.empty_cache()
-    return {name: launches[name]
-            for name in ("flashbias_attention_fwd", "ssd_scan_fwd")}
+    return {"launches": launches, "times": times, "steps": steps,
+            "tok_s": tok_s}
+
+
+def moe_serve(label: str, cfg, seed: int, requests, card: str,
+              full: bool = False) -> dict:
+    """One MoE config through a contiguous and a paged engine, the paged
+    first-token logits within LOGIT_TOL of the contiguous ones and the
+    greedy streams compared, the first wave's parity on both caches; with
+    ``full`` (the LM phase's traffic) the paged pool must preempt, and the
+    chunked prefix-cached engines and the step profiles follow. Returns the
+    launches of the serves."""
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+    t0 = time.monotonic()
+    model = get_model(cfg)
+    params = bf16_params(cfg, seed)
+    engine = ServeEngine(model, params, max_len=MAX_LEN, n_slots=SLOTS,
+                         prefill_len=PROMPT_MAX, device="cuda")
+    del params
+    params = engine.backend.params
+    log(label, f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+               f"{cfg.heads_padded} heads x {cfg.resolved_head_dim} over "
+               f"{cfg.kv_heads_padded} kv heads, {cfg.n_experts} experts "
+               f"(padded {cfg.experts_padded}) top {cfg.top_k}, d_ff "
+               f"{cfg.d_ff}, vocab {cfg.vocab_padded}, {cfg.dtype}; weights "
+               f"ready in {time.monotonic() - t0:.1f}s")
+    rids, l_con, tok_s, first = serve_checked(label, engine, requests,
+                                              paged=False)
+    paged = paged_engine(model, params, requests, MAX_LEN,
+                         prefill_len=PROMPT_MAX)
+    prids, l_pag, ptok_s, pfirst = serve_checked(f"{label}-paged", paged,
+                                                 requests, paged=True,
+                                                 preempt=full)
+    first_gaps(f"{label}-paged", pfirst, first, LOGIT_TOL)
+    greedy = [i for i, (_, _, sp) in enumerate(requests)
+              if sp.temperature == 0]
+    same = sum(np.array_equal(engine.result(rids[i]), paged.result(prids[i]))
+               for i in greedy)
+    log(f"{label}-paged", f"greedy streams equal to the contiguous "
+                          f"engine's: {same}/{len(greedy)} (bf16: the paths "
+                          f"round in other places, so a near tie may flip "
+                          f"a token; the rule is the logits parity below)")
+    del paged
+    torch.cuda.empty_cache()
+    _, lengths = phase_parity(engine, requests, trace=False,
+                              label=f"{label}-parity")
+    out = {"launches": merge_launches({}, l_con, l_pag), "tok_s": tok_s,
+           "paged_tok_s": ptok_s, "times": model_kernel_times(
+               f"{label}-times", cfg, params, wave_width(requests),
+               lengths.tolist(), card)}
+    if full:
+        phase_prefix(engine, seed, card, label=f"{label}-prefix")
+        batch, lens = ssm_wave(requests)
+        out["steps"] = step_profile(f"{label}-times", model, params, batch,
+                                    lens, MAX_LEN, card)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(seed: int, card: str) -> dict:
+    """granite-moe-3b-a800m whole and llama4-scout-17b-a16e at
+    MOE_LLAMA_LAYERS of its 48 layers, full width (see the module
+    docstring, phase 19)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("granite_moe_3b_a800m")
+    check_width(cfg, (cfg.n_layers, cfg.d_model, cfg.heads_padded,
+                      cfg.kv_heads_padded, cfg.resolved_head_dim,
+                      cfg.experts_padded, cfg.top_k, cfg.d_ff),
+                (32, 1536, 32, 8, 64, 48, 8, 512))
+    granite = moe_serve("moe", cfg, seed, make_requests(seed, cfg.vocab),
+                        card, full=True)
+    full = get_config("llama4_scout_17b_a16e")
+    cfg = full.replace(n_layers=MOE_LLAMA_LAYERS)
+    check_width(cfg, (full.n_layers, cfg.d_model, cfg.heads_padded,
+                      cfg.kv_heads_padded, cfg.resolved_head_dim,
+                      cfg.experts_padded, cfg.top_k, cfg.d_ff),
+                (48, 5120, 48, 8, 128, 16, 1, 8192))
+    log("moe-llama4", f"{cfg.name} at {MOE_LLAMA_LAYERS} of {full.n_layers}"
+                      f" layers (full width; the whole model's 100.7 B "
+                      f"parameters would not fit one card)")
+    llama = moe_serve("moe-llama4", cfg, seed, make_traffic(
+        seed, cfg.vocab, SHORT_PROMPTS, SHORT_NEW_TOKENS, (1,), stream=700),
+        card)
+    return {"granite": granite, "llama4": llama,
+            "launches": merge_launches({}, granite["launches"],
+                                       llama["launches"])}
+
+
+def phase_dense_configs(seed: int, card: str) -> dict:
+    """codeqwen1.5-7b and minicpm-2b whole, command-r-plus-104b at
+    DENSE_R_LAYERS of its 64 layers, full width (see the module docstring,
+    phase 20)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    out = {"launches": {}}
+    widths = {"codeqwen15_7b": ("codeqwen", (32, 4096, 32, 32, 128)),
+              "minicpm_2b": ("minicpm", (40, 2304, 48, 48, 64)),
+              "command_r_plus_104b": ("command-r", (64, 12288, 96, 8, 128))}
+    for arch, (tag, want) in widths.items():
+        full = get_config(arch)
+        cfg = (full.replace(n_layers=DENSE_R_LAYERS)
+               if arch == "command_r_plus_104b" else full)
+        check_width(cfg, (full.n_layers, cfg.d_model, cfg.heads_padded,
+                          cfg.kv_heads_padded, cfg.resolved_head_dim), want)
+        label = f"dense-{tag}"
+        t0 = time.monotonic()
+        model = get_model(cfg)
+        params = bf16_params(cfg, seed)
+        requests = make_traffic(seed, cfg.vocab, SHORT_PROMPTS,
+                                SHORT_NEW_TOKENS, (1,), stream=800)
+        engine = paged_engine(model, params, requests, MAX_LEN)
+        del params
+        log(label, f"{cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+                   f"d_model {cfg.d_model}, {cfg.heads_padded} heads x "
+                   f"{cfg.resolved_head_dim} over {cfg.kv_heads_padded} kv "
+                   f"heads (G {cfg.kv_groups}), d_ff {cfg.d_ff}, vocab "
+                   f"{cfg.vocab_padded}; weights ready in "
+                   f"{time.monotonic() - t0:.1f}s")
+        _, launches, tok_s, _ = serve_checked(label, engine, requests,
+                                              paged=True, preempt=False)
+        merge_launches(out["launches"], launches)
+        _, lengths = phase_parity(engine, requests, steps=2, tol=None,
+                                  trace=False, label=f"{label}-parity")
+        out[arch] = {"tok_s": tok_s, "times": model_kernel_times(
+            f"{label}-times", cfg, engine.backend.params,
+            wave_width(requests), lengths.tolist(), card)}
+        if arch == "command_r_plus_104b":
+            gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+            wide_group_decode(gen, np.random.default_rng(seed + 2),
+                              functools.partial(check_kernel, {},
+                                                label=f"{label}-kernels"), 12)
+        del engine
+        torch.cuda.empty_cache()
+    return out
 
 
 def bound(bytes_: int, flops: int) -> dict:
@@ -3585,6 +4235,7 @@ def run_child(phase: str, seed: int) -> dict:
     log lines passed through; returns the result it prints. A fresh
     process gets complete profiles: late in a long one torch.profiler
     drops device events (PERF.md section 7)."""
+    t0 = time.monotonic()
     proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                              "--phase", phase, "--seed", str(seed)],
                             stdout=subprocess.PIPE, text=True)
@@ -3597,15 +4248,20 @@ def run_child(phase: str, seed: int) -> dict:
     if proc.wait() != 0 or result is None:
         raise AssertionError(f"phase {phase} failed in its process (exit "
                              f"{proc.returncode})")
+    log(phase, f"its process ran {time.monotonic() - t0:.0f}s")
     return result
+
+
+CHILD_PHASES = {"hybrid": phase_hybrid, "paged-hybrid": phase_paged_hybrid,
+                "moe": phase_moe, "dense-configs": phase_dense_configs}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=("hybrid",), default=None,
-                    help="run one phase alone (the full run starts phase "
-                         "17 this way, in a process of its own)")
+    ap.add_argument("--phase", choices=tuple(CHILD_PHASES), default=None,
+                    help="run one phase alone (the full run starts phases "
+                         "17-20 this way, each in a process of its own)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3621,10 +4277,10 @@ def main(argv=None) -> int:
                   f"{torch.cuda.device_count()}; torch {torch.__version__}, "
                   f"CUDA {torch.version.cuda}; TF32 off; [{card}]")
 
-    if args.phase == "hybrid":
+    if args.phase is not None:
         build.build()
-        print(CHILD_RESULT + json.dumps(phase_hybrid(args.seed, card_line())),
-              flush=True)
+        result = CHILD_PHASES[args.phase](args.seed, card_line())
+        print(CHILD_RESULT + json.dumps(result), flush=True)
         return 0
     t_start = t0 = time.monotonic()
     report = build.build()
@@ -3641,7 +4297,11 @@ def main(argv=None) -> int:
                 log("build", f"{fn}: {line.strip()}")
     sass_hgmma()
 
+    def clock(done: str) -> None:
+        log("clock", f"{done} done at {time.monotonic() - t_start:.0f}s")
+
     errors = phase_kernels(args.seed)
+    clock("phases 1-2")
     engine, requests, launches, tok_s, whole_first = phase_serve(args.seed)
     paged_launches, paged_tok_s, paged_streams = phase_paged(engine,
                                                              requests)
@@ -3659,6 +4319,7 @@ def main(argv=None) -> int:
     phase_lm_dense(engine, requests, card)
     del engine, whole_first
     torch.cuda.empty_cache()
+    clock("phases 3-6c")
 
     pair, complexes, rids, pair_launches = phase_pair_serve(args.seed)
     launches["flashbias_attention_ragged_fwd"] = \
@@ -3668,6 +4329,7 @@ def main(argv=None) -> int:
         pair, complexes, card)
     del pair
     torch.cuda.empty_cache()
+    clock("phases 7-9")
 
     errors["ssd_scan_fwd"] = phase_ssm_kernel(args.seed)
     ssm, ssm_requests, ssm_launches, ssm_tok_s, ssm_first = \
@@ -3683,6 +4345,7 @@ def main(argv=None) -> int:
     launches["flashbias_attention_fwd"] += phase_swin(args.seed, card)
     launches["flashbias_attention_fwd"] += phase_pde(args.seed, card)
     torch.cuda.empty_cache()
+    clock("phases 10-14")
 
     # phases 15-16 take no profile: they run after the profiled phases,
     # which then see the process as old as before them (PERF.md section 7)
@@ -3698,9 +4361,12 @@ def main(argv=None) -> int:
                       f"and SSM engines at full width, the Pairformer at "
                       f"{PAIR_CKPT_LAYERS} of {PAIR_LAYERS} layers [{card}]")
     torch.cuda.empty_cache()
+    clock("phases 15-16")
     hybrid = run_child("hybrid", args.seed)
     for name in ("flashbias_attention_fwd", "ssd_scan_fwd"):
         launches[name] += hybrid[name]
+    for phase in ("paged-hybrid", "moe", "dense-configs"):
+        merge_launches(launches, run_child(phase, args.seed)["launches"])
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"
                                            "flashbias_attn.py:149",

@@ -143,9 +143,12 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The architectures the port runs: the dense, SSM and hybrid families and
-# the Pairformer (served), and the paper's vision and PDE models (forward).
-ARCH_IDS = ["gpt2_alibi_15b", "stablelm_12b", "mamba2_130m", "hymba_15b",
+# The architectures the port runs: the dense, MoE, SSM and hybrid families
+# and the Pairformer (served), and the paper's vision and PDE models
+# (forward). The reference's two frontend configs are not ported yet.
+ARCH_IDS = ["gpt2_alibi_15b", "stablelm_12b", "codeqwen15_7b", "minicpm_2b",
+            "command_r_plus_104b", "granite_moe_3b_a800m",
+            "llama4_scout_17b_a16e", "mamba2_130m", "hymba_15b",
             "pairformer_lite", "swinv2_b", "pde_solver"]
 
 

@@ -55,8 +55,8 @@
 // - Logits from shared memory (a group of lanes per key, one 16-byte chunk
 //   of its row each, reduced by shuffles), the span's softmax, then P.V by
 //   a thread per (16-byte chunk of v, key group), reduced by shuffles and
-//   across warps in a fixed order. No tensor cores: at G <= 8 the products
-//   are matrix-vector.
+//   across warps in a fixed order. No tensor cores: at G <= 16 the
+//   products are matrix-vector.
 // - Splits combine deterministically: a row with one split writes its
 //   output directly. Otherwise each split writes (m, l, acc) to a float32
 //   scratch; the last block of (b, h) to arrive (an int32 counter per
@@ -72,7 +72,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;                     // q heads per kv head
+constexpr int kMaxG = 16;                    // q heads per kv head
 constexpr int kMaxSpan = 256;                // keys per split
 constexpr int kGridSplits = 0;               // > 0: a fixed split axis
 
@@ -225,8 +225,9 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src,
   }
 }
 
-// MG: the q heads per kv head rounded up to 1, 2, 4 or 8 (register arrays
-// of MG rows). DK: 0, or D = Dv = DK known at compile time (the LM path's
+// MG: the q heads per kv head rounded up to 1, 2, 4, 8 or 16 (register
+// arrays of MG rows; at 16 the P.V accumulators alone take 128 registers a
+// thread). DK: 0, or D = Dv = DK known at compile time (the LM path's
 // 32), which turns the index arithmetic into shifts. That body at G = 1 (the
 // LM path) asks for 8 resident blocks per SM, at most 64 registers a thread:
 // the path's live splits then fit on the card at once.
@@ -581,7 +582,8 @@ cudaError_t dispatch_g(const DecodeArgs& a, cudaStream_t stream) {
   if (a.G == 1) return launch<T, 1, PAGED, DK>(a, stream);
   if (a.G == 2) return launch<T, 2, PAGED, DK>(a, stream);
   if (a.G <= 4) return launch<T, 4, PAGED, DK>(a, stream);
-  return launch<T, 8, PAGED, DK>(a, stream);
+  if (a.G <= 8) return launch<T, 8, PAGED, DK>(a, stream);
+  return launch<T, 16, PAGED, DK>(a, stream);
 }
 
 template <typename T, bool PAGED>

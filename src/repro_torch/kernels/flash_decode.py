@@ -46,7 +46,7 @@ __all__ = ["flash_decode_torch", "flash_decode_fwd",
            "flash_decode_paged_torch", "flash_decode_paged_fwd",
            "paged_write_plan", "split_span", "MAX_GROUP"]
 
-MAX_GROUP = 8                 # q heads per kv head the kernel takes
+MAX_GROUP = 16                # q heads per kv head the kernel takes
 MAX_SPAN = 128                # keys per split (the kernel takes <= 256)
 SPAN_TILE_BYTES = 32 * 1024   # a split's staged k, v (and phi) rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

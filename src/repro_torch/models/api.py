@@ -1,5 +1,5 @@
 """Uniform Model interface consumed by the server (port of
-``repro.models.api``: the dense, SSM and hybrid LM families, the
+``repro.models.api``: the dense, MoE, SSM and hybrid LM families, the
 Pairformer, and the paper's vision (SwinV2) and PDE models).
 
 ``get_model(cfg)`` returns a ``Model`` with:
@@ -26,11 +26,14 @@ Pairformer, and the paper's vision (SwinV2) and PDE models).
 - ``copy_pages(dst, src_ids, dst_ids)``     — copy whole pages (prefix
   caching's copy-on-write).
 
-The paged entries and ``copy_pages`` are the dense LM family's; the SSM
-and hybrid families' ``Model`` leaves them None (constant-size SSM state; a
-hybrid model's attention keeps a ring of its window or, where the window
-covers ``max_len``, a contiguous cache), and the
-Pairformer's leaves every optional entry None, ``prefill_chunk`` too. The
+The paged entries belong to the families with attention (dense, MoE,
+hybrid); the SSM family's ``Model`` leaves them None (constant-size
+state). A hybrid
+pages only where its window covers ``max_len`` (else its attention keeps a
+ring and the backend does not page). ``copy_pages`` is the dense and MoE
+families', the two whose slot state lives entirely in pages, so the only
+ones that may share prefix pages. The Pairformer's ``Model`` leaves every
+optional entry None, ``prefill_chunk`` too. The
 Pairformer's ``prefill`` is the admission trunk pass (with the factor MLPs
 as ``factors=``), its ``decode`` one refinement iteration over the slot
 batch, and its ``init_cache`` takes ``factors=`` to size the factor cache.
@@ -91,11 +94,12 @@ def get_model(cfg: ArchConfig) -> Model:
         return Model(cfg=cfg, template=lambda: pde.pde_template(cfg),
                      loss=lambda p, batch: pde.regression_loss(p, batch,
                                                                cfg))
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "
             f"item 8)")
-    paged = cfg.family == "dense"
+    paged = cfg.family in ("dense", "moe", "hybrid")
+    shares_pages = cfg.family in ("dense", "moe")
     return Model(
         cfg=cfg,
         template=lambda: lm.lm_template(cfg),
@@ -114,5 +118,5 @@ def get_model(cfg: ArchConfig) -> Model:
         final_lens, max_pages=None: lm.prefill_chunk(
             p, cache, tokens, cfg, offsets=offsets, chunk_lens=chunk_lens,
             final_lens=final_lens, max_pages=max_pages),
-        copy_pages=lm.copy_paged_pages if paged else None,
+        copy_pages=lm.copy_paged_pages if shares_pages else None,
     )

@@ -1,8 +1,9 @@
-"""Decoder LM, dense, SSM and hybrid families: FlashBias-ALiBi attention +
-SwiGLU MLP (dense), the Mamba2 SSD block alone (ssm), or attention and SSD
+"""Decoder LM, dense, MoE, SSM and hybrid families: FlashBias-ALiBi
+attention + SwiGLU MLP (dense), attention + a routed mixture of SwiGLU
+experts (moe), the Mamba2 SSD block alone (ssm), or attention and SSD
 branches side by side, each rms-normed and averaged, + SwiGLU MLP (hybrid).
 
-Port of the dense, SSM and hybrid paths of ``repro.models.lm``. The
+Port of the LM paths of ``repro.models.lm`` (the frontends aside). The
 parameter tree has the reference's nested keys and stacked leading-``L``
 shapes (``lm_template``), so the reference's parameters carry across as a
 dict copy. Layers run as a Python loop in place of ``jax.lax.scan``; each
@@ -46,10 +47,23 @@ there); a chunk attends to the ring as it was plus its own keys and only
 then rotates in. The hybrid family (``hymba_15b``) carries the SSM state
 beside its ring and runs kernel 5 in its prefill.
 
+A hybrid whose window covers ``max_len`` keeps a full cache and pages it as
+the dense family does, its SSM state and conv tails staying per-slot leaves
+of the paged cache. As in the reference, only whole-prompt prefill applies
+the window there (kernel 1's ``local`` mode): paged decode and paged chunk
+attention take no window, so a request that grows past it attends to every
+key.
+
+The MoE family (``granite_moe_3b_a800m``, ``llama4_scout_17b_a16e``)
+replaces the MLP with ``_moe_ffn``: top-k routing with capacity dispatch,
+built from indices (a running count per expert, then scatters and gathers
+through ``(B, E, C, D)`` buffers) where the reference builds one-hot
+einsums.
+
 ``cfg.bias_mode="dense"`` is the dense-bias baseline of the dense family:
 its prefill adds the materialized ALiBi bias to the logits (plain chunked
 attention, no kernel); decode and chunked prefill are those of flashbias
-mode, as in the reference. MoE and the frontends wait for a later slice.
+mode, as in the reference. The frontends wait for a later slice.
 """
 from __future__ import annotations
 
@@ -81,12 +95,13 @@ __all__ = ["lm_template", "cast_layers", "prefill", "decode_step",
            "init_paged_cache", "insert_paged_cache_at_slots",
            "grow_page_tables_at_slots", "copy_paged_pages"]
 
-_ATTN = ("dense", "hybrid")              # families with attention layers
+_ATTN = ("dense", "moe", "hybrid")       # families with attention layers
 _SSM = ("ssm", "hybrid")                 # families with SSD layers
+_SSM_LEAVES = ("ssm_h", "conv_x", "conv_bc")   # per-slot SSM cache leaves
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "
             f"item 8)")
@@ -94,6 +109,12 @@ def _check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"the {cfg.frontend} frontend is not ported yet (ROADMAP.md "
             f"Queue A item 8)")
+    if cfg.cache_layout != "kernel":
+        raise ValueError(
+            f"cache_layout={cfg.cache_layout!r}: the legacy canonical "
+            f"layout is the reference's TPU layout A/B baseline and is not "
+            f"ported; the port keeps kv-head-major caches "
+            f"(cache_layout='kernel')")
 
 
 def _is_ring(cfg: ArchConfig, k_cache: torch.Tensor) -> bool:
@@ -147,6 +168,15 @@ def _ssm_template(cfg: ArchConfig) -> dict:
     }
 
 
+def _moe_template(cfg: ArchConfig) -> dict:
+    d, f, ep = cfg.d_model, cfg.d_ff, cfg.experts_padded
+    return {
+        "router": PDef((d, ep), ("normal", 0.02)),
+        "wi": PDef((ep, d, f, 2), ("normal", 0.02)),
+        "wo": PDef((ep, f, d), ("normal", 0.02 / np.sqrt(2 * cfg.n_layers))),
+    }
+
+
 def _layer_template(cfg: ArchConfig) -> dict:
     layer = {"ln1": PDef((cfg.d_model,), ("zeros",))}
     if cfg.family in _ATTN:
@@ -156,8 +186,11 @@ def _layer_template(cfg: ArchConfig) -> dict:
     if cfg.family == "hybrid":
         layer["branch_norm_attn"] = PDef((cfg.d_model,), ("zeros",))
         layer["branch_norm_ssm"] = PDef((cfg.d_model,), ("zeros",))
-    if cfg.family in _ATTN:
+    if cfg.family == "moe":
+        layer["moe"] = _moe_template(cfg)
+    elif cfg.family in _ATTN:
         layer["mlp"] = _mlp_template(cfg)
+    if cfg.family in _ATTN:
         layer["ln2"] = PDef((cfg.d_model,), ("zeros",))
     return layer
 
@@ -423,8 +456,93 @@ def _attention_chunk(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
     return _out_proj(o, lp["wo"])
 
 
-def _mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
-    return swiglu(rmsnorm(x, lp["ln2"]), lp["mlp"]["wi"], lp["mlp"]["wo"])
+def _ffn(lp: dict, x: torch.Tensor, cfg: ArchConfig,
+         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The layer's FFN update of the rms-normed residual: the SwiGLU MLP,
+    or (moe) the routed experts, ``valid`` (B, S) marking the positions
+    that take expert capacity."""
+    h = rmsnorm(x, lp["ln2"])
+    if cfg.family == "moe":
+        return _moe_ffn(lp["moe"], h, cfg, valid)[0]
+    return swiglu(h, lp["mlp"]["wi"], lp["mlp"]["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN (capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def _moe_capacity(cfg: ArchConfig, s: int) -> int:
+    """Slots per expert in a call of width ``s`` (the reference's rule)."""
+    c = int(np.ceil(s * cfg.top_k / cfg.experts_padded * cfg.capacity_factor))
+    return max(1, c)
+
+
+def _moe_route(mp: dict, x: torch.Tensor, cfg: ArchConfig):
+    """The router: float32 logits with the padded experts' set to -1e30,
+    softmax, top k, gates renormalised over the k. x (B, S, D) -> (probs
+    (B, S, E), gates (B, S, K), experts (B, S, K))."""
+    logits = (x @ mp["router"]).float()
+    if cfg.n_experts < cfg.experts_padded:       # padded experts never win
+        logits = logits.masked_fill(torch.arange(
+            cfg.experts_padded, device=x.device) >= cfg.n_experts, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def _moe_ffn(mp: dict, x: torch.Tensor, cfg: ArchConfig,
+             valid: Optional[torch.Tensor] = None):
+    """Top-k routed SwiGLU experts with capacity dispatch, the reference's
+    ``_moe_ffn``. x (B, S, D) -> (y (B, S, D), aux):
+
+    - the router (``_moe_route``);
+    - each batch row's entries in slot-major order (every position's first
+      choice before any second choice, sequence order within a choice)
+      take their expert's next slot while fewer than ``_moe_capacity(cfg,
+      S)`` are taken; the rest are dropped;
+    - ``valid`` (B, S) bool: invalid positions take no capacity and get a
+      zero update;
+    - ``aux`` is the Switch load-balance value over the real experts.
+
+    The dispatch is built from indices: a running count per expert gives
+    each entry its slot, kept entries are scattered into a ``(B, E, C, D)``
+    buffer (dropped ones into a spare row), the expert products run as
+    batched GEMMs, and each position gathers its k outputs back and sums
+    them with its gates in float32."""
+    b, s, d = x.shape
+    ep, k = cfg.experts_padded, cfg.top_k
+    cap = _moe_capacity(cfg, s)
+    dev = x.device
+    probs, gates, idx = _moe_route(mp, x, cfg)                   # (B, S, K)
+    sel = idx.transpose(1, 2).reshape(b, k * s)                  # slot-major
+    gate = gates.transpose(1, 2).reshape(b * k * s, 1)
+    ok = (torch.ones_like(sel, dtype=torch.bool) if valid is None
+          else valid[:, None, :].expand(b, k, s).reshape(b, k * s))
+    # (B, E, K*S): the running count is a scan along the innermost axis
+    onehot = ((sel[:, None, :] == torch.arange(ep, device=dev)[:, None])
+              & ok[:, None, :]).to(torch.int32)
+    pos = (onehot.cumsum(-1, dtype=torch.int32) - onehot).gather(
+        1, sel[:, None, :])[:, 0]
+    keep = ok & (pos < cap)
+    spare = b * ep * cap
+    row = (torch.arange(b, device=dev)[:, None] * ep + sel) * cap + pos
+    row = torch.where(keep, row, spare).reshape(-1)              # (B*K*S,)
+    xin = x.new_zeros((spare + 1, d))
+    # kept entries land on distinct rows; every dropped one on the spare
+    xin[row] = x[:, None].expand(b, k, s, d).reshape(-1, d)
+    xe = xin[:spare].view(b, ep, cap, d).transpose(0, 1).reshape(
+        ep, b * cap, d)
+    wi = mp["wi"]                                                # (E,D,F,2)
+    h2 = torch.bmm(xe, wi.reshape(ep, d, -1)).unflatten(-1, wi.shape[2:])
+    eo = torch.bmm(F.silu(h2[..., 0]) * h2[..., 1], mp["wo"])   # (E,B*C,D)
+    eo = eo.view(ep, b, cap, d).transpose(0, 1).reshape(spare, d)
+    eo = torch.cat([eo, eo.new_zeros((1, d))])
+    y = (eo[row].float() * gate).view(b, k, s, d).sum(1)
+    counts = torch.zeros((b, ep), device=dev).scatter_add_(
+        1, sel, keep.float())
+    frac = counts / max(s * k, 1)
+    aux = cfg.n_experts * (frac * probs.mean(1)).sum(-1).mean()
+    return y.to(x.dtype), aux
 
 
 # ---------------------------------------------------------------------------
@@ -555,8 +673,9 @@ def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def _mix(lp: dict, x: torch.Tensor, y: Optional[torch.Tensor],
          ys: Optional[torch.Tensor], cfg: ArchConfig) -> torch.Tensor:
     """The residual update of a layer's token mixers: the attention output
-    (dense), the SSD output (ssm), or their rms-normed mean (hybrid)."""
-    if cfg.family == "dense":
+    (dense, moe), the SSD output (ssm), or their rms-normed mean
+    (hybrid)."""
+    if cfg.family in ("dense", "moe"):
         return x + y
     if cfg.family == "ssm":
         return x + ys
@@ -611,6 +730,9 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *,
         cache["k"] = alloc(shape, dtype=dt, device=dev)
         cache["v"] = alloc(shape, dtype=dt, device=dev)
     states, tails_x, tails_bc = [], [], []
+    valid = None                     # MoE capacity ignores the padding
+    if lengths is not None and cfg.family == "moe":
+        valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
     x = _embed_in(params, tokens, cfg)
     for i in range(cfg.n_layers):
         lp = _layer(params, i, dt)
@@ -632,7 +754,7 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *,
             tails_bc.append(tail_bc)
         x = _mix(lp, x, y, ys, cfg)
         if cfg.family in _ATTN:
-            x = x + _mlp(lp, x)
+            x = x + _ffn(lp, x, cfg, valid)
     if lengths is None:
         lengths = full
     last = x[torch.arange(b, device=dev), (lengths - 1).long()][:, None]
@@ -712,7 +834,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             ys = _ssm_decode_layer(lp["ssm"], h, cache, i, active, cfg)
         x = _mix(lp, x, y, ys, cfg)
         if cfg.family in _ATTN:
-            x = x + _mlp(lp, x)
+            x = x + _ffn(lp, x, cfg)
     return _logits(params, x, cfg), {**cache, "length": lengths}
 
 
@@ -795,7 +917,7 @@ def _layer_chunk(lp: dict, i: int, cache: dict, x: torch.Tensor,
         tbc.copy_(torch.where(part[:, None, None], tbc_new, tbc))
     x = _mix(lp, x, y, ys, cfg)
     if cfg.family in _ATTN:
-        x = x + _mlp(lp, x)
+        x = x + _ffn(lp, x, cfg, chunk.get("valid"))
     return x
 
 
@@ -838,6 +960,9 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
                           for x in (offsets, chunk_lens, final_lens))
     ring = cfg.window if "k" in cache and _is_ring(cfg, cache["k"][0]) else 0
     chunk = _chunk_plan(cache, offs, clens, c, dev, ring=ring)
+    if cfg.family == "moe":         # MoE capacity ignores the padding
+        chunk["valid"] = (torch.arange(c, device=dev)[None, :]
+                          < chunk["chunk_lens"][:, None])
     slopes = paged = None
     if cfg.family in _ATTN and cfg.bias_kind == "alibi":
         slopes = params["layers"]["attn"]["slopes"].to(dt).float()  # (L, H)
@@ -881,15 +1006,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda",
         cache["k"] = torch.zeros(shape, dtype=dt, device=device)
         cache["v"] = torch.zeros(shape, dtype=dt, device=device)
     if cfg.family in _SSM:
-        hs, p, n = cfg.ssm_heads_padded, cfg.ssm_head_dim, cfg.ssm_state
-        w = cfg.conv_width
-        cache["ssm_h"] = torch.zeros((l, batch, hs, p, n),
-                                     dtype=torch.float32, device=device)
-        cache["conv_x"] = torch.zeros((l, batch, w - 1, hs, p), dtype=dt,
-                                      device=device)
-        cache["conv_bc"] = torch.zeros((l, batch, w - 1, 2 * n), dtype=dt,
-                                       device=device)
+        cache.update(_ssm_cache(cfg, batch, device))
     return cache
+
+
+def _ssm_cache(cfg: ArchConfig, batch: int, device) -> dict:
+    """Zeroed per-slot SSM leaves: ``ssm_h (L, B, Hs, P, N)`` float32 and
+    the conv tails ``conv_x (L, B, W-1, Hs, P)`` and ``conv_bc (L, B, W-1,
+    2N)`` in the compute dtype."""
+    l, dt = cfg.n_layers, compute_dtype(cfg)
+    hs, p, n = cfg.ssm_heads_padded, cfg.ssm_head_dim, cfg.ssm_state
+    w = cfg.conv_width
+    return {
+        "ssm_h": torch.zeros((l, batch, hs, p, n), dtype=torch.float32,
+                             device=device),
+        "conv_x": torch.zeros((l, batch, w - 1, hs, p), dtype=dt,
+                              device=device),
+        "conv_bc": torch.zeros((l, batch, w - 1, 2 * n), dtype=dt,
+                               device=device),
+    }
 
 
 def insert_cache_at_slots(dst: dict, src: dict, slots) -> dict:
@@ -941,12 +1076,15 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
     - ``page_table`` ``(batch, pages_per_slot)`` int32: slot b's logical
       block j -> physical page; unmapped entries may hold anything (decode
       clamps them and the length mask discards what they read).
+    - hybrid: the per-slot SSM leaves ``ssm_h (L, B, Hs, P, N)`` float32,
+      ``conv_x (L, B, W-1, Hs, P)`` and ``conv_bc (L, B, W-1, 2N)``, as in
+      ``init_cache`` (constant-size, so not paged).
 
     The port stores ``hd`` and the slab's rank unpadded: the reference's
     128-lane pads are Pallas TPU tile constraints, and the Hopper kernel
     reads rows of any width."""
     _check_supported(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in _ATTN:
         raise ValueError(f"{cfg.family} caches are constant-size: no pages")
     shape = (cfg.n_layers, cfg.kv_heads_padded, n_pages, page_size,
              cfg.resolved_head_dim)
@@ -961,6 +1099,8 @@ def init_paged_cache(cfg: ArchConfig, batch: int, n_pages: int,
     if cfg.bias_kind == "alibi":
         cache["pages_phi"] = torch.zeros((n_pages, page_size, 2),
                                          dtype=torch.float32, device=device)
+    if cfg.family in _SSM:
+        cache.update(_ssm_cache(cfg, batch, device))
     return cache
 
 
@@ -988,7 +1128,7 @@ def insert_paged_cache_at_slots(dst: dict, src: dict, slots, tables) -> dict:
     of range (``>= n_slots``). ``slots`` and ``tables`` are host arrays;
     they are filtered on the host, so no out-of-range index reaches the
     device. Prompt pages take K/V content and position factors; the page
-    table and ``length`` land at ``slots``."""
+    table, ``length`` and (hybrid) the SSM leaves land at ``slots``."""
     slots, tables = _host_ids(slots), _host_ids(tables)
     n_pages, ps = dst["pages_k"].shape[2], dst["pages_k"].shape[3]
     n_slots = dst["length"].shape[0]
@@ -1020,6 +1160,9 @@ def insert_paged_cache_at_slots(dst: dict, src: dict, slots, tables) -> dict:
         dst["page_table"][s_t] = torch.as_tensor(
             tables[keep], dtype=torch.int32, device=dev)
         dst["length"][s_t] = src["length"][k_t.to(src["length"].device)]
+        for key in _SSM_LEAVES:
+            if key in dst:
+                dst[key][:, s_t] = src[key][:, k_t]
     return dst
 
 

@@ -28,13 +28,15 @@ model whose window is shorter than ``max_len`` keeps a ring of the last
 ``window`` keys (the hybrid family also carries the SSM state): both accept
 prompts of any length, and ``page_size`` is a no-op for them (the backend
 does not page), as in the reference. A ring model's prefill chunk is
-clamped to the window, and it refuses ``prefix_cache``.
+clamped to the window, and it refuses ``prefix_cache``. A hybrid whose
+window covers ``max_len`` pages its attention cache as the dense family
+does, its SSM state riding per slot; it refuses ``prefix_cache`` too.
 
 ``prefill_chunk`` makes admission a planner: it reserves a prompt's pages,
 arms its sampling state and queues a ``ChunkPlan``; the engine then runs
 one ``prefill_step`` per engine step, one fixed-shape ``(n_slots, chunk)``
 call that appends a chunk for every pending slot, between decode steps.
-``prefix_cache`` (paged, chunked, dense family) indexes every landed
+``prefix_cache`` (paged, chunked, dense or MoE family) indexes every landed
 prompt's full pages by content (``serve/prefix.py``): a request whose
 prompt starts with indexed pages shares them through its page table and
 prefills only the rest, copying on write any shared page it must write.
@@ -236,7 +238,7 @@ class TokenDecodeBackend(Backend):
         # full-KV caches must fit prompt + budget inside the slot segment
         # (contiguous) or the page pool (paged); SSM state and ring caches
         # are constant-size
-        self._bounded_cache = (cfg.family in ("dense", "hybrid")
+        self._bounded_cache = (cfg.family in ("dense", "moe", "hybrid")
                                and not self.ring)
         self.paged = (page_size is not None and self._bounded_cache
                       and model.init_paged_cache is not None)
@@ -259,7 +261,7 @@ class TokenDecodeBackend(Backend):
                     "prefill (prefill_chunk): shared pages map through the "
                     "page table and novel tails land via mid-prompt "
                     "ChunkPlans")
-            if cfg.family != "dense":
+            if cfg.family not in ("dense", "moe"):
                 raise ValueError(
                     f"prefix_cache shares KV pages only: family "
                     f"'{model.cfg.family}' carries per-slot recurrent state "

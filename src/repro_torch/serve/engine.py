@@ -184,8 +184,8 @@ class ServeEngine:
             many tokens per engine step, between decode steps. None keeps
             whole-prompt admission waves.
         prefix_cache: content-hashed prefix caching (needs ``page_size``,
-            ``prefill_chunk`` and the dense family): completed prompt pages
-            are shared by later prompts that start with them.
+            ``prefill_chunk`` and the dense or MoE family): completed
+            prompt pages are shared by later prompts that start with them.
         faults: a ``serve.faults.FaultPlan`` for deterministic fault
             injection (drills); None injects nothing.
         mesh: a later slice of the port; passing it raises

@@ -15,16 +15,28 @@ CPU.
   leaves the cache and the output equal to the write done first by the
   reference's rule and the decode call after it, with frozen rows, a
   sentinel table entry and a position whose block is past the table.
+- The group bound: the wrappers' shared check takes 1 to 16 q heads per kv
+  head (12 is ``command_r_plus_104b``'s group) and refuses 17 with a
+  ``ValueError``, on CPU tensors, before any build.
+- On the card (marked ``cuda``): kernels 3 and 4 at G 12 and 16, D 128,
+  ALiBi and phi, lengths across their span boundaries (0 among them), and
+  kernel 4 at hymba's paged decode shape (G 8, D 64, page size 16), each
+  against its plain version. The reference is imported inside the one test
+  that runs it, so these run where JAX is absent:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda \
+        tests/test_torch_decode_split.py
 
 The emulation lives here, not in the package: the kernel is its only other
 implementation, and the card tests hold that to the plain versions.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels import ops as jops
+from repro_torch.core.bias import alibi_slopes
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_decode import split_span
 
@@ -162,6 +174,9 @@ def test_span_is_a_function_of_static_shapes():
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("layout", ["contiguous", "paged16", "paged48"])
 def test_split_emulation_matches_plain_and_pallas(layout, g, bias):
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as jops
     rng = np.random.default_rng(20)
     q, k, v, table, ps, kw = _case(rng, layout, g, bias)
     lengths = np.array(LENGTHS, np.int32)
@@ -265,3 +280,132 @@ def test_fused_write_equals_write_then_decode(layout, bias):
     assert not torch.equal(k_one, torch.from_numpy(k))
     if table is not None:      # row 2's write fell on the sentinel
         assert not (k_one == k_new[2][:, None, None]).all(-1).any()
+
+
+# ---------------------------------------------------------------------------
+# The group bound, and the wide groups on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("g", [1, 8, 12, 16, 17])
+def test_group_bound_is_checked_before_any_build(g, monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+    monkeypatch.setattr(build, "load", no_build)
+    b, kvh, d, s = 2, 2, 128, 8
+    q = torch.zeros((b, kvh, g, d))
+    k = torch.zeros((b, kvh, s, d))
+    lens = torch.tensor([0, 5], dtype=torch.int32)
+    slopes = torch.ones((kvh, g))
+    if g > fd.MAX_GROUP:
+        with pytest.raises(ValueError, match=r"group 17: the kernel takes "
+                                             r"1\.\.16"):
+            fd._check("flash_decode_fwd", q, k, k, lens, None, None, slopes,
+                      None, None)
+        return
+    *_, r = fd._check("flash_decode_fwd", q, k, k, lens, None, None, slopes,
+                      None, None)
+    assert r == 0 and fd.MAX_GROUP == 16
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# lengths across the spans at D 128 (split_span: 64 keys bf16 ALiBi, 32
+# bf16 phi or float32 ALiBi, 16 float32 phi) and the whole cache
+CARD_LENGTHS = [0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 777, 2048]
+CARD_S = 2048
+
+
+def _card_tolerance(dtype, want):
+    """float32: summation order (1e-4); bfloat16: 2 bf16 ulps at the
+    output's scale (both sides round one float32 result)."""
+    if dtype == torch.float32:
+        return 1e-4
+    return 2.0 ** -6 * max(1.0, float(want.float().abs().max()))
+
+
+def _card_case(cuda, layout, g, d, dtype, bias, lengths, seed, ps, kvh):
+    """Inputs of one call: q, caches or pools (pages in a random
+    permutation, sentinel columns after the live ones), the new rows, and
+    ALiBi slopes or rank-2 phi factors (paged: on the shared slab)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device=cuda).to(dt)
+    kw = {"scale": d ** -0.5, "k_new": randn(b, kvh, d),
+          "v_new": randn(b, kvh, d)}
+    if layout == "contiguous":
+        k, v = randn(b, kvh, CARD_S, d), randn(b, kvh, CARD_S, d)
+        if bias == "phi":
+            kw["phi_k"] = randn(b, kvh, CARD_S, 2, dt=torch.float32)
+    else:
+        live = -(-CARD_S // ps)
+        n_pages = b * live + 1
+        k, v = randn(kvh, n_pages, ps, d), randn(kvh, n_pages, ps, d)
+        table = rng.permutation(n_pages)[:b * live].reshape(b, live)
+        table = np.concatenate([table, np.full((b, 2), n_pages)], 1)
+        kw["page_table"] = torch.as_tensor(table, dtype=torch.int32,
+                                           device=cuda)
+        if bias == "phi":
+            kw["phi_pages"] = randn(1, n_pages, ps, 2, dt=torch.float32)
+    if bias == "phi":
+        kw["phi_q"] = randn(b, kvh, g, 2, dt=torch.float32)
+    else:
+        kw["slopes"] = alibi_slopes(kvh * g, device=cuda).reshape(kvh, g)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return randn(b, kvh, g, d), k, v, lens, kw
+
+
+def _card_call(fn, q, k, v, lens, kw):
+    kw = dict(kw)
+    table = kw.pop("page_table", None)
+    k, v = k.clone(), v.clone()
+    extra = () if table is None else (table,)
+    out = fn(q, k, v, lens, *extra, **kw)
+    torch.cuda.synchronize()
+    return out, k, v
+
+
+def _card_check(cuda, layout, g, d, dtype, bias, lengths, seed, kvh=2):
+    q, k, v, lens, kw = _card_case(cuda, layout, g, d, dtype, bias, lengths,
+                                   seed, 16, kvh)
+    if layout == "contiguous":
+        fn, plain = fd.flash_decode_fwd, fd.flash_decode_torch
+    else:
+        fn, plain = fd.flash_decode_paged_fwd, fd.flash_decode_paged_torch
+    before = fn.launches
+    got, k_got, v_got = _card_call(fn, q, k, v, lens, kw)
+    want, k_want, v_want = _card_call(plain, q, k, v, lens, kw)
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_card_tolerance(dtype, want))
+    assert not got[lens == 0].any()
+    assert torch.equal(k_got, k_want) and torch.equal(v_got, v_want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("bias", ["alibi", "phi"])
+@pytest.mark.parametrize("g", [12, 16])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_wide_groups_on_card(cuda, layout, g, bias, dtype):
+    """Kernels 3 and 4 at G 12 and 16 (the MG = 16 body), D 128, with the
+    new rows written, against their plain versions."""
+    _card_check(cuda, layout, g, 128, dtype, bias, CARD_LENGTHS, seed=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", ["alibi", "phi"])
+def test_paged_kernel_at_the_hybrid_decode_shape(cuda, bias):
+    """Kernel 4 at hymba's paged decode shape: 6 kv heads of G 8, D 64,
+    bf16, page size 16 (phi is the serve path's rank-2 slab mode)."""
+    _card_check(cuda, "paged", 8, 64, torch.bfloat16, bias,
+                [0, 1, 64, 65, 700, 1024], seed=8, kvh=6)

@@ -8,7 +8,8 @@ prompts and tokens come from numpy; the reference runs its XLA path.
 
 - The template: the reference's keys, shapes and init laws at full width
   (the hybrid layer carries attention, SSM, both branch norms and the MLP);
-  MoE and frontends are still refused, naming ROADMAP item 8.
+  the frontends are still refused, naming ROADMAP item 8 (MoE is served
+  now: ``tests/test_torch_moe.py``).
 - Ragged prefill with prompts shorter than, equal to and longer than the
   window: logits at ``atol 1e-5`` and every cache leaf (the ring padded or
   gathered, ``ssm_h`` / ``conv_x`` / ``conv_bc``) at ``1e-5``; then decode
@@ -109,7 +110,7 @@ def test_template_matches_reference_at_full_width():
                                                             64)
 
 
-@pytest.mark.parametrize("replace", [{"family": "moe"},
+@pytest.mark.parametrize("replace", [{"frontend": "vision"},
                                      {"frontend": "audio"}])
 def test_moe_and_frontends_are_refused(replace):
     cfg = smoke_config("stablelm_12b").replace(**replace)

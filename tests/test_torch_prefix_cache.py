@@ -14,9 +14,11 @@ counterpart of ``tests/test_prefix_cache.py``).
   sampled, also through preemption of a request that shares pages under a
   tight pool; the submit error states the shared pages; matched-token
   counts, streams and statuses equal to the JAX engine's.
-
-The reference's MoE case (``granite_moe_3b_a800m``) is left out: the port
-has no MoE family yet (ROADMAP.md Queue A item 8).
+- The MoE case (``granite_moe_3b_a800m``, sampled: expert routing and the
+  sampling streams): shared streams bit-equal to the unshared engine's
+  with a hit rate above 0, as the reference's
+  ``test_shared_vs_unshared_bit_parity`` holds it; greedy streams,
+  statuses and the prefix counters equal to the JAX prefix engine's.
 """
 import jax
 import jax.numpy as jnp
@@ -256,6 +258,16 @@ def test_shared_vs_unshared_bit_parity(stablelm, temp):
     assert eng.page_stats()["prefix"]["hit_rate"] > 0
 
 
+def test_moe_shared_vs_unshared_bit_parity():
+    _, _, model, params = _carried("granite_moe_3b_a800m")
+    prompts = _shared_prompts(model.cfg.vocab, 12, (5, 3, 7, 6))
+    off, _ = _run(model, params, prompts, prefix_cache=False, temp=0.8)
+    on, eng = _run(model, params, prompts, prefix_cache=True, temp=0.8)
+    for i, (a, b) in enumerate(zip(off, on)):
+        np.testing.assert_array_equal(a, b, err_msg=f"request {i}")
+    assert eng.page_stats()["prefix"]["hit_rate"] > 0
+
+
 def test_parity_through_preemption_of_a_sharing_request(stablelm):
     """A 9-page pool: the prefix engine preempts requests that share pages
     and evicts index entries mid-run; streams stay bit-equal to the
@@ -288,11 +300,10 @@ def test_submit_error_accounts_for_shared_hits(stablelm):
         eng.submit(over, 100)
 
 
-def test_engine_matches_reference_engine(stablelm):
+def _engine_vs_reference(jmodel, jparams, model, params):
     """Greedy traffic with a shared prefix through the port's prefix engine
     and the JAX one: the same streams, statuses, matched tokens and
     copies."""
-    jmodel, jparams, model, params = stablelm
     prompts = _shared_prompts(model.cfg.vocab, 12, (5, 3, 7, 6, 0))
     kw = {"max_len": 64, "n_slots": 2, "page_size": 4, "pages_per_slot": 16,
           "prefill_chunk": 4, "prefix_cache": True}
@@ -308,4 +319,16 @@ def test_engine_matches_reference_engine(stablelm):
         assert g.status == w.status == OK
         np.testing.assert_array_equal(g, np.asarray(w), err_msg=f"req {i}")
     assert stats["prefix"] == jstats["prefix"]
+    assert stats["prefix"]["tokens_matched"] > 0
     assert stats["prefix"]["cow_copies"] >= 1
+
+
+def test_engine_matches_reference_engine(stablelm):
+    _engine_vs_reference(*stablelm)
+
+
+def test_moe_engine_matches_reference_engine():
+    """The MoE case of the above (``granite_moe_3b_a800m``, top 8 of 40
+    experts padded to 48): routing through shared pages leaves streams,
+    statuses and the prefix counters equal to the JAX engine's."""
+    _engine_vs_reference(*_carried("granite_moe_3b_a800m"))
