@@ -93,13 +93,13 @@ as it runs, any failure ending the run:
               dense one; first-token logits within LOGIT_TOL; both waves
               timed on the host clock and as device busy (the paper's Sec.
               4.2 A/B);
-7. pair     — Pairformer-lite at full width (16 layers, d_single 384,
-              d_pair 128, 4 heads x 96, bf16 compute, random float32
-              weights from ``--seed``) through ``ServeEngine`` on 4 slots x
+7. pair     — Pairformer-lite at full width (PAIR_LAYERS = 8 of its 16
+              layers, d_single 384, d_pair 128, 4 heads x 96, bf16
+              compute, random float32 weights from ``--seed``) through ``ServeEngine`` on 4 slots x
               384 residues in SVD mode: 8 complexes (n_res 96-384), 4-8
               refinement steps each, staggered. Every request must end OK
               with a finite (n_res, 384) result, the ragged kernel's counter
-              must equal 16 x (admission waves + refinement steps), each
+              must equal 8 x (admission waves + refinement steps), each
               launch on the tensor-core body, and the other kernels must
               not launch;
 8. pair parity — the first wave's admission and 2 steps again with the
@@ -152,13 +152,14 @@ as it runs, any failure ending the run:
               every request OK, the SSD kernel launched 24 x chunk steps
               and no attention kernel, first-token logits within
               SSM_LOGIT_TOL of the whole-prompt engine's.
-13. swin    — SwinV2-B at full width (24 layers, d_model 512, 16 heads x
-              32, window 576, d_ff 2048, bf16, random float32 weights from
-              ``--seed``), its bias tables overwritten with exact rank-16
-              per-head products of seeded factors; ``svd_factorize`` timed
-              (384 SVDs of 576 x 576) and its reconstruction error bounded;
-              one forward of 32 images x 4 windows in flashbias mode, kernel
-              1 launched exactly 24 times, each on the tensor-core body and
+13. swin    — SwinV2-B at full width (SWIN_LAYERS = 12 of its 24 layers,
+              d_model 512, 16 heads x 32, window 576, d_ff 2048, bf16,
+              random float32 weights from ``--seed``), its bias tables
+              overwritten with exact rank-16 per-head products of seeded
+              factors; ``svd_factorize`` timed (192 SVDs of 576 x 576) and
+              its reconstruction error bounded; one forward of 32 images x
+              4 windows in flashbias mode, kernel 1 launched exactly once
+              per layer, each on the tensor-core body and
               held in situ against its plain version; the logits within
               MODEL_ULPS per layer of the dense-table forward's and the
               plain path's; the three forwards timed; kernel 1 at this
@@ -198,16 +199,16 @@ as it runs, any failure ending the run:
               complexes. Every request OK and bit-equal, greedy and
               sampled, to the uninterrupted run, for the restored and the
               source engine; the JSON sizes logged;
-17. hybrid  — hymba-1.5b at full width (32 layers, d_model 1600, 48 heads
-              x 64 over 6 kv heads, window 1024, 64 SSM heads x 64, state
+17. hybrid  — hymba-1.5b at full width (HYBRID_LAYERS = 16 of its 32
+              layers, d_model 1600, 48 heads x 64 over 6 kv heads, window 1024, 64 SSM heads x 64, state
               16, bf16, random weights from ``--seed``) through
               ``ServeEngine`` on 4 slots x 4096, so the attention cache is
               a ring: 8 requests (HYBRID_PROMPTS, five at or above the
               window), 32 new tokens, 6 greedy and 2 sampled, staggered.
-              Every request OK; kernel 1 launched 32 x prefill waves, each
+              Every request OK; kernel 1 launched 16 x prefill waves, each
               in local mode (window 1024) on the tensor-core body and held
               in situ against its plain version one batch row at a time;
-              kernel 5 32 x waves on the tensor-core body, each held in
+              kernel 5 16 x waves on the tensor-core body, each held in
               situ under ``ssd_tolerance``; decode launches no kernel (the
               ring is attended in plain torch, as the reference does). The
               first wave's prefill and 4 decode steps again with the plain
@@ -220,16 +221,18 @@ as it runs, any failure ending the run:
               version and bound; the prefill wave and the decode step on
               the host clock, device busy and idle share.
 
-18. paged-hybrid — hymba-1.5b at full width (32 layers, random bf16
+18. paged-hybrid — hymba-1.5b at full width (HYBRID_LAYERS = 16 of its 32
+              layers, random bf16
               weights from ``--seed``) through a paged ``ServeEngine`` on
               4 slots x PAGED_HYBRID_MAX_LEN = 1024, which the window
               covers: no ring, the attention cache pages (page size 16,
               lazy, a pool that grows and preempts), the SSM state rides
               per slot. 8 requests (PAGED_HYBRID_PROMPTS), 32 new tokens,
               6 greedy and 2 sampled, staggered. Every request OK, every
-              page free after the drain; kernel 4 launched 32 x decode
-              steps (G 8, D 64, phi against the [1, pos] slab) and kernel
-              3 never; kernels 1 (local, window 1024) and 5 32 x waves,
+              page free after the drain; kernel 4 launched once per layer
+              and decode step (G 8, D 64, phi against the [1, pos] slab)
+              and kernel 3 never; kernels 1 (local, window 1024) and 5 once
+              per layer and wave,
               held in situ as in phase 17. The first wave's prefill and 4
               decode steps on the contiguous and the paged cache against
               the plain path, within HYBRID_LOGIT_TOL (the contiguous
@@ -240,11 +243,13 @@ as it runs, any failure ending the run:
               (``model_kernel_times``);
               the prefill wave and the paged decode step on the host
               clock, device busy, idle share and top kernels;
-19. moe     — granite-moe-3b-a800m whole (32 layers, d_model 1536, 32
-              heads x 64 over 8 kv heads, 40 experts padded to 48, top 8,
-              bf16) on the LM phase's traffic, contiguous and then paged
-              (a pool that preempts): every request OK; kernel 1 32 x
-              waves, kernel 3 (contiguous) or 4 (paged) 32 x steps; the
+19. moe     — granite-moe-3b-a800m at MOE_GRANITE_LAYERS = 16 of its 32
+              layers, full width (d_model 1536, 32 heads x 64 over 8 kv
+              heads, 40 experts padded to 48, top 8, bf16) on the LM
+              phase's traffic, contiguous and then paged (a pool that
+              preempts): every request OK; kernel 1 once per layer and
+              wave, kernel 3 (contiguous) or 4 (paged) per layer and step;
+              the
               paged first-token logits within LOGIT_TOL of the contiguous
               ones (greedy streams compared and logged); phase 5's parity
               on the first wave and 4 decode steps, with launch counts,
@@ -261,9 +266,10 @@ as it runs, any failure ending the run:
               requests, SHORT_PROMPTS, 16 new tokens), contiguous and paged,
               with the same checks (the pool grows; a preemption is not
               required of 4 requests);
-20. dense-configs — codeqwen1.5-7b (32 layers, MHA 32 x 128) and
-              minicpm-2b (40 layers, 48 heads x 64) whole, and
-              command-r-plus-104b at DENSE_R_LAYERS = 4 of 64 layers, full
+20. dense-configs — codeqwen1.5-7b (MHA 32 x 128) and minicpm-2b (48
+              heads x 64) at DENSE_LAYERS = 16 of their 32 / 40 layers,
+              and command-r-plus-104b at DENSE_R_LAYERS = 4 of 64 layers,
+              all at full
               width (96 heads x 128 over 8 kv heads, G 12): a short paged
               serve each (every request OK, launch counts, the pool grows
               and drains) and phase 5's parity on the first wave and 2
@@ -274,10 +280,54 @@ as it runs, any failure ending the run:
               at command-r-plus's shape at SPLIT_LENGTHS against their
               plain versions.
 
-Phases 17-20 each run in a process of their own (``run_child``). Kernel 1's
-``launches`` in the record adds phases 13, 14 and 17-20 to the serve
-phase's, kernels 3 and 4 add phases 18-20's, kernel 5's adds phases 17 and
-18's; their times stay at the LM prefill, LM decode and SSM shapes (the
+21. frontends — musicgen-medium (48 layers, d_model 1536, 24 heads padded
+              to 32 x 64, 64 audio frontend rows) and phi-3-vision-4.2b (32
+              layers, d_model 3072, 32 heads x 96, 576 vision frontend
+              rows) whole, bf16, random weights and frontend rows from
+              ``--seed``: FRONTEND_PROMPTS (6 requests of 64-512 tokens,
+              each opening with its frontend rows), FRONTEND_NEW_TOKENS
+              new tokens, through a contiguous and a paged engine (a pool
+              that grows). Every request OK, the launch counters (kernel 1
+              per layer and wave, kernel 3 or 4 per layer and step), the
+              paged first-token logits within LOGIT_ULPS ulps of the
+              contiguous ones, phase 5's parity on the first wave (its
+              frontend rows included) and 4 decode steps; kernels 1, 3 and
+              4 at phi-3-vision's D 96 shapes checked against their plain
+              versions, then timed with them, bounds and library calls;
+22. train   — GPT-2-ALiBi-1.5B at full width trained through ``TrainLoop``:
+              float32 master weights from ``init_params`` and ``--seed``,
+              bf16 compute, the config's remat "dots" and grad_accum 4,
+              TRAIN_BATCH x TRAIN_SEQ = 8 x 1024 tokens a step from
+              ``LMBatches``, AdamW with a cosine schedule. Step 0 first on
+              the kernel path and the plain path (impl="torch"): loss
+              within TRAIN_LOSS_RTOL, every leaf's gradient norm within
+              TRAIN_GRAD_RTOL. Then TRAIN_STEPS = 8 steps, a checkpoint
+              after step TRAIN_CKPT_STEP = 3 (the first loop ends there;
+              steps 4-7 go on in the same process), kernel 1 launched
+              exactly 2 x 48 x 4 times a step (forward, and again where the
+              backward recomputes each checkpointed layer), every launch on
+              the tensor-core body, the loss finite and lower at step 7
+              than at step 0; a fresh loop on fresh weights restores the
+              checkpoint and runs steps 4-7 with losses equal to the
+              uninterrupted run's (its own final save skipped: the
+              machine allows 45 GiB of disk writes, a checkpoint is ~26
+              GB). The step's host time, device busy
+              (a profile checked against the counters), idle share,
+              tokens/s, the share of 989 TFLOP/s the model FLOPs reach
+              (``train_flops``), peak memory, and kernel 1's forward and
+              the plain attention backward at the step's shape with the
+              backward's share of the step. Then Mamba2-130M whole
+              (remat "dots", grad_accum 4): step 0 against the plain path
+              as above, SSM_TRAIN_STEPS = 4 steps, kernel 5 launched 2 x
+              24 x 4 times a step on the tensor-core body.
+
+Phases 13-14 and 17-22 each run in a process of their own (``run_child``):
+late in a long process torch.profiler has lost device events (PERF.md
+section 7), and phase 13's library profile did so in PR 22's first full
+run. Kernel 1's
+``launches`` in the record adds phases 13, 14 and 17-22 to the serve
+phase's, kernels 3 and 4 add phases 18-21's, kernel 5's adds phases 17, 18
+and 22's; their times stay at the LM prefill, LM decode and SSM shapes (the
 other shapes' are logged above the record).
 
 The last lines are the per-kernel JSON record, the card's name and power
@@ -321,9 +371,11 @@ SPLIT_LENGTHS = [0, 1, 63, 64, 65, 127, 128, 129, 777, 2048]
 KERNELS = ("flashbias_attention_fwd", "flash_decode_fwd",
            "flash_decode_paged_fwd", "flashbias_attention_ragged_fwd",
            "ssd_scan_fwd")
-PAIR_LAYERS, PAIR_SLOTS, PAIR_MAX_LEN = 16, 4, 384
+# phases 7-9 run the Pairformer at 8 of its 16 layers, full width: the
+# whole script must stay well inside its time limit with phases 21-22
+PAIR_LAYERS, PAIR_SLOTS, PAIR_MAX_LEN = 8, 4, 384
 PAIR_STEPS = 2                   # refinement steps of the parity phase
-# Pair parity, bf16. Both paths keep s in bf16 through 16 layers and three
+# Pair parity, bf16. Both paths keep s in bf16 through the layers and three
 # passes (admission + 2 steps), so any change in where one attention output
 # rounds spreads to most elements of s: the plain path against itself with
 # its attention computed in float64 moves s by ~0.1 x RMS(s) at max |diff|.
@@ -342,7 +394,7 @@ PAIR_STEPS = 2                   # refinement steps of the parity phase
 PAIR_CONTROL_MULT = 2.0
 # The same comparison in float32 throughout (compute dtype float32): the
 # paths then differ only in the order of float32 sums inside attention
-# (~1e-6 relative per call), which over 16 layers and three passes stays
+# (~1e-6 relative per call), which over the layers and three passes stays
 # orders of magnitude below 1e-3 of RMS(s). In situ, the float32 rule of
 # ``tolerance()`` holds.
 PAIR_TOL_F32 = 1e-3
@@ -400,10 +452,11 @@ FAULT_PLAN = "delay@1,nan@6/0,alloc@11,step@12"
 CHECKPOINT_LONG = 1536           # the mid-plan prompt of phase 16a
 CHILD_RESULT = "[child-result] "  # a --phase run's result line
 PAIR_CKPT_LAYERS, PAIR_CKPT_COMPLEXES = 2, 6   # phase 16c's cut depth
-HYBRID_LAYERS, HYBRID_MAX_LEN, HYBRID_CHUNK = 32, 4096, 512
+# phase 17 runs hymba at 16 of its 32 layers, full width (time, as above)
+HYBRID_LAYERS, HYBRID_MAX_LEN, HYBRID_CHUNK = 16, 4096, 512
 HYBRID_PROMPTS = (3000, 1900, 1536, 1024, 700, 512, 300, 64)
 HYBRID_DECODE_STEPS = 4          # decode steps of the hybrid parity
-# Hybrid parity, bf16. Each of the 32 layers rounds the attention branch
+# Hybrid parity, bf16. Each layer rounds the attention branch
 # (kernel 1 against the plain float32 softmax: one bf16 rounding of results
 # that differ in the order of float32 sums) and the SSM branch (kernel 5's
 # float32 scan against the plain one, as SSM_LOGIT_TOL argues) to bf16
@@ -420,6 +473,11 @@ PAGED_HYBRID_PROMPTS = (960, 700, 512, 300, 64, 900, 400, 128)
 # (llama4-scout 100.7 B parameters, command-r-plus 103.8 B; bf16 weights
 # of 201 and 208 GB), and the short serves' traffic
 MOE_LLAMA_LAYERS, DENSE_R_LAYERS = 4, 4
+# cut for time, full width (PR 22): with phases 21-22 the whole script
+# must stay well inside its limit on a slow host too (PR 21's ran 1.55x
+# another's): Swin, granite-moe, paged hymba (HYBRID_LAYERS), codeqwen
+# and minicpm run at these depths
+SWIN_LAYERS, MOE_GRANITE_LAYERS, DENSE_LAYERS = 12, 16, 16
 # MoE parity: the share of the router calls of the parity's other paths
 # (plain, paged kernel, paged plain) whose own top-k expert set differs from
 # the fed one (``RouteFeed``). Rounding re-routes a token only at a near tie
@@ -430,6 +488,29 @@ MOE_LLAMA_LAYERS, DENSE_R_LAYERS = 4, 4
 ROUTE_SET_SHARE = {"granite-moe-3b-a800m": 0.1063,
                    "llama4-scout-17b-a16e": 0.0143}
 SHORT_PROMPTS, SHORT_NEW_TOKENS = (512, 300, 64, 450), 16
+# phase 21: the frontend configs' traffic (prompt tokens; the frontend rows
+# come on top: 64 for musicgen, 576 for phi-3-vision)
+FRONTEND_PROMPTS, FRONTEND_NEW_TOKENS = (512, 300, 64, 450, 200, 128), 24
+# phase 22: GPT-2 1.5B training, its config's remat ("dots") and grad_accum
+# (4): TRAIN_BATCH sequences of TRAIN_SEQ tokens per step, TRAIN_STEPS
+# steps, a checkpoint after step TRAIN_CKPT_STEP; AdamW, cosine from
+# TRAIN_LR (the launcher's recipe: warmup steps // 10)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_STEP = 8, 1024, 8, 3
+TRAIN_LR = 3e-4
+SSM_TRAIN_STEPS = 4
+# Step 0 of the kernel path (impl="cuda") against the plain path
+# (impl="torch") on the same weights and batch, bf16 compute. The paths
+# differ in each layer's attention forward (kernel 1 against the plain
+# float32 softmax, each rounded to bf16 once); the backward is the plain
+# version's on both. The loss is a mean over 8192 tokens of a float32
+# cross-entropy of bf16 logits: a one-ulp flip of some logits moves it by
+# far less than one bf16 ulp of ~10.8 (0.0625), so TRAIN_LOSS_RTOL = 1e-3
+# (0.011 at 10.8). Each leaf's gradient norm sums over O(10^6-10^8)
+# elements whose bf16 roundings differ between the paths independently,
+# so the norms agree far closer than an element does: TRAIN_GRAD_RTOL =
+# 1e-2 of each leaf's norm (an element of bf16 has 2^-8 = 0.4% relative
+# error).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-3, 1e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -1097,14 +1178,15 @@ def launch_counters() -> dict:
             "ssd_scan_fwd": ssd_scan_fwd}
 
 
-def drive_counted(engine, requests):
-    """Drive ``requests`` through ``engine`` with every launch counter set
-    to 0 just before and read just after; check every result."""
+def drive_counted(engine, requests, frontends=None):
+    """Drive ``requests`` (with ``frontends``, each one's frontend rows)
+    through ``engine`` with every launch counter set to 0 just before and
+    read just after; check every result."""
     import torch
     from repro_torch.launch.serve import drive
     counters = reset_counters()
     t0 = time.monotonic()
-    rids = drive(engine, requests)
+    rids = drive(engine, requests, frontends)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1260,7 +1342,8 @@ class RouteFeed:
 
 def phase_parity(engine, requests, *, max_len: int = MAX_LEN,
                  steps: int = 4, tol: float | None = LOGIT_TOL,
-                 trace: bool = True, label: str = "parity"):
+                 trace: bool = True, label: str = "parity",
+                 frontends=None):
     """The first wave again, on the card: prefill (right-padded to
     PROMPT_MAX, or the longest prompt's pages), then ``steps`` greedy decode
     steps fed the contiguous kernel path's tokens, through four paths —
@@ -1274,7 +1357,9 @@ def phase_parity(engine, requests, *, max_len: int = MAX_LEN,
     layers) once per layer and the decode kernels once per layer and step
     (kernel 3 not where the contiguous cache is a ring, which decode
     attends in plain torch). Then, with ``trace``, decode steps of both
-    kernel paths are traced: returns (traces, the decode lengths)."""
+    kernel paths are traced: returns (traces, the decode lengths). With
+    ``frontends`` (each request's frontend rows) the wave's prompts open
+    with them, and the lengths count them."""
     import torch
     from repro_torch.models import get_model, lm
 
@@ -1286,6 +1371,10 @@ def phase_parity(engine, requests, *, max_len: int = MAX_LEN,
     for i, (p, _, _) in enumerate(wave):
         toks[i, :p.size] = p
     batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+    if frontends is not None:
+        batch["frontend"] = torch.as_tensor(np.stack(frontends[:SLOTS]),
+                                            device="cuda")
+        lengths += cfg.frontend_len
     lens = torch.as_tensor(lengths, device="cuda")
     models = {impl: get_model(cfg.replace(attn_impl=impl))
               for impl in ("cuda", "torch")}
@@ -2078,9 +2167,10 @@ def phase_pair_serve(seed: int):
     from repro_torch.models import get_model, init_params
     from repro_torch.serve import OK, ServeEngine
 
-    cfg = get_config("pairformer_lite")
-    if cfg.n_layers != PAIR_LAYERS:
-        raise AssertionError(f"config has {cfg.n_layers} layers")
+    full = get_config("pairformer_lite")
+    cfg = full.replace(n_layers=PAIR_LAYERS)
+    if full.n_layers != 16:
+        raise AssertionError(f"config has {full.n_layers} layers")
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, device="cuda")
@@ -3190,10 +3280,12 @@ def phase_swin(seed: int, card: str) -> int:
     from repro_torch.kernels import ops
     from repro_torch.models import init_params, swin
 
-    cfg = get_config("swinv2_b")
+    full = get_config("swinv2_b")
+    cfg = full.replace(n_layers=SWIN_LAYERS)
     layers, heads, w, r = cfg.n_layers, cfg.n_heads, cfg.window, cfg.bias_rank
-    check_width(cfg, (layers, cfg.d_model, heads, cfg.resolved_head_dim, w,
-                      r, cfg.d_ff), (24, 512, 16, 32, 576, 16, 2048))
+    check_width(cfg, (full.n_layers, cfg.d_model, heads,
+                      cfg.resolved_head_dim, w, r, cfg.d_ff),
+                (24, 512, 16, 32, 576, 16, 2048))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, device="cuda")
     # exact rank-r tables (std 0.5, the init law's): random normal tables
@@ -3663,12 +3755,13 @@ def phase_hybrid(seed: int, card: str) -> dict:
     from repro_torch.models import get_model, init_params
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config("hymba_15b")
-    check_width(cfg, (cfg.n_layers, cfg.d_model, cfg.heads_padded,
+    full = get_config("hymba_15b")
+    cfg = full.replace(n_layers=HYBRID_LAYERS)
+    check_width(cfg, (full.n_layers, cfg.d_model, cfg.heads_padded,
                       cfg.kv_heads_padded, cfg.resolved_head_dim,
                       cfg.window, cfg.ssm_heads_padded, cfg.ssm_head_dim,
                       cfg.ssm_state),
-                (HYBRID_LAYERS, 1600, 48, 6, 64, 1024, 64, 64, 16))
+                (32, 1600, 48, 6, 64, 1024, 64, 64, 16))
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, device="cuda")
@@ -3902,7 +3995,7 @@ def bf16_params(cfg, seed: int) -> dict:
 
 
 def serve_checked(label: str, engine, requests, *, paged: bool,
-                  ssd: bool = False, preempt: bool = True):
+                  ssd: bool = False, preempt: bool = True, frontends=None):
     """Drive ``requests`` through ``engine`` (``drive_counted``: every
     request OK with its budget) and hold the launch counters to one kernel
     1 (and kernel 5 with ``ssd``) launch per layer and wave and one decode
@@ -3910,10 +4003,11 @@ def serve_checked(label: str, engine, requests, *, paged: bool,
     prefill launch on the tensor-core body; paged, the pool must have grown
     (and, with ``preempt``, preempted) and be free after the drain.
     Returns (rids, launches, tok/s, first-token logits by request
-    index)."""
+    index). ``frontends`` gives each request its frontend rows."""
     layers = engine.model.cfg.n_layers
     with observe(engine) as obs:
-        rids, launches, tok_s, wall = drive_counted(engine, requests)
+        rids, launches, tok_s, wall = drive_counted(engine, requests,
+                                                    frontends)
     stats = engine.stats()
     decode = "flash_decode_paged_fwd" if paged else "flash_decode_fwd"
     want = {name: 0 for name in launches}
@@ -3942,10 +4036,12 @@ def serve_checked(label: str, engine, requests, *, paged: bool,
 
 def paged_engine(model, params, requests, max_len: int, **kw):
     """A paged engine (page size PAGE, lazy) whose pool holds the first
-    wave's prompt pages and one more, as phase 4's: the first page grown
-    takes the spare, the next finds the pool dry and preempts."""
+    wave's prompt pages (frontend rows included) and one more, as phase
+    4's: the first page grown takes the spare, the next finds the pool dry
+    and preempts."""
     from repro_torch.serve import ServeEngine
-    first = sum(-(-p.size // PAGE) for p, _, _ in requests[:SLOTS])
+    front = model.cfg.frontend_len
+    first = sum(-(-(p.size + front) // PAGE) for p, _, _ in requests[:SLOTS])
     return ServeEngine(model, params, max_len=max_len, n_slots=SLOTS,
                        page_size=PAGE, n_pages=first + 1,
                        pages_per_slot=max_len // PAGE, device="cuda", **kw)
@@ -4027,8 +4123,9 @@ def phase_paged_hybrid(seed: int, card: str) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd
     from repro_torch.models import get_model
 
-    cfg = get_config("hymba_15b")
-    check_width(cfg, (cfg.n_layers, cfg.d_model, cfg.heads_padded,
+    full = get_config("hymba_15b")
+    cfg = full.replace(n_layers=HYBRID_LAYERS)
+    check_width(cfg, (full.n_layers, cfg.d_model, cfg.heads_padded,
                       cfg.kv_heads_padded, cfg.resolved_head_dim,
                       cfg.window, cfg.ssm_state),
                 (32, 1600, 48, 6, 64, 1024, 16))
@@ -4146,12 +4243,13 @@ def moe_serve(label: str, cfg, seed: int, requests, card: str,
 
 
 def phase_moe(seed: int, card: str) -> dict:
-    """granite-moe-3b-a800m whole and llama4-scout-17b-a16e at
-    MOE_LLAMA_LAYERS of its 48 layers, full width (see the module
-    docstring, phase 19)."""
+    """granite-moe-3b-a800m at MOE_GRANITE_LAYERS of its 32 layers and
+    llama4-scout-17b-a16e at MOE_LLAMA_LAYERS of its 48, full width (see
+    the module docstring, phase 19)."""
     from repro_torch.configs import get_config
-    cfg = get_config("granite_moe_3b_a800m")
-    check_width(cfg, (cfg.n_layers, cfg.d_model, cfg.heads_padded,
+    full = get_config("granite_moe_3b_a800m")
+    cfg = full.replace(n_layers=MOE_GRANITE_LAYERS)
+    check_width(cfg, (full.n_layers, cfg.d_model, cfg.heads_padded,
                       cfg.kv_heads_padded, cfg.resolved_head_dim,
                       cfg.experts_padded, cfg.top_k, cfg.d_ff),
                 (32, 1536, 32, 8, 64, 48, 8, 512))
@@ -4175,9 +4273,9 @@ def phase_moe(seed: int, card: str) -> dict:
 
 
 def phase_dense_configs(seed: int, card: str) -> dict:
-    """codeqwen1.5-7b and minicpm-2b whole, command-r-plus-104b at
-    DENSE_R_LAYERS of its 64 layers, full width (see the module docstring,
-    phase 20)."""
+    """codeqwen1.5-7b and minicpm-2b at DENSE_LAYERS, command-r-plus-104b
+    at DENSE_R_LAYERS of its 64 layers, full width (see the module
+    docstring, phase 20)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
@@ -4187,8 +4285,8 @@ def phase_dense_configs(seed: int, card: str) -> dict:
               "command_r_plus_104b": ("command-r", (64, 12288, 96, 8, 128))}
     for arch, (tag, want) in widths.items():
         full = get_config(arch)
-        cfg = (full.replace(n_layers=DENSE_R_LAYERS)
-               if arch == "command_r_plus_104b" else full)
+        cfg = full.replace(n_layers=DENSE_R_LAYERS
+                           if arch == "command_r_plus_104b" else DENSE_LAYERS)
         check_width(cfg, (full.n_layers, cfg.d_model, cfg.heads_padded,
                           cfg.kv_heads_padded, cfg.resolved_head_dim), want)
         label = f"dense-{tag}"
@@ -4222,6 +4320,406 @@ def phase_dense_configs(seed: int, card: str) -> dict:
         torch.cuda.empty_cache()
     return out
 
+def phase_frontends(seed: int, card: str) -> dict:
+    """musicgen-medium and phi-3-vision-4.2b whole, at full width, each
+    request opening with the config's frontend rows (see the module
+    docstring, phase 21)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import frontend_rows
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+    out = {"launches": {}}
+    widths = {"musicgen_medium": ("musicgen", (48, 1536, 32, 32, 64, 64)),
+              "phi3_vision_42b": ("phi3", (32, 3072, 32, 32, 96, 576))}
+    for arch, (tag, want) in widths.items():
+        cfg = get_config(arch)
+        check_width(cfg, (cfg.n_layers, cfg.d_model, cfg.heads_padded,
+                          cfg.kv_heads_padded, cfg.resolved_head_dim,
+                          cfg.frontend_len), want)
+        label = f"frontends-{tag}"
+        t0 = time.monotonic()
+        model = get_model(cfg)
+        params = bf16_params(cfg, seed)
+        requests = make_traffic(seed, cfg.vocab, FRONTEND_PROMPTS,
+                                FRONTEND_NEW_TOKENS, (1,), stream=900)
+        fronts = frontend_rows(cfg, len(requests), seed)
+        engine = ServeEngine(model, params, max_len=MAX_LEN, n_slots=SLOTS,
+                             device="cuda")
+        del params
+        params = engine.backend.params
+        log(label, f"{cfg.name}: {cfg.n_layers} layers, d_model "
+                   f"{cfg.d_model}, {cfg.heads_padded} heads x "
+                   f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+                   f"{cfg.vocab_padded}, {cfg.frontend} frontend of "
+                   f"{cfg.frontend_len} rows per request; "
+                   f"{cfg.param_count() / 1e9:.2f} B parameters; weights "
+                   f"ready in {time.monotonic() - t0:.1f}s")
+        rids, l_con, tok_s, first = serve_checked(label, engine, requests,
+                                                  paged=False,
+                                                  frontends=fronts)
+        paged = paged_engine(model, params, requests, MAX_LEN)
+        _, l_pag, ptok_s, pfirst = serve_checked(
+            f"{label}-paged", paged, requests, paged=True, preempt=False,
+            frontends=fronts)
+        top = max(float(v.abs().max()) for v in first.values())
+        first_gaps(f"{label}-paged", pfirst, first, max(
+            LOGIT_TOL, LOGIT_ULPS * float(bf16_ulp(torch.tensor(top)))))
+        del paged
+        torch.cuda.empty_cache()
+        _, lengths = phase_parity(engine, requests, steps=4, tol=None,
+                                  trace=False, label=f"{label}-parity",
+                                  frontends=fronts)
+        merge_launches(out["launches"], l_con, l_pag)
+        out[arch] = {"tok_s": tok_s, "paged_tok_s": ptok_s}
+        if arch == "phi3_vision_42b":
+            out[arch]["times"] = model_kernel_times(
+                f"{label}-times", cfg, params,
+                wave_width(requests) + cfg.frontend_len, lengths.tolist(),
+                card)
+        del engine, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def grad_norms(params: dict) -> dict:
+    """Each leaf's gradient norm (float32), by leaf path."""
+    import torch
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{path}/{k}" if path else k)
+        else:
+            out[path] = (float(torch.linalg.vector_norm(tree.grad.float()))
+                         if tree.grad is not None else 0.0)
+    walk(params, "")
+    return out
+
+
+def step0_parity(label: str, cfg, params, batch: dict, kernel: str,
+                 calls: int) -> dict:
+    """Step 0's loss and each leaf's gradient norm on the kernel path
+    (impl="cuda") and the plain path (impl="torch"), the same weights and
+    batch, ``cfg.grad_accum`` microbatches each; ``kernel`` (the counted
+    wrapper) launched ``calls`` times on the kernel path and never on the
+    plain one. Returns the kernel path's loss and norms."""
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_leaves
+    got = {}
+    for impl in ("cuda", "torch"):
+        model = get_model(cfg.replace(attn_impl=impl))
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        counters = reset_counters()
+        a = cfg.grad_accum
+        loss = 0.0
+        for i in range(a):
+            mb = {k: v.reshape((a, -1) + tuple(v.shape[1:]))[i]
+                  for k, v in batch.items()}
+            part = model.loss(params, mb)
+            part.backward()
+            loss += float(part.detach()) / a
+        launched = {n: w.launches for n, w in counters.items() if w.launches}
+        want = {kernel: calls} if impl == "cuda" else {}
+        if launched != want:
+            raise AssertionError(f"{label}: impl={impl} launches {launched} "
+                                 f"!= {want}")
+        got[impl] = (loss, grad_norms(params))
+    for p in tree_leaves(params):
+        p.grad = None
+    torch.cuda.empty_cache()
+    (lk, gk), (lt, gt) = got["cuda"], got["torch"]
+    rel = {k: abs(gk[k] - gt[k]) / max(gt[k], 1e-30) for k in gt}
+    worst = max(rel, key=rel.get)
+    log(label, f"step 0, kernel path against the plain path: loss "
+               f"{lk:.6f} / {lt:.6f} (relative gap {abs(lk - lt) / lt:.3e}, "
+               f"tol {TRAIN_LOSS_RTOL}); leaf gradient norms' worst "
+               f"relative gap {rel[worst]:.3e} at {worst} (norm "
+               f"{gt[worst]:.4e}; tol {TRAIN_GRAD_RTOL}); {len(rel)} leaves")
+    if not (abs(lk - lt) <= TRAIN_LOSS_RTOL * lt
+            and rel[worst] <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"{label}: kernel and plain paths' step 0 "
+                             f"disagree")
+    return got["cuda"]
+
+
+def train_setup(cfg, seed: int, steps: int):
+    """Float32 master weights made on the card from ``seed``
+    (``init_params``), AdamW (cosine from TRAIN_LR, the launcher's warmup),
+    the train step at the config's grad_accum, and the step's data: the
+    LMBatches of TRAIN_BATCH x TRAIN_SEQ tokens from ``seed``. Returns
+    (fresh, step_fn, data_fn), ``fresh()`` -> (params, opt_state)."""
+    import torch
+    from repro_torch.data import LMBatches
+    from repro_torch.models import get_model, init_params
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import make_train_step
+    opt = AdamW(lr_fn=cosine(TRAIN_LR, steps // 10, steps))
+    data = LMBatches(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                     global_batch=TRAIN_BATCH, seed=seed)
+
+    def fresh():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_params(cfg, gen, device="cuda")
+        return params, opt.init(params)
+
+    def data_fn(step):
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in data.batch(step).items()}
+
+    step_fn = make_train_step(get_model(cfg).loss, opt,
+                              grad_accum=cfg.grad_accum)
+    return fresh, step_fn, data_fn
+
+
+def train_flops(cfg, n_params: int) -> float:
+    """Model FLOPs of one training step: 6 x parameters x tokens (the
+    forward's 2 and the backward's 4 per parameter and token; the tied
+    embedding counts once, for the unembedding product) plus attention's
+    two products, causal (half the (N, N) work), forward and backward (3x
+    the forward's 2 x 2 x N^2 x D per head), at the padded heads the card
+    computes; recomputation not counted."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = (3 * 4 * cfg.heads_padded * cfg.resolved_head_dim * TRAIN_SEQ
+            * TRAIN_SEQ / 2 * TRAIN_BATCH * cfg.n_layers)
+    return 6.0 * n_params * tokens + attn
+
+
+def attention_train_ms(cfg, micro: int) -> dict:
+    """Device time per call of kernel 1's forward and of the plain backward
+    (``_FlashAttention.backward``: the plain forward recomputed and
+    differentiated) at one training microbatch's attention shape."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h, d = cfg.heads_padded, cfg.resolved_head_dim
+    q, k, v = (torch.randn((micro, h, TRAIN_SEQ, d), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    from repro_torch.core.bias import alibi_slopes
+    slopes = alibi_slopes(h, device="cuda").requires_grad_(True)
+
+    def fwd():
+        return ops.flash_attention(q, k, v, slopes=slopes,
+                                   mask_kind="causal", impl="cuda",
+                                   layout="bhsd")
+    out = fwd()
+    grad = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    with torch.no_grad():
+        fwd_ms = device_ms(fwd)
+    bwd_ms = device_ms(lambda: torch.autograd.grad(
+        out, (q, k, v, slopes), grad, retain_graph=True), iters=5)
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+
+
+def phase_train(seed: int, card: str) -> dict:
+    """GPT-2-ALiBi-1.5B trained at full width through TrainLoop, with a
+    checkpoint, a restore and the kernel path held against the plain one;
+    then Mamba2-130M whole (see the module docstring, phase 22)."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flashbias_attn import flashbias_attention_fwd
+    from repro_torch.models import get_model
+    from repro_torch.models.common import count_params
+    from repro_torch.train import TrainLoop
+
+    cfg = get_config("gpt2_alibi_15b")
+    check_width(cfg, (cfg.n_layers, cfg.d_model, cfg.heads_padded,
+                      cfg.resolved_head_dim, cfg.vocab_padded, cfg.remat,
+                      cfg.grad_accum), (48, 1600, 64, 32, 50272, "dots", 4))
+    n_params = count_params(get_model(cfg).template())
+    # kernel 1 per step: one forward per layer and microbatch, and one more
+    # when the backward recomputes the checkpointed layer ("dots" and
+    # "full": no policy can keep the output of a kernel that is no aten op)
+    per_step = (2 if cfg.remat != "none" else 1) * cfg.n_layers \
+        * cfg.grad_accum
+    fresh, step_fn, data_fn = train_setup(cfg, seed, TRAIN_STEPS)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(ckpt_dir).free
+    log("train", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+                 f"{cfg.d_model}, {cfg.heads_padded} heads x "
+                 f"{cfg.resolved_head_dim}, vocab {cfg.vocab_padded}; "
+                 f"{n_params / 1e9:.3f} B parameters as float32 masters, "
+                 f"{cfg.dtype} compute, remat {cfg.remat!r}, grad_accum "
+                 f"{cfg.grad_accum}; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a "
+                 f"step; kernel 1 expected {per_step} times a step; "
+                 f"checkpoints in {ckpt_dir} ({free / 2**30:.0f} GiB free)")
+
+    params, opt_state = fresh()
+    step0_parity("train", cfg, params, data_fn(0), "flashbias_attention_fwd",
+                 per_step)
+
+    # the uninterrupted run: steps 0..TRAIN_CKPT_STEP through a loop that
+    # checkpoints after its last step, then the rest in the same process
+    # on the same tensors
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    t0 = time.monotonic()
+    first = TrainLoop(step_fn, data_fn, ckpt_dir=ckpt_dir,
+                      ckpt_every=TRAIN_CKPT_STEP + 1,
+                      log_path=f"{ckpt_dir}/first.jsonl")
+    params, opt_state, info1 = first.run(params, opt_state,
+                                         TRAIN_CKPT_STEP + 1)
+    t_ckpt = time.monotonic() - t0
+    rest = TrainLoop(step_fn, data_fn, log_path=f"{ckpt_dir}/first.jsonl")
+    params, opt_state, info2 = rest.run(params, opt_state, TRAIN_STEPS,
+                                        start_step=TRAIN_CKPT_STEP + 1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launched = flashbias_attention_fwd.launches
+    other = {n: w.launches for n, w in counters.items()
+             if w.launches and n != "flashbias_attention_fwd"}
+    with open(f"{ckpt_dir}/first.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs]
+    walls = [r["wall_s"] for r in recs]
+    log("train", f"uninterrupted: losses {losses}; grad norms "
+                 f"{[round(r['grad_norm'], 4) for r in recs]}; lr "
+                 f"{[r['lr'] for r in recs]}")
+    log("train", f"kernel 1 launched {launched} times in "
+                 f"{TRAIN_STEPS} steps (expected {per_step} x "
+                 f"{TRAIN_STEPS} = {per_step * TRAIN_STEPS}); others "
+                 f"{other}; tensor-core launches "
+                 f"{flashbias_attention_fwd.tensor_core_launches}")
+    if launched != per_step * TRAIN_STEPS or other or \
+            flashbias_attention_fwd.tensor_core_launches != launched:
+        raise AssertionError("train: kernel 1's launches off the derived "
+                             "count")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+
+    # a fresh loop on fresh weights restores the checkpoint and runs on;
+    # its own final save is skipped: the card's machine takes at most 45
+    # GiB of disk writes a call, and each checkpoint is ~26 GB
+    ckpt_bytes = sum(f.stat().st_size
+                     for f in Path(ckpt_dir).rglob("*.npy"))
+    del params, opt_state
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    resumed = TrainLoop(step_fn, data_fn, ckpt_dir=ckpt_dir,
+                        ckpt_every=TRAIN_STEPS,
+                        log_path=f"{ckpt_dir}/resumed.jsonl")
+    from repro_torch.train import loop as train_loop
+    with patched(train_loop, "save_checkpoint", lambda *a, **k: None):
+        params, opt_state, info3 = resumed.run(*fresh(), TRAIN_STEPS)
+    t_resume = time.monotonic() - t0
+    with open(f"{ckpt_dir}/resumed.jsonl") as f:
+        again = [json.loads(line)["loss"] for line in f]
+    log("train", f"restored after step {TRAIN_CKPT_STEP}: losses {again} "
+                 f"(uninterrupted {losses[TRAIN_CKPT_STEP + 1:]}); the "
+                 f"checkpoint {ckpt_bytes / 2**30:.2f} GiB; the first loop "
+                 f"with its save {t_ckpt:.1f}s, the restored loop with its "
+                 f"restore {t_resume:.1f}s")
+    if again != losses[TRAIN_CKPT_STEP + 1:] or info3["final_step"] != \
+            TRAIN_STEPS:
+        raise AssertionError("train: the resumed losses differ from the "
+                             "uninterrupted run's")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # host clock, device busy and idle share of one more step
+    batch = data_fn(TRAIN_STEPS)
+    state = {"p": params, "o": opt_state}
+
+    def step():
+        state["p"], state["o"], m = step_fn(state["p"], state["o"], batch)
+        float(m["loss"])
+
+    walls_more = []
+    for _ in range(2):
+        t0 = time.monotonic()
+        step()
+        walls_more.append(time.monotonic() - t0)
+    busy, kernels = profile_steps(step, 1)
+    host = float(np.median(walls[1:] + walls_more))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, n_params)
+    log("train", f"step: {host * 1e3:.1f} ms on the host clock (median of "
+                 f"steps 1-{TRAIN_STEPS - 1} and 2 more; step 0 "
+                 f"{walls[0] * 1e3:.1f} ms), device busy {busy:.1f} ms, "
+                 f"idle share {1 - busy / (host * 1e3):.3f}; "
+                 f"{tokens / host:.0f} tokens/s; model FLOPs {flops:.4e} a "
+                 f"step: {flops / host / BF16_FLOP_PER_S:.4f} of 989 "
+                 f"TFLOP/s on the host clock, {flops / (busy / 1e3) / BF16_FLOP_PER_S:.4f} "
+                 f"of device busy; peak memory "
+                 f"{peak / 2**30:.2f} GiB [{card}]")
+    top_kernels("train", kernels, top=8)
+    del state, params, opt_state, batch
+    torch.cuda.empty_cache()
+    attn = attention_train_ms(cfg, TRAIN_BATCH // cfg.grad_accum)
+    calls = cfg.n_layers * cfg.grad_accum
+    log("train", f"attention at the step's shape (B "
+                 f"{TRAIN_BATCH // cfg.grad_accum} H {cfg.heads_padded} N "
+                 f"{TRAIN_SEQ} D {cfg.resolved_head_dim} bf16, ALiBi "
+                 f"causal), device time per call: kernel 1 forward "
+                 f"{attn['fwd_ms']:.4f} ms, the plain backward (recompute "
+                 f"and gradients of q, k, v and the slopes) "
+                 f"{attn['bwd_ms']:.4f} ms; {calls} backward calls a step "
+                 f"take {attn['bwd_ms'] * calls:.1f} ms, "
+                 f"{attn['bwd_ms'] * calls / busy:.3f} of the step's device "
+                 f"busy [{card}]")
+    gpt2 = {"launches": launched, "losses": losses, "step_ms": host * 1e3,
+            "busy_ms": busy, "tok_s": tokens / host, "peak_gib":
+            peak / 2**30, "mfu_host": flops / host / BF16_FLOP_PER_S,
+            "attn_bwd_share": attn["bwd_ms"] * calls / busy}
+
+    ssm = phase_train_ssm(seed, card)
+    return {"launches": {"flashbias_attention_fwd": launched,
+                         "ssd_scan_fwd": ssm["launches"]},
+            "gpt2": gpt2, "ssm": ssm}
+
+
+def phase_train_ssm(seed: int, card: str) -> dict:
+    """Mamba2-130M whole for SSM_TRAIN_STEPS steps: kernel 5's launches and
+    step 0 against the plain path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+    from repro_torch.train import TrainLoop
+    cfg = get_config("mamba2_130m")
+    check_width(cfg, (cfg.n_layers, cfg.d_model, cfg.ssm_heads_padded,
+                      cfg.ssm_head_dim, cfg.ssm_state, cfg.remat,
+                      cfg.grad_accum), (24, 768, 32, 64, 128, "dots", 4))
+    per_step = (2 if cfg.remat != "none" else 1) * cfg.n_layers \
+        * cfg.grad_accum
+    fresh, step_fn, data_fn = train_setup(cfg, seed, SSM_TRAIN_STEPS)
+    params, opt_state = fresh()
+    step0_parity("train-ssm", cfg, params, data_fn(0), "ssd_scan_fwd",
+                 per_step)
+    counters = reset_counters()
+    losses = []
+    loop = TrainLoop(lambda p, o, b: _keep(losses, step_fn(p, o, b)),
+                     data_fn)
+    t0 = time.monotonic()
+    params, opt_state, info = loop.run(params, opt_state, SSM_TRAIN_STEPS)
+    wall = time.monotonic() - t0
+    launched = {n: w.launches for n, w in counters.items() if w.launches}
+    log("train-ssm", f"{cfg.name}: losses {losses}; {info}; "
+                     f"{SSM_TRAIN_STEPS} steps in {wall:.1f}s; launches "
+                     f"{launched} (kernel 5 expected {per_step} x "
+                     f"{SSM_TRAIN_STEPS}); tensor-core launches "
+                     f"{ssd_scan_fwd.tensor_core_launches} [{card}]")
+    if launched != {"ssd_scan_fwd": per_step * SSM_TRAIN_STEPS} or \
+            ssd_scan_fwd.tensor_core_launches != per_step * SSM_TRAIN_STEPS:
+        raise AssertionError("train-ssm: kernel 5's launches off the "
+                             "derived count")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train-ssm: losses {losses}")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return {"launches": per_step * SSM_TRAIN_STEPS, "losses": losses}
+
+
+def _keep(losses: list, out):
+    """A train step's result, its loss appended to ``losses``."""
+    losses.append(float(out[2]["loss"]))
+    return out
+
 
 def bound(bytes_: int, flops: int) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
@@ -4252,8 +4750,13 @@ def run_child(phase: str, seed: int) -> dict:
     return result
 
 
-CHILD_PHASES = {"hybrid": phase_hybrid, "paged-hybrid": phase_paged_hybrid,
-                "moe": phase_moe, "dense-configs": phase_dense_configs}
+CHILD_PHASES = {"swin": lambda seed, card: {"launches": {
+                    "flashbias_attention_fwd": phase_swin(seed, card)}},
+                "pde": lambda seed, card: {"launches": {
+                    "flashbias_attention_fwd": phase_pde(seed, card)}},
+                "hybrid": phase_hybrid, "paged-hybrid": phase_paged_hybrid,
+                "moe": phase_moe, "dense-configs": phase_dense_configs,
+                "frontends": phase_frontends, "train": phase_train}
 
 
 def main(argv=None) -> int:
@@ -4261,7 +4764,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", choices=tuple(CHILD_PHASES), default=None,
                     help="run one phase alone (the full run starts phases "
-                         "17-20 this way, each in a process of its own)")
+                         "13-14 and 17-22 this way, each in a process of "
+                         "its own)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4342,9 +4846,9 @@ def main(argv=None) -> int:
     del ssm_first                    # the SSM engine serves phase 16b
     torch.cuda.empty_cache()
 
-    launches["flashbias_attention_fwd"] += phase_swin(args.seed, card)
-    launches["flashbias_attention_fwd"] += phase_pde(args.seed, card)
     torch.cuda.empty_cache()
+    for phase in ("swin", "pde"):
+        merge_launches(launches, run_child(phase, args.seed)["launches"])
     clock("phases 10-14")
 
     # phases 15-16 take no profile: they run after the profiled phases,
@@ -4359,13 +4863,14 @@ def main(argv=None) -> int:
     ckpt["pair"] = phase_checkpoint_pair(args.seed)
     log("checkpoint", f"snapshot JSON sizes (bytes): {ckpt}; the prefix "
                       f"and SSM engines at full width, the Pairformer at "
-                      f"{PAIR_CKPT_LAYERS} of {PAIR_LAYERS} layers [{card}]")
+                      f"{PAIR_CKPT_LAYERS} of 16 layers [{card}]")
     torch.cuda.empty_cache()
     clock("phases 15-16")
     hybrid = run_child("hybrid", args.seed)
     for name in ("flashbias_attention_fwd", "ssd_scan_fwd"):
         launches[name] += hybrid[name]
-    for phase in ("paged-hybrid", "moe", "dense-configs"):
+    for phase in ("paged-hybrid", "moe", "dense-configs", "frontends",
+                  "train"):
         merge_launches(launches, run_child(phase, args.seed)["launches"])
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"

@@ -139,17 +139,41 @@ class ArchConfig:
     def d_inner_padded(self) -> int:
         return self.ssm_heads_padded * self.ssm_head_dim
 
+    def param_count(self) -> int:
+        """Approximate *logical* (unpadded) parameter count, the
+        reference's formula."""
+        d, v, l = self.d_model, self.vocab, self.n_layers
+        hd = self.resolved_head_dim
+        n = v * d                                     # embedding (+ tied head)
+        attn = (d * hd * (self.n_heads * 2)
+                + d * hd * (self.n_kv_heads or self.n_heads) * 2)
+        ssm = 0
+        if self.family in ("ssm", "hybrid"):
+            d_in = self.ssm_expand * d
+            ssm = (d * (2 * d_in + 2 * self.ssm_state + self.ssm_heads)
+                   + d_in * d)
+        if self.family == "moe":
+            ffn = self.n_experts * 3 * d * self.d_ff + d * self.n_experts
+        elif self.family == "ssm":
+            ffn, attn = 0, ssm
+        else:
+            ffn = 3 * d * self.d_ff
+        if self.family == "hybrid":
+            attn += ssm
+        return n + l * (attn + ffn + 2 * d)
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
 
-# The architectures the port runs: the dense, MoE, SSM and hybrid families
-# and the Pairformer (served), and the paper's vision and PDE models
-# (forward). The reference's two frontend configs are not ported yet.
+# The architectures the port runs: the dense (the two frontend configs
+# among them), MoE, SSM and hybrid families and the Pairformer (served),
+# and the paper's vision and PDE models (forward): all 14 of the
+# reference's.
 ARCH_IDS = ["gpt2_alibi_15b", "stablelm_12b", "codeqwen15_7b", "minicpm_2b",
-            "command_r_plus_104b", "granite_moe_3b_a800m",
-            "llama4_scout_17b_a16e", "mamba2_130m", "hymba_15b",
-            "pairformer_lite", "swinv2_b", "pde_solver"]
+            "command_r_plus_104b", "musicgen_medium", "phi3_vision_42b",
+            "granite_moe_3b_a800m", "llama4_scout_17b_a16e", "mamba2_130m",
+            "hymba_15b", "pairformer_lite", "swinv2_b", "pde_solver"]
 
 
 def _module(arch_id: str):

@@ -44,7 +44,8 @@ from repro_torch.kernels import build
 
 __all__ = ["flash_decode_torch", "flash_decode_fwd",
            "flash_decode_paged_torch", "flash_decode_paged_fwd",
-           "paged_write_plan", "split_span", "MAX_GROUP"]
+           "paged_write_plan", "write_row", "write_paged_row", "expand_groups",
+           "split_span", "MAX_GROUP"]
 
 MAX_GROUP = 16                # q heads per kv head the kernel takes
 MAX_SPAN = 128                # keys per split (the kernel takes <= 256)
@@ -68,7 +69,7 @@ def split_span(d: int, dv: int, r: int, dtype: torch.dtype) -> int:
     return span
 
 
-def _write_row(k_cache, v_cache, lengths, k_new, v_new):
+def write_row(k_cache, v_cache, lengths, k_new, v_new):
     """The new token's row at position ``lengths - 1`` of each row with
     ``lengths > 0``, in place; the other rows rewrite the row they hold."""
     active = lengths > 0
@@ -106,7 +107,7 @@ def paged_write_plan(page_table: torch.Tensor, rows: torch.Tensor,
             torch.where(keep, pos[src] % ps, 0), src, keep)
 
 
-def _write_paged_row(k_pages, v_pages, lengths, page_table, k_new, v_new):
+def write_paged_row(k_pages, v_pages, lengths, page_table, k_new, v_new):
     """The new token's row into the pools (``paged_write_plan``, one entry
     per row at position ``lengths - 1``), in place."""
     active = lengths > 0
@@ -120,6 +121,23 @@ def _write_paged_row(k_pages, v_pages, lengths, page_table, k_new, v_new):
         pool[:, page, off] = torch.where(keep, new, pool[:, page, off])
 
 
+def expand_groups(q: torch.Tensor, caches: tuple,
+                  phi_q: Optional[torch.Tensor],
+                  slopes: Optional[torch.Tensor], axis: int):
+    """Per-q-head key factors may differ within a group, which the grouped
+    layout (one key row per kv head) cannot express. Serve them at G = 1
+    instead: q ``(B, KVH, G, *)`` becomes ``(B, H, 1, *)`` (so do
+    ``phi_q`` and ``slopes (KVH, G) -> (H, 1)``), and each cache is repeated
+    over the G heads of its group along its kv-head ``axis`` (1 for a
+    contiguous ``(B, KVH, S, *)`` cache, 0 for a pool ``(KVH, n_pages, ps,
+    *)``): one copy, G times the cache's size."""
+    b, kvh, g = q.shape[:3]
+    one = (lambda t: None if t is None
+           else t.reshape(b, kvh * g, 1, t.shape[-1]))
+    return (one(q), tuple(c.repeat_interleave(g, dim=axis) for c in caches),
+            one(phi_q), None if slopes is None else slopes.reshape(-1, 1))
+
+
 def flash_decode_torch(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     lengths: torch.Tensor,
@@ -131,10 +149,16 @@ def flash_decode_torch(
     v_new: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the kernel: the row write, then dense float32
-    logits over the cache."""
+    logits over the cache. A per-q-head ``phi_k (B, KVH*G, S, R)`` (with G
+    > 1) is served through ``expand_groups``: the write lands first, then
+    the G q heads of each kv head attend as G kv heads of one."""
     lengths = lengths.to(q.device)
     if k_new is not None:
-        _write_row(k_cache, v_cache, lengths, k_new, v_new)
+        write_row(k_cache, v_cache, lengths, k_new, v_new)
+    b, kvh, g = q.shape[:3]
+    if phi_k is not None and g > 1 and phi_k.shape[1] == kvh * g:
+        q, (k_cache, v_cache), phi_q, slopes = expand_groups(
+            q, (k_cache, v_cache), phi_q, slopes, axis=1)
     s_len = k_cache.shape[2]
     s = torch.einsum("bkgd,bksd->bkgs", q.float(), k_cache.float()) * scale
     if phi_q is not None:
@@ -148,7 +172,7 @@ def flash_decode_torch(
     o = torch.einsum("bkgs,bkse->bkge", torch.softmax(s, dim=-1),
                      v_cache.float())
     o = o * (lengths > 0)[:, None, None, None]
-    return o.to(q.dtype)
+    return o.reshape(b, kvh, g, -1).to(q.dtype)
 
 
 def flash_decode_paged_torch(
@@ -172,7 +196,7 @@ def flash_decode_paged_torch(
     lengths = lengths.to(q.device)
     page_table = page_table.to(q.device)
     if k_new is not None:
-        _write_paged_row(k_pages, v_pages, lengths, page_table, k_new, v_new)
+        write_paged_row(k_pages, v_pages, lengths, page_table, k_new, v_new)
     last = (lengths.long() - 1).clamp(min=0) // ps                   # (B,)
     blocks = torch.minimum(torch.arange(cap, device=q.device)[None],
                            last[:, None])                            # (B, cap)

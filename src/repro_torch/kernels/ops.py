@@ -15,20 +15,24 @@ Port of ``repro.kernels.ops``. Implementations:
 ``ssd_scan`` is stricter: ``"cuda"`` on a tensor that is not on the card
 raises, as the kernel has no CPU form.
 
-Cache layout contract (the decode hot path): caches are stored kv-head-major
-per layer (the reference's ``kv_layout="bhsd"``) — contiguous ``(B, KVH, S,
-hd)``, paged pools ``(KVH, n_pages, ps, hd)`` with a ``(n_pages, ps, R)``
-float32 factor slab — and handed to the kernels zero-copy. The port stores
-``hd`` and ``R`` unpadded: the 128-lane pads of the reference are TPU tile
+Cache layout contract (the decode hot path): the models store caches
+kv-head-major per layer — contiguous ``(B, KVH, S, hd)``, paged pools
+``(KVH, n_pages, ps, hd)`` with a ``(n_pages, ps, R)`` float32 factor slab
+— and pass ``kv_layout="bhsd"``, which hands them to the kernels
+zero-copy. The default, as in the reference, is the canonical
+``kv_layout="bshd"`` (``(B, S, KVH, hd)``, pools ``(n_pages, ps, KVH,
+hd)``) of a direct caller, adapted per call. The port stores ``hd`` and
+``R`` unpadded: the 128-lane pads of the reference are TPU tile
 constraints.
 
-``flash_attention`` is differentiable: a ``torch.autograd.Function`` whose
-backward recomputes the forward through the plain path and differentiates
-that (flash-style recompute, as the reference's ``_bwd`` does with its XLA
-path). There is no backward kernel, as there is none on the TPU. With
-``lengths`` (the ragged batch of the Pairformer serve path) the call runs
-outside that Function, as the reference's ``_flash_attention_ragged`` does:
-the plain path is differentiable by itself, the ragged kernel forward only.
+``flash_attention`` and ``ssd_scan`` are differentiable: each is a
+``torch.autograd.Function`` whose backward recomputes the forward through
+the plain path and differentiates that (flash-style recompute, as the
+reference's ``_bwd`` does with its XLA path). There is no backward
+kernel, as there is none on the TPU. With ``lengths`` (the ragged batch of
+the Pairformer serve path) ``flash_attention`` runs outside that Function,
+as the reference's ``_flash_attention_ragged`` does: the plain path is
+differentiable by itself, the ragged kernel forward only.
 """
 from __future__ import annotations
 
@@ -39,17 +43,20 @@ import torch
 
 from repro_torch.core.attention import DEFAULT_MASK_VALUE
 from repro_torch.kernels.flash_decode import (
+    expand_groups,
     flash_decode_fwd,
     flash_decode_paged_fwd,
     flash_decode_paged_torch,
     flash_decode_torch,
+    write_paged_row,
+    write_row,
 )
 from repro_torch.kernels.flashbias_attn import (
     flashbias_attention_fwd,
     flashbias_attention_ragged_fwd,
     flashbias_attention_torch,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_torch
 
 __all__ = ["flash_attention", "flash_decode", "flash_chunk_attention",
            "ssd_scan", "resolve_impl", "IMPLS"]
@@ -187,13 +194,34 @@ def _static_page_cap(lengths: torch.Tensor, ps: int, width: int,
     return max(1, min(-(-longest // ps), width))
 
 
+def _head_major(k_cache, v_cache, phi_k, paged: bool, kv_layout: str):
+    """Head-major views (no copy) of canonical ``kv_layout="bshd"`` caches:
+    ``(B, S, KVH, *) -> (B, KVH, S, *)``, pools ``(n_pages, ps, KVH, *) ->
+    (KVH, n_pages, ps, *)``, ``phi_k (B, S, X, R) -> (B, X, S, R)`` and a
+    per-head slab ``(n_pages, ps, X, R) -> (X, n_pages, ps, R)``. Views of
+    ``"bhsd"`` caches pass through."""
+    if kv_layout not in ("bshd", "bhsd"):
+        raise ValueError(f"kv_layout {kv_layout!r}")
+    if kv_layout == "bhsd":
+        return k_cache, v_cache, phi_k
+    if paged:
+        hm = lambda t: t.permute(2, 0, 1, 3)
+        if phi_k is not None and phi_k.dim() == 4:
+            phi_k = hm(phi_k)
+    else:
+        hm = lambda t: t.transpose(1, 2)
+        if phi_k is not None:
+            phi_k = hm(phi_k)
+    return hm(k_cache), hm(v_cache), phi_k
+
+
 def flash_decode(
     q: torch.Tensor,                        # (B, 1, H, D)
-    k_cache: torch.Tensor,                  # (B, KVH, S, D) | (KVH, n_pages, ps, D)
-    v_cache: torch.Tensor,                  # (B, KVH, S, Dv) | (KVH, n_pages, ps, Dv)
+    k_cache: torch.Tensor,                  # see kv_layout
+    v_cache: torch.Tensor,
     lengths: torch.Tensor,                  # (B,) int
     phi_q: Optional[torch.Tensor] = None,   # (B, 1, H|KVH, R)
-    phi_k: Optional[torch.Tensor] = None,   # (B, KVH, S, R) | paged slab
+    phi_k: Optional[torch.Tensor] = None,
     slopes: Optional[torch.Tensor] = None,  # (H,)
     *,
     scale: Optional[float] = None,
@@ -202,61 +230,107 @@ def flash_decode(
     max_pages: Optional[int] = None,
     k_new: Optional[torch.Tensor] = None,        # (B, KVH, D)
     v_new: Optional[torch.Tensor] = None,        # (B, KVH, Dv)
+    kv_layout: str = "bshd",
 ) -> torch.Tensor:
-    """Single-token decode against a kernel-layout cache (the reference's
-    ``kv_layout="bhsd"``). Returns ``(B, 1, H, Dv)``. The query of row ``b``
-    sits at position ``lengths[b]-1``; rows with length 0 output 0.
+    """Single-token decode against a KV cache. Returns ``(B, 1, H, Dv)``.
+    The query of row ``b`` sits at position ``lengths[b]-1``; rows with
+    length 0 output 0.
 
-    With ``page_table`` the caches are a shared page pool ``(KVH, n_pages,
-    ps, *)``: ``page_table[b, j]`` maps row b's logical block j to its
-    physical page, and entries past the mapped prefix may hold anything
-    (they are clamped and length-masked). ``phi_k`` is then the factor slab
-    ``(n_pages, ps, R)`` shared by every kv head, or ``(1|KVH, n_pages, ps,
-    R)``. The plain path gathers each row's logical view, capped at
-    ``max_pages`` pages (see ``_static_page_cap``); the kernel reads only
+    ``kv_layout`` selects the cache layout, with the reference's default:
+
+    - ``"bshd"`` (canonical; what a direct caller holds): caches ``(B, S,
+      KVH, *)``, paged pools ``(n_pages, ps, KVH, *)``; ``phi_k (B, S,
+      1|KVH|H, R)`` or the paged slab ``(n_pages, ps, R)`` / ``(n_pages,
+      ps, 1|KVH|H, R)``. On the card the caches reach kernels 3–4 after one
+      transpose into the kernel layout (a copy per call, as the reference
+      adapts them per call).
+    - ``"bhsd"`` (the kernel layout the models store): ``(B, KVH, S, *)``,
+      pools ``(KVH, n_pages, ps, *)`` handed to the kernels zero-copy;
+      ``phi_k (B, 1|KVH|H, S, R)`` or ``(B, S, R)``, the paged slab
+      ``(n_pages, ps, R)`` shared by every kv head or ``(1|KVH|H, n_pages,
+      ps, R)``.
+
+    With ``page_table`` the caches are a shared page pool: ``page_table[b,
+    j]`` maps row b's logical block j to its physical page, and entries
+    past the mapped prefix may hold anything (they are clamped and
+    length-masked). The plain path gathers each row's logical view, capped
+    at ``max_pages`` pages (see ``_static_page_cap``); the kernel reads only
     live rows and needs no cap.
 
-    With ``k_new`` and ``v_new`` (the new token's rows, in the cache's
-    dtype) the call first writes them in place at position ``lengths[b]-1``
-    of every row with ``lengths[b] > 0`` (paged: where ``paged_write_plan``
-    puts them; a page outside the pool drops the write), then attends: the
-    kernel does both in one launch."""
+    Per-q-head key factors (``phi_k`` over all H heads, H > KVH) may differ
+    within a group, which the kernels' grouped layout cannot express. The
+    reference sends them to XLA; here every impl serves them through
+    ``expand_groups``: the keys and values are repeated over each group (a
+    copy G times the cache's size, made while a bshd cache is transposed)
+    and the call runs at G = 1, on the card through kernel 3 or 4.
+
+    With ``k_new`` and ``v_new`` (the new token's rows ``(B, KVH, *)``, in
+    the cache's dtype) the call first writes them in place at position
+    ``lengths[b]-1`` of every row with ``lengths[b] > 0`` (paged: where
+    ``paged_write_plan`` puts them; a page outside the pool drops the
+    write), then attends. On a bhsd cache the kernel does both in one
+    launch; where the call copies the cache (bshd on the card, per-q-head
+    factors) the row is written into the caller's cache first."""
+    paged = page_table is not None
+    k_cache, v_cache, phi_k = _head_major(k_cache, v_cache, phi_k, paged,
+                                          kv_layout)
     b, _, h, d = q.shape
-    kvh = k_cache.shape[0] if page_table is not None else k_cache.shape[1]
+    kvh = k_cache.shape[0] if paged else k_cache.shape[1]
     if h % kvh:
         raise ValueError(f"{h} heads do not group over {kvh} kv heads")
     g = h // kvh
     scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
     impl = resolve_impl(impl, q.device)
-    qg = q[:, 0].reshape(b, kvh, g, d).contiguous()
-    pq = None
+    lengths = lengths.to(torch.int32).contiguous()
+    if paged:
+        page_table = page_table.to(torch.int32).contiguous()
+    qg = q[:, 0].reshape(b, kvh, g, d)
+    pq = sl = None
     if phi_q is not None:
         if phi_q.shape[2] == kvh and kvh != h:   # shared within each group
             phi_q = phi_q.repeat_interleave(g, dim=2)
         pq = phi_q[:, 0].reshape(b, kvh, g, -1)
-    sl = None if slopes is None else slopes.reshape(kvh, g)
-    lengths = lengths.to(torch.int32).contiguous()
+        if phi_k.dim() == 3:                     # kv-head-shared factors
+            phi_k = phi_k[None] if paged else phi_k[:, None]
+    if slopes is not None:
+        sl = slopes.reshape(kvh, g)
+    per_q_head = phi_k is not None and g > 1 and \
+        phi_k.shape[0 if paged else 1] == h
+    copied = per_q_head or (impl == "cuda" and kv_layout == "bshd")
+    if k_new is not None and copied:
+        # the row lands in the caller's cache before the copy is made
+        write = write_paged_row if paged else write_row
+        args = (page_table,) if paged else ()
+        write(k_cache, v_cache, lengths, *args, k_new, v_new)
+        k_new = v_new = None
+    if per_q_head:
+        qg, (k_cache, v_cache), pq, sl = expand_groups(
+            qg, (k_cache, v_cache), pq, sl, axis=0 if paged else 1)
+        kvh, g = h, 1
+    if phi_k is not None and not paged:
+        phi_k = phi_k.expand(b, kvh, k_cache.shape[2], phi_k.shape[-1])
     new = {}
     if k_new is not None:
         new = {"k_new": k_new.contiguous(), "v_new": v_new.contiguous()}
-    if page_table is None:
+    if impl == "cuda":
+        k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    qg = qg.contiguous()
+    dv = v_cache.shape[-1]
+    if not paged:
         fn = flash_decode_torch if impl == "torch" else flash_decode_fwd
         o = fn(qg, k_cache, v_cache, lengths, pq, phi_k, sl, scale=scale,
                **new)
-        return o.reshape(b, 1, h, v_cache.shape[-1])
-    if phi_k is not None and phi_k.dim() == 3:   # shared slab, no copy
-        phi_k = phi_k[None]
-    pt = page_table.to(torch.int32).contiguous()
+        return o.reshape(b, 1, h, dv)
     if impl == "torch":
-        cap = _static_page_cap(lengths, k_cache.shape[2], pt.shape[1],
-                               max_pages)
-        o = flash_decode_paged_torch(qg, k_cache, v_cache, lengths, pt, pq,
-                                     phi_k, sl, scale=scale, max_pages=cap,
-                                     **new)
+        cap = _static_page_cap(lengths, k_cache.shape[2],
+                               page_table.shape[1], max_pages)
+        o = flash_decode_paged_torch(qg, k_cache, v_cache, lengths,
+                                     page_table, pq, phi_k, sl, scale=scale,
+                                     max_pages=cap, **new)
     else:
-        o = flash_decode_paged_fwd(qg, k_cache, v_cache, lengths, pt, pq,
-                                   phi_k, sl, scale=scale, **new)
-    return o.reshape(b, 1, h, v_cache.shape[-1])
+        o = flash_decode_paged_fwd(qg, k_cache, v_cache, lengths, page_table,
+                                   pq, phi_k, sl, scale=scale, **new)
+    return o.reshape(b, 1, h, dv)
 
 
 def flash_chunk_attention(
@@ -271,6 +345,7 @@ def flash_chunk_attention(
     impl: str = "auto",
     page_table: Optional[torch.Tensor] = None,   # (B, P) int32 -> paged
     max_pages: Optional[int] = None,
+    kv_layout: str = "bshd",
 ) -> torch.Tensor:
     """Offset-masked chunk attention for chunked prefill. Returns ``(B, C,
     H, Dv)`` in q's dtype.
@@ -281,8 +356,11 @@ def flash_chunk_attention(
     == 0`` are frozen lanes whose output nobody reads. ALiBi adds ``slopes
     * (k_pos - q_pos)`` from absolute positions.
 
-    Caches are kernel-layout: contiguous ``(B, KVH, S, *)`` or, with
-    ``page_table``, pools ``(KVH, n_pages, ps, *)`` gathered into a view of
+    ``kv_layout`` as in ``flash_decode``: ``"bshd"`` (the default) takes
+    contiguous ``(B, S, KVH, *)`` caches or pools ``(n_pages, ps, KVH, *)``,
+    ``"bhsd"`` the kernel layout ``(B, KVH, S, *)`` / ``(KVH, n_pages, ps,
+    *)``; either is read through a view, without a copy. With
+    ``page_table`` the pools are gathered into a view of
     ``_static_page_cap`` pages per row (table entries clamped into the
     pool; the causal mask discards what lies past the written prefix).
 
@@ -297,6 +375,8 @@ def flash_chunk_attention(
     b, c, h, d = q.shape
     scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
     resolve_impl(impl, q.device)        # validated; every impl is plain
+    k_cache, v_cache, _ = _head_major(k_cache, v_cache, None,
+                                      page_table is not None, kv_layout)
     dev = q.device
     offsets = torch.as_tensor(offsets).to(torch.int32)
     chunk_lens = torch.as_tensor(chunk_lens).to(torch.int32)
@@ -330,6 +410,39 @@ def flash_chunk_attention(
     return o.permute(0, 3, 1, 2, 4).reshape(b, c, h, dv).to(q.dtype)
 
 
+class _SSDScan(torch.autograd.Function):
+    """Forward through kernel 5; backward through the plain version's
+    autograd (``ssd_scan_torch`` on the kernel's layout), recomputing the
+    forward, as ``_FlashAttention`` does for attention."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, h0, chunk):
+        ctx.save_for_backward(x, dt, a, b, c, h0)
+        ctx.chunk = chunk
+        y, h_fin = ssd_scan_fwd(x.transpose(1, 2), dt.transpose(1, 2), a,
+                                b[:, None], c[:, None], chunk=chunk, h0=h0)
+        return y.transpose(1, 2), h_fin
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            x, dt, a, b, c, h0 = leaves
+            y, h_fin = ssd_scan_torch(x.transpose(1, 2), dt.transpose(1, 2),
+                                      a, b[:, None], c[:, None],
+                                      chunk=ctx.chunk, h0=h0)
+            wrt = [t for t, need in zip(leaves, needs)
+                   if t is not None and need]
+            grads = iter(torch.autograd.grad(
+                (y.transpose(1, 2), h_fin), wrt, (grad_y, grad_h),
+                allow_unused=True))
+        res = [next(grads) if t is not None and need else None
+               for t, need in zip(leaves, needs)]
+        return (*res, None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int = 256,
              h0: Optional[torch.Tensor] = None, impl: str = "auto"):
@@ -340,7 +453,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ``"torch"`` runs ``models.ssd.ssd_scan`` (the reference's algorithm);
     ``"cuda"`` launches kernel 5 on transposed views of x and y and a
     head-broadcast view of b and c, so nothing is copied, and raises for a
-    tensor that is not on the card."""
+    tensor that is not on the card. Both are differentiable: the kernel's
+    backward recomputes the scan through its plain version (there is no
+    backward kernel, as there is none on the TPU; the reference's
+    model-level scan is differentiable XLA)."""
     impl = resolve_impl(impl, x.device)
     if impl == "torch":
         # imported here: the models package imports this module
@@ -349,6 +465,4 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan impl='cuda' needs a CUDA tensor, got "
                          f"{x.device}")
-    y, h_fin = ssd_scan_fwd(x.transpose(1, 2), dt.transpose(1, 2), a,
-                            b[:, None], c[:, None], chunk=chunk, h0=h0)
-    return y.transpose(1, 2), h_fin
+    return _SSDScan.apply(x, dt, a, b, c, h0, chunk)

@@ -10,7 +10,10 @@ the pool, small enough to watch it preempt). ``--prefill-chunk N`` lands
 prompts N tokens per engine step between decode steps; ``--prefix-cache``
 (with ``--page-size``) shares completed prompt pages between requests, and
 ``--shared-prefix N`` gives every prompt a common N-token head to share.
-``--inject-fault PLAN`` drives the engine under a fault plan
+The frontend configs (``musicgen_medium``, ``phi3_vision_42b``) give every
+request ``frontend_len`` seeded embedding rows ahead of its prompt, and
+``max_len`` grows by as many; chunked prefill refuses such requests, as the
+reference's does. ``--inject-fault PLAN`` drives the engine under a fault plan
 (``kind@step[/slot][xcount]``, comma-separated; kinds alloc, nan, step,
 delay) and prints every fault that fired; ``--deadline-steps`` and
 ``--max-retries`` set every request's deadline and quarantine retries.
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,21 +35,36 @@ from repro_torch.serve import (FaultPlan, SamplingParams, ServeEngine,
 
 def drive(engine: ServeEngine,
           requests: List[Tuple[np.ndarray, int, SamplingParams]],
-          **submit) -> list:
+          frontends: Optional[list] = None, **submit) -> list:
     """Submit ``requests`` (prompt, new tokens, sampling) with staggered
     arrivals — the first half up front, then one per engine step — and step
-    the engine until everything drains. ``submit`` goes to every
+    the engine until everything drains. ``frontends``, where given, holds
+    each request's (F, D) frontend rows; ``submit`` goes to every
     ``engine.submit`` (deadline, retries). Returns the request ids."""
-    half = len(requests) // 2
-    rids = [engine.submit(p, n, sampling=s, **submit)
-            for p, n, s in requests[:half]]
-    pending = list(requests[half:])
+    fronts = frontends or [None] * len(requests)
+    queue = [(p, n, s, f) for (p, n, s), f in zip(requests, fronts)]
+    half = len(queue) // 2
+    rids = [engine.submit(p, n, sampling=s, frontend=f, **submit)
+            for p, n, s, f in queue[:half]]
+    pending = queue[half:]
     while len(engine.scheduler) or engine.occupancy or pending:
         if pending:
-            p, n, s = pending.pop(0)
-            rids.append(engine.submit(p, n, sampling=s, **submit))
+            p, n, s, f = pending.pop(0)
+            rids.append(engine.submit(p, n, sampling=s, frontend=f,
+                                      **submit))
         engine.step()
     return rids
+
+
+def frontend_rows(cfg, n: int, seed: int) -> Optional[list]:
+    """Seeded standard-normal (F, D) float32 frontend rows for ``n``
+    requests of a frontend config (the reference's stub of the audio /
+    vision towers: precomputed embeddings); None for the others."""
+    if not cfg.frontend_len:
+        return None
+    rng = np.random.default_rng(seed + 1)
+    return [rng.standard_normal((cfg.frontend_len, cfg.d_model)).astype(
+        np.float32) for _ in range(n)]
 
 
 def main(argv=None):
@@ -113,7 +131,8 @@ def main(argv=None):
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)
-    max_len = args.shared_prefix + args.prompt_len + args.new_tokens + 8
+    max_len = (args.shared_prefix + args.prompt_len + args.new_tokens + 8
+               + cfg.frontend_len)
     kw = {}
     if args.page_size:
         # every request fits max_len by construction: cap the page table at
@@ -143,7 +162,9 @@ def main(argv=None):
                  SamplingParams(args.temperature, args.top_k, seed=i))
                 for i, n in enumerate(lens)]
     t0 = time.monotonic()
-    rids = drive(engine, requests, deadline_steps=args.deadline_steps or None,
+    rids = drive(engine, requests, frontend_rows(cfg, len(requests),
+                                                 args.seed),
+                 deadline_steps=args.deadline_steps or None,
                  max_retries=args.max_retries)
     dt = time.monotonic() - t0
 

@@ -5,10 +5,12 @@ Pairformer, and the paper's vision (SwinV2) and PDE models).
 ``get_model(cfg)`` returns a ``Model`` with:
 
 - ``template()``                           — PDef tree (shapes + init laws),
-- ``loss(params, batch)``                  — the loss value (swin: mean
+- ``loss(params, batch)``                  — the training loss (LM
+  families: next-token cross-entropy of ``batch["tokens"]`` against
+  ``batch["labels"]``, frontend rows in ``batch["frontend"]``; swin: mean
   cross-entropy of ``batch["patches"]`` against ``batch["labels"]``; pde:
   mean squared error of ``batch["coords"]`` against ``batch["targets"]``;
-  None for the families whose loss waits for the training slice),
+  None for the Pairformer, whose loss waits for a later slice),
 - ``prefill(params, batch, max_len, lengths)`` — prompts -> (logits, cache),
 - ``decode(params, cache, tokens, max_pages)`` — one token -> (logits,
   cache), against a contiguous or a paged cache,
@@ -103,6 +105,7 @@ def get_model(cfg: ArchConfig) -> Model:
     return Model(
         cfg=cfg,
         template=lambda: lm.lm_template(cfg),
+        loss=lambda p, batch: lm.loss_fn(p, batch, cfg),
         prefill=lambda p, batch, max_len=None, lengths=None: lm.prefill(
             p, batch, cfg, max_len=max_len, lengths=lengths),
         decode=lambda p, cache, tokens, max_pages=None: lm.decode_step(

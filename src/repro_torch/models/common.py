@@ -10,14 +10,17 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.bias import alibi_slopes
 
 __all__ = ["PDef", "stack_layers", "materialize", "init_params",
-           "tree_map", "compute_dtype", "rmsnorm", "swiglu", "gelu_mlp",
-           "embed_lookup", "unembed_logits"]
+           "tree_map", "tree_leaves", "compute_dtype", "cast_floats",
+           "param_bytes", "count_params", "rmsnorm", "swiglu", "gelu_mlp",
+           "embed_lookup", "unembed_logits", "cross_entropy_loss",
+           "apply_rope"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -38,6 +41,14 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, in sorted-key order (the order JAX
+    flattens a dict in)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
 
 
 def stack_layers(layer_tmpl: dict, n_layers: int) -> dict:
@@ -82,6 +93,24 @@ def compute_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+def cast_floats(tree, dtype):
+    """Every floating-point tensor of ``tree`` cast to ``dtype`` (a torch
+    dtype or its name); other leaves pass through."""
+    dt = _DTYPES.get(dtype, dtype)
+    return tree_map(lambda x: x.to(dt) if x.is_floating_point() else x, tree)
+
+
+def param_bytes(tmpl) -> int:
+    """Bytes of a template's parameters as float32 masters (the port keeps
+    every master in float32, the reference's ``PDef`` default)."""
+    return 4 * count_params(tmpl)
+
+
+def count_params(tmpl) -> int:
+    """Number of scalars in a template (padding included)."""
+    return sum(int(np.prod(p.shape)) for p in tree_leaves(tmpl))
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """float32 RMS norm times ``1 + scale``, cast back to x's dtype."""
@@ -113,3 +142,33 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: (B, S, D) @ (V, D)^T -> (B, S, V)."""
     return x @ table.T
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab_real: int) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32. The padded vocab rows
+    (``>= vocab_real``) get -1e30, as in the reference: labels never point
+    at them, but they would otherwise take softmax mass. The gold logit is
+    gathered, no one-hot is made."""
+    logits = logits.float()
+    if vocab_real < logits.shape[-1]:
+        pad = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits.masked_fill(pad >= vocab_real, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               base: float = 10000.0) -> torch.Tensor:
+    """RoPE on (B, S, H, D) with positions (B, S), rotating the two halves
+    of D. Kept, as in the reference, for the multiplicative-bias extension;
+    the LM configs use FlashBias-ALiBi."""
+    half = x.shape[-1] // 2
+    freqs = base ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freqs                 # (B, S, half)
+    cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)

@@ -3,7 +3,7 @@ attention + SwiGLU MLP (dense), attention + a routed mixture of SwiGLU
 experts (moe), the Mamba2 SSD block alone (ssm), or attention and SSD
 branches side by side, each rms-normed and averaged, + SwiGLU MLP (hybrid).
 
-Port of the LM paths of ``repro.models.lm`` (the frontends aside). The
+Port of the LM paths of ``repro.models.lm``. The
 parameter tree has the reference's nested keys and stacked leading-``L``
 shapes (``lm_template``), so the reference's parameters carry across as a
 dict copy. Layers run as a Python loop in place of ``jax.lax.scan``; each
@@ -63,10 +63,25 @@ einsums.
 ``cfg.bias_mode="dense"`` is the dense-bias baseline of the dense family:
 its prefill adds the materialized ALiBi bias to the logits (plain chunked
 attention, no kernel); decode and chunked prefill are those of flashbias
-mode, as in the reference. The frontends wait for a later slice.
+mode, as in the reference.
+
+The frontend configs (``musicgen_medium``, audio; ``phi3_vision_42b``,
+vision) are dense models whose prompts open with ``frontend_len``
+precomputed embedding rows (``batch["frontend"]``), the reference's stub of
+the EnCodec / CLIP towers.
+
+Training: ``loss_fn(params, batch, cfg)`` is the next-token cross-entropy
+over the token region (the frontend rows excluded) plus 0.01 x the MoE
+load-balance value, through ``forward_hidden`` (``_layer_train`` per layer
+under ``cfg.remat``). Parameters stay float32 masters, cast to the compute
+dtype once per call (``_compute_layers``), so gradients flow back to them.
+Attention runs ``ops.flash_attention`` (kernel 1 forward on the card, its
+backward the plain version's, recomputed) and the SSM branch
+``ops.ssd_scan`` (kernel 5 forward, likewise).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -82,6 +97,7 @@ from repro_torch.models import ssd
 from repro_torch.models.common import (
     PDef,
     compute_dtype,
+    cross_entropy_loss,
     embed_lookup,
     rmsnorm,
     stack_layers,
@@ -90,7 +106,8 @@ from repro_torch.models.common import (
     unembed_logits,
 )
 
-__all__ = ["lm_template", "cast_layers", "prefill", "decode_step",
+__all__ = ["lm_template", "cast_layers", "loss_fn", "forward_hidden",
+           "prefill", "decode_step",
            "prefill_chunk", "init_cache", "insert_cache_at_slots",
            "init_paged_cache", "insert_paged_cache_at_slots",
            "grow_page_tables_at_slots", "copy_paged_pages"]
@@ -105,10 +122,6 @@ def _check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "
             f"item 8)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"the {cfg.frontend} frontend is not ported yet (ROADMAP.md "
-            f"Queue A item 8)")
     if cfg.cache_layout != "kernel":
         raise ValueError(
             f"cache_layout={cfg.cache_layout!r}: the legacy canonical "
@@ -302,7 +315,7 @@ def _attention_decode(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
         return _out_proj(o, lp["wo"])
     if paged is None:
         o = ops.flash_decode(q, k_cache, v_cache, lengths, slopes=slopes,
-                             impl=cfg.attn_impl, **new)
+                             impl=cfg.attn_impl, kv_layout="bhsd", **new)
         return _out_proj(o, lp["wo"])
     phi_k = None
     if phi_q is not None:
@@ -310,7 +323,8 @@ def _attention_decode(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
     o = ops.flash_decode(q, k_cache, v_cache, lengths, phi_q=phi_q,
                          phi_k=phi_k, slopes=slopes, impl=cfg.attn_impl,
                          page_table=paged["table"],
-                         max_pages=paged["max_pages"], **new)
+                         max_pages=paged["max_pages"], kv_layout="bhsd",
+                         **new)
     return _out_proj(o, lp["wo"])
 
 
@@ -441,7 +455,7 @@ def _attention_chunk(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
             v_cache[rows, :, pos] = v_new[rows, cols]
         o = ops.flash_chunk_attention(
             q, k_cache, v_cache, chunk["offsets"], chunk["chunk_lens"],
-            slopes, impl=cfg.attn_impl)
+            slopes, impl=cfg.attn_impl, kv_layout="bhsd")
         return _out_proj(o, lp["wo"])
     if chunk["page"] is not None:
         page, off, keep = chunk["page"], chunk["off"], chunk["keep"]
@@ -452,7 +466,7 @@ def _attention_chunk(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
     o = ops.flash_chunk_attention(
         q, k_cache, v_cache, chunk["offsets"], chunk["chunk_lens"], slopes,
         impl=cfg.attn_impl, page_table=paged["table"],
-        max_pages=paged["max_pages"])
+        max_pages=paged["max_pages"], kv_layout="bhsd")
     return _out_proj(o, lp["wo"])
 
 
@@ -660,9 +674,121 @@ def _ssm_decode(sp: dict, x: torch.Tensor, h: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _embed_in(params: dict, tokens: torch.Tensor,
+              frontend: Optional[torch.Tensor],
               cfg: ArchConfig) -> torch.Tensor:
-    x = embed_lookup(params["embed"], tokens).to(compute_dtype(cfg))
-    return x * float(np.sqrt(cfg.d_model))
+    """Token embeddings in the compute dtype, scaled by sqrt(d_model), with
+    the frontend rows ``(B, F, D)`` (precomputed audio / vision embeddings)
+    prepended in the compute dtype, unscaled, as the reference does."""
+    dt = compute_dtype(cfg)
+    x = embed_lookup(params["embed"], tokens).to(dt)
+    x = x * float(np.sqrt(cfg.d_model))
+    if frontend is not None:
+        x = torch.cat([frontend.to(dt), x], dim=1)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def _layer_train(lp: dict, x: torch.Tensor, cfg: ArchConfig):
+    """Full-sequence layer (training): the prefill layer without its cache
+    entries. Returns (x, aux), ``aux`` the MoE load-balance value (0 for
+    the other families). Attention is causal, or local with ``cfg.window``
+    (the hybrid family's)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(x, lp["ln1"])
+    y = ys = None
+    if cfg.family in _ATTN:
+        y = _attention(lp["attn"], h, cfg)[0]
+    if cfg.family in _SSM:
+        ys = _ssm_forward(lp["ssm"], h, cfg)[0]
+    x = _mix(lp, x, y, ys, cfg)
+    if cfg.family == "moe":
+        y2, aux = _moe_ffn(lp["moe"], rmsnorm(x, lp["ln2"]), cfg)
+        x = x + y2
+    elif cfg.family in _ATTN:
+        x = x + _ffn(lp, x, cfg)
+    return x, aux
+
+
+# matrix products without a batch dim: what the "dots" policy saves, as the
+# reference's ``dots_with_no_batch_dims_saveable`` (bmm is left out)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` under ``cfg.remat``: ``"none"`` keeps every activation;
+    ``"full"`` checkpoints it (``torch.utils.checkpoint``, non-reentrant),
+    saving its inputs only and recomputing the rest in the backward;
+    ``"dots"`` checkpoints it with a selective policy that saves the
+    outputs of the matrix products without a batch dim and recomputes the
+    rest. A kernel launched through ctypes is no aten op, so no policy can
+    keep its output: under ``"full"`` and ``"dots"`` kernel 1 (and kernel
+    5) runs again when the backward recomputes the layer."""
+    if cfg.remat == "none":
+        return fn
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts)
+    if cfg.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    raise ValueError(f"remat {cfg.remat!r} not in ('none', 'dots', 'full')")
+
+
+def _compute_layers(params: dict, cfg: ArchConfig) -> dict:
+    """The stacked layer weights cast to the compute dtype once and split
+    into per-layer views (the reference casts them before its layer scan):
+    {key: (layer 0, ..., layer L-1)}. Gradients flow back to the float32
+    masters through one cast and one stack per leaf. Indexing the stacked
+    masters per layer instead would make each layer's backward fill and add
+    a gradient of the whole stack (a 3.9 GB MLP leaf of GPT-2 1.5B, 48
+    times per microbatch)."""
+    dt = compute_dtype(cfg)
+    return tree_map(lambda x: x.to(dt).unbind(0), params["layers"])
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                   frontend: Optional[torch.Tensor] = None):
+    """Embedding, the layers (each under ``cfg.remat``) and the final norm.
+    Returns (hidden (B, F + S, D), aux summed over the layers). The float32
+    master weights are cast to the compute dtype per call
+    (``_compute_layers``), so gradients flow back to the masters."""
+    _check_supported(cfg)
+    x = _embed_in(params, tokens, frontend, cfg)
+    layers = _compute_layers(params, cfg)
+
+    def body(x, i):
+        return _layer_train(tree_map(lambda t: t[i], layers), x, cfg)
+
+    body = _maybe_remat(body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = body(x, i)
+        aux = aux + a
+    return rmsnorm(x, params["final_norm"]), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Next-token cross-entropy over the token region (the frontend rows
+    excluded) against ``batch["labels"]``, plus 0.01 x the MoE aux."""
+    frontend = batch.get("frontend")
+    hid, aux = forward_hidden(params, batch["tokens"], cfg, frontend)
+    if frontend is not None:
+        hid = hid[:, frontend.shape[1]:]
+    logits = unembed_logits(hid, params["embed"].to(hid.dtype))
+    return cross_entropy_loss(logits, batch["labels"], cfg.vocab) \
+        + 0.01 * aux
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -707,12 +833,17 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *,
     window shorter than ``max_len`` it is a ring of ``window`` rows, padded
     when the prompt fits the window and gathered otherwise (slot ``s`` holds
     the last position ``p = s (mod window)`` of each row's prompt). The SSM
-    and hybrid families carry ``ssm_h`` / ``conv_x`` / ``conv_bc``."""
+    and hybrid families carry ``ssm_h`` / ``conv_x`` / ``conv_bc``.
+
+    ``batch["frontend"]`` (B, F, D), where given, is prepended to the token
+    embeddings (``_embed_in``): the sequence is then F + S positions wide,
+    the valid prompt of row ``b`` (frontend included) is positions ``0 ..
+    lengths[b]-1``, and ALiBi distances, cache positions and the page
+    budget count the frontend rows."""
     _check_supported(cfg)
-    if batch.get("frontend") is not None:
-        raise NotImplementedError("frontend embeddings are not ported yet")
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    tokens, frontend = batch["tokens"], batch.get("frontend")
+    b = tokens.shape[0]
+    s = tokens.shape[1] + (0 if frontend is None else frontend.shape[1])
     max_len = max_len or s
     dt, dev = compute_dtype(cfg), tokens.device
     if lengths is not None:
@@ -733,7 +864,7 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *,
     valid = None                     # MoE capacity ignores the padding
     if lengths is not None and cfg.family == "moe":
         valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
-    x = _embed_in(params, tokens, cfg)
+    x = _embed_in(params, tokens, frontend, cfg)
     for i in range(cfg.n_layers):
         lp = _layer(params, i, dt)
         h = rmsnorm(x, lp["ln1"])
@@ -796,7 +927,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     active = cache["length"] > 0
     lengths = cache["length"] + active.to(torch.int32)
     dt = compute_dtype(cfg)
-    x = _embed_in(params, tokens, cfg)
+    x = _embed_in(params, tokens, None, cfg)
     # every layer's float32 slopes (and, paged in phi mode, phi_q) at once:
     # one copy per step, not one per layer
     slopes = phi_q = paged = None
@@ -976,7 +1107,7 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
             page, off = chunk["page"], chunk["off"]
             phi[page, off] = torch.where(chunk["keep"][0], chunk["phi_row"],
                                          phi[page, off])
-    x = _embed_in(params, tokens, cfg)
+    x = _embed_in(params, tokens, None, cfg)
     for i in range(cfg.n_layers):
         x = _layer_chunk(_layer(params, i, dt), i, cache, x, cfg, chunk=chunk,
                          slopes=None if slopes is None else slopes[i],

@@ -55,8 +55,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     # intra-chunk: y_i += sum_{j<=i} (c_i . b_j) exp(cum_i - cum_j) dt_j x_j
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Qi,Qj,H)
     tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(seg),
-                        torch.zeros((), dtype=seg.dtype, device=x.device))
+    # masked before the exp: above the diagonal seg > 0 and overflows at
+    # the models' chunk, and where(tri, exp(seg), 0) then differentiates to
+    # 0 * inf = NaN. The forward values are the reference's, bit for bit.
+    decay = torch.exp(torch.where(
+        tri[None, None, :, :, None], seg,
+        torch.full((), float("-inf"), dtype=seg.dtype, device=x.device)))
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)         # (B,nc,Qi,Qj)
     w = cb[..., None] * decay * dtc[:, :, None, :, :]    # (B,nc,Qi,Qj,H)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)

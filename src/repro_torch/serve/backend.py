@@ -303,8 +303,10 @@ class TokenDecodeBackend(Backend):
     def validate(self, req: Request) -> None:
         if not np.issubdtype(req.tokens.dtype, np.integer):
             raise AdmissionRejected("token backend takes int token prompts")
-        if req.frontend is not None:
-            raise AdmissionRejected("frontend embeddings are not ported yet")
+        if self.chunk_size and req.frontend is not None:
+            raise AdmissionRejected(
+                "chunked prefill takes token prompts only (frontend "
+                "embeddings ride the whole-prompt wave path)")
         if (self.prefill_len is not None
                 and req.tokens.size > self.prefill_len):
             raise AdmissionRejected(
@@ -463,20 +465,35 @@ class TokenDecodeBackend(Backend):
         for i, r in enumerate(wave):
             toks[i, :r.tokens.size] = r.tokens
             lengths[i] = r.prompt_len
-        # paged: the wave cache holds the padded prompt, page-aligned, not
-        # a max_len segment; its pages scatter into the pool. A windowed
-        # model's prefill needs the slot length to tell a ring cache from
-        # a full one
+        batch = {"tokens": torch.as_tensor(toks, device=self.device)}
+        # frontend rows (F, D) ride in front of the tokens, a float32
+        # (n_slots, F, D) block; the reference asserts a wave never mixes
+        # requests with and without them
+        has_front = [r.frontend is not None for r in wave]
+        front_len = 0
+        if any(has_front):
+            if not all(has_front):       # the reference's assertion
+                raise AssertionError(
+                    "wave mixes frontend/frontend-less requests")
+            cfg = self.model.cfg
+            front = np.zeros((ns, cfg.frontend_len, cfg.d_model), np.float32)
+            for i, r in enumerate(wave):
+                front[i] = r.frontend
+            batch["frontend"] = torch.as_tensor(front, device=self.device)
+            front_len = cfg.frontend_len
+        # paged: the wave cache holds the padded prompt (frontend rows
+        # included), page-aligned, not a max_len segment; its pages scatter
+        # into the pool. A windowed model's prefill needs the slot length to
+        # tell a ring cache from a full one
         pf_len = None
         if self.paged:
-            pf_len = -(-padded // self.page_size) * self.page_size
+            pf_len = -(-(padded + front_len) // self.page_size) \
+                * self.page_size
         elif self.model.cfg.window:
-            pf_len = max(self.max_len, padded)
+            pf_len = max(self.max_len, padded + front_len)
         with torch.no_grad():
             logits, wave_cache = self.model.prefill(
-                self.params, {"tokens": torch.as_tensor(toks,
-                                                        device=self.device)},
-                max_len=pf_len,
+                self.params, batch, max_len=pf_len,
                 lengths=torch.as_tensor(lengths, device=self.device))
             slot_ids = np.full((ns,), ns, np.int64)   # padding rows dropped
             slot_ids[:w] = slots

@@ -262,12 +262,15 @@ class ServeEngine:
 
     def submit(self, tokens, max_new_tokens: int,
                sampling: Optional[SamplingParams] = None,
+               frontend: Optional[np.ndarray] = None,
                priority: int = 0, on_token=None,
                deadline_steps: Optional[int] = None,
                max_retries: int = 1, strict: bool = True) -> int:
         """Queue one request; returns its request id.
 
-        ``priority``: higher admits first and preempts last. ``on_token``
+        ``frontend`` (F, D) float: precomputed frontend embeddings (the
+        audio / vision configs' ``frontend_len`` rows) that open the
+        prompt; the prompt's length counts them. ``priority``: higher admits first and preempts last. ``on_token``
         is called once per budget unit the request advances, with the
         emitted token id (token backend) or the backend's per-step
         ``stream_result`` (pair backend: the current single rep); it rides
@@ -292,7 +295,7 @@ class ServeEngine:
                                    deadline=deadline)
         try:
             req = Request(rid, np.asarray(tokens), max_new_tokens,
-                          sampling or SamplingParams(), None,
+                          sampling or SamplingParams(), frontend,
                           priority=priority, on_token=on_token)
             self.backend.validate(req)
         except AdmissionRejected as e:
@@ -546,19 +549,22 @@ class ServeEngine:
         emissions, mask = self.backend.step(self._live)
         return self._commit_guarded(emissions, mask)
 
-    def generate(self, prompts, max_new_tokens: int,
+    def generate(self, prompts, max_new_tokens: int, frontend=None,
                  sampling: Optional[SamplingParams] = None) -> np.ndarray:
         """Batch convenience wrapper: prompts is a (B, T) array or a list of
-        1-D ragged prompts. Returns (B, max_new_tokens) generated ids; rows
-        that stop early at ``eos_id`` pad with ``eos_id``. Token backends
-        only: pair requests go through ``submit``/``result``."""
+        1-D ragged prompts (``frontend``, where given, one (F, D) block per
+        prompt). Returns (B, max_new_tokens) generated ids; rows that stop
+        early at ``eos_id`` pad with ``eos_id``. Token backends only: pair
+        requests go through ``submit``/``result``."""
         if not isinstance(self.backend, TokenDecodeBackend):
             raise TypeError(
                 "generate() is a token-emitting API; submit()/result() "
                 "serve pair requests")
         rows = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
-        rids = [self.submit(row, max_new_tokens, sampling=sampling)
-                for row in rows]
+        rids = [self.submit(row, max_new_tokens, sampling=sampling,
+                            frontend=None if frontend is None
+                            else np.asarray(frontend[i]))
+                for i, row in enumerate(rows)]
         self.run()
         out = np.full((len(rows), max_new_tokens), self.eos_id, np.int32)
         for i, rid in enumerate(rids):

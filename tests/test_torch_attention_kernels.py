@@ -129,7 +129,7 @@ def test_flash_decode_plain_matches_pallas(jx, bias, heads):
                              impl="pallas_interpret", kv_layout="bhsd",
                              block_k=16)
     got = tops.flash_decode(_t(q), _t(k), _t(v), _t(lengths), **kw_t,
-                            impl="torch")
+                            impl="torch", kv_layout="bhsd")
     _close(got, want)
     assert not got[0].any()                            # length 0 -> zeros
 

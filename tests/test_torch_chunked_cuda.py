@@ -68,10 +68,11 @@ def _chunk_inputs(rng, paged, dtype):
 @pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
 def test_chunk_attention_on_card_matches_cpu(cuda, paged, dtype):
     args, kw = _chunk_inputs(np.random.default_rng(0), paged, dtype)
-    want = ops.flash_chunk_attention(*args, **kw)
+    want = ops.flash_chunk_attention(*args, **kw, kv_layout="bhsd")
     moved = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
     got = ops.flash_chunk_attention(
-        *moved, **{k: v.to(cuda) for k, v in kw.items()}, max_pages=8)
+        *moved, **{k: v.to(cuda) for k, v in kw.items()}, max_pages=8,
+        kv_layout="bhsd")
     live = torch.arange(args[0].shape[1])[None, :] < torch.as_tensor(
         args[4])[:, None]                           # frozen rows unread
     err = float((got.cpu().float() - want.float())[live].abs().max())

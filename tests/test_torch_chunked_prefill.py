@@ -140,7 +140,8 @@ def test_chunk_attention_matches_reference(paged, bias):
         jnp.asarray(slopes), impl="xla", kv_layout="bhsd", **kw)
     got = tops.flash_chunk_attention(
         torch.tensor(q), torch.tensor(k), torch.tensor(v), offsets,
-        chunk_lens, None if slopes is None else torch.tensor(slopes), **tkw)
+        chunk_lens, None if slopes is None else torch.tensor(slopes),
+        kv_layout="bhsd", **tkw)
     live = np.arange(c)[None, :] < chunk_lens[:, None]
     np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
                                atol=2e-5, rtol=0)

@@ -185,7 +185,8 @@ def test_split_emulation_matches_plain_and_pallas(layout, g, bias):
     paged = {} if table is None else {"page_table": torch.from_numpy(table)}
     plain = tops.flash_decode(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), torch.from_numpy(lengths),
-                              **tkw, **paged, impl="torch")
+                              **tkw, **paged, impl="torch",
+                              kv_layout="bhsd")
     torch.testing.assert_close(got, plain, rtol=0, atol=3e-5)
     assert not got[0].any()
     jpaged = {} if table is None else {"page_table": jnp.asarray(table)}
@@ -271,10 +272,11 @@ def test_fused_write_equals_write_then_decode(layout, bias):
     k_two, v_two = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
     _reference_write(k_two, v_two, lens, k_new, v_new, table)
     want = tops.flash_decode(torch.from_numpy(q), k_two, v_two, lens, **tkw,
-                             **paged, impl="torch")
+                             **paged, impl="torch", kv_layout="bhsd")
     k_one, v_one = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
     got = tops.flash_decode(torch.from_numpy(q), k_one, v_one, lens, **tkw,
-                            **paged, impl="torch", k_new=k_new, v_new=v_new)
+                            **paged, impl="torch", k_new=k_new, v_new=v_new,
+                            kv_layout="bhsd")
     assert torch.equal(k_one, k_two) and torch.equal(v_one, v_two)
     assert torch.equal(got, want)
     assert not torch.equal(k_one, torch.from_numpy(k))

@@ -8,8 +8,8 @@ prompts and tokens come from numpy; the reference runs its XLA path.
 
 - The template: the reference's keys, shapes and init laws at full width
   (the hybrid layer carries attention, SSM, both branch norms and the MLP);
-  the frontends are still refused, naming ROADMAP item 8 (MoE is served
-  now: ``tests/test_torch_moe.py``).
+  a frontend config's template is the plain one's (the frontends are
+  served: ``tests/test_torch_frontends.py``; MoE: ``tests/test_torch_moe.py``).
 - Ragged prefill with prompts shorter than, equal to and longer than the
   window: logits at ``atol 1e-5`` and every cache leaf (the ring padded or
   gathered, ``ssm_h`` / ``conv_x`` / ``conv_bc``) at ``1e-5``; then decode
@@ -113,9 +113,12 @@ def test_template_matches_reference_at_full_width():
 @pytest.mark.parametrize("replace", [{"frontend": "vision"},
                                      {"frontend": "audio"}])
 def test_moe_and_frontends_are_refused(replace):
-    cfg = smoke_config("stablelm_12b").replace(**replace)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        lm.lm_template(cfg)
+    # refused until the frontends were ported (tests/test_torch_frontends.py):
+    # a frontend only adds prompt rows, so the template is the plain one's
+    cfg = smoke_config("stablelm_12b")
+    tmpl = lm.lm_template(cfg.replace(**replace, frontend_len=8))
+    assert jax.tree.map(lambda p: p.shape, tmpl) == jax.tree.map(
+        lambda p: p.shape, lm.lm_template(cfg))
 
 
 # ---------------------------------------------------------------------------

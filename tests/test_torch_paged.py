@@ -231,7 +231,7 @@ def test_paged_decode_matches_reference_kernel(heads, mode, table):
     got = tops.flash_decode(torch.from_numpy(q), torch.from_numpy(kp),
                             torch.from_numpy(vp), torch.from_numpy(LENGTHS),
                             page_table=torch.from_numpy(pt), impl="torch",
-                            **tkw)
+                            kv_layout="bhsd", **tkw)
     live = LENGTHS > 0
     np.testing.assert_allclose(got.numpy()[live],
                                np.asarray(want, np.float32)[live], atol=3e-5)
@@ -239,7 +239,7 @@ def test_paged_decode_matches_reference_kernel(heads, mode, table):
     capped = tops.flash_decode(
         torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
         torch.from_numpy(LENGTHS), page_table=torch.from_numpy(pt),
-        impl="auto", max_pages=P_LIVE, **tkw)
+        impl="auto", max_pages=P_LIVE, kv_layout="bhsd", **tkw)
     torch.testing.assert_close(capped, got, rtol=0, atol=1e-6)
 
 
@@ -252,9 +252,10 @@ def test_paged_shared_phi_q_repeats_over_the_group():
             torch.from_numpy(LENGTHS))
     slab = torch.from_numpy(kw["phi_k"])
     got = tops.flash_decode(*args, phi_q=pq_kv, phi_k=slab,
-                            page_table=torch.from_numpy(pt))
+                            page_table=torch.from_numpy(pt), kv_layout="bhsd")
     want = tops.flash_decode(*args, phi_q=pq_kv.repeat_interleave(4, dim=2),
-                             phi_k=slab, page_table=torch.from_numpy(pt))
+                             phi_k=slab, page_table=torch.from_numpy(pt),
+                             kv_layout="bhsd")
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
