@@ -243,7 +243,7 @@ as it runs, any failure ending the run:
               (``model_kernel_times``);
               the prefill wave and the paged decode step on the host
               clock, device busy, idle share and top kernels;
-19. moe     — granite-moe-3b-a800m at MOE_GRANITE_LAYERS = 16 of its 32
+19. moe     — granite-moe-3b-a800m at MOE_GRANITE_LAYERS = 8 of its 32
               layers, full width (d_model 1536, 32 heads x 64 over 8 kv
               heads, 40 experts padded to 48, top 8, bf16) on the LM
               phase's traffic, contiguous and then paged (a pool that
@@ -267,7 +267,7 @@ as it runs, any failure ending the run:
               with the same checks (the pool grows; a preemption is not
               required of 4 requests);
 20. dense-configs — codeqwen1.5-7b (MHA 32 x 128) and minicpm-2b (48
-              heads x 64) at DENSE_LAYERS = 16 of their 32 / 40 layers,
+              heads x 64) at DENSE_LAYERS = 8 of their 32 / 40 layers,
               and command-r-plus-104b at DENSE_R_LAYERS = 4 of 64 layers,
               all at full
               width (96 heads x 128 over 8 kv heads, G 12): a short paged
@@ -294,7 +294,8 @@ as it runs, any failure ending the run:
               frontend rows included) and 4 decode steps; kernels 1, 3 and
               4 at phi-3-vision's D 96 shapes checked against their plain
               versions, then timed with them, bounds and library calls;
-22. train   — GPT-2-ALiBi-1.5B at full width trained through ``TrainLoop``:
+22. train   — GPT-2-ALiBi-1.5B at full width (TRAIN_LAYERS = 24 of its
+              48 layers) trained through ``TrainLoop``:
               float32 master weights from ``init_params`` and ``--seed``,
               bf16 compute, the config's remat "dots" and grad_accum 4,
               TRAIN_BATCH x TRAIN_SEQ = 8 x 1024 tokens a step from
@@ -304,7 +305,7 @@ as it runs, any failure ending the run:
               TRAIN_GRAD_RTOL. Then TRAIN_STEPS = 8 steps, a checkpoint
               after step TRAIN_CKPT_STEP = 3 (the first loop ends there;
               steps 4-7 go on in the same process), kernel 1 launched
-              exactly 2 x 48 x 4 times a step (forward, and again where the
+              exactly 2 x 24 x 4 times a step (forward, and again where the
               backward recomputes each checkpointed layer), every launch on
               the tensor-core body, the loss finite and lower at step 7
               than at step 0; a fresh loop on fresh weights restores the
@@ -320,15 +321,49 @@ as it runs, any failure ending the run:
               (remat "dots", grad_accum 4): step 0 against the plain path
               as above, SSM_TRAIN_STEPS = 4 steps, kernel 5 launched 2 x
               24 x 4 times a step on the tensor-core body.
+23. pair-train — Pairformer-lite whole (16 layers, d_single 384, d_pair
+              128, 4 heads x 96, R 96, bf16 compute, float32 masters from
+              ``--seed``), factor MLPs of hidden 256: ``fit_factor_mlps``
+              for PAIR_FIT_STEPS steps on PAIR_FIT_COMPLEXES complexes of
+              384 residues (the Eq. 5 loss must fall); ``denoise_loss`` with
+              the fitted factors, kernel 1 launched once per layer on the
+              tensor-core body (phi mode, float32 factors) and held in situ;
+              the loss and every leaf's gradient norm (trunk and factor
+              MLPs) on the kernel path against the plain path within
+              TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL; the output drift of the
+              fitted factors against the dense bias logged; then
+              MODEL_TRAIN_STEPS AdamW steps training trunk and MLPs
+              together on one complex (the loss must fall, kernel 1 once
+              per layer and step); step time, device busy, idle share and
+              peak memory;
+24. pde-train — the PDE solver whole (8 layers, d_model 128, 8 heads x
+              16, bf16) on PDEBatches of PDE_POINTS = 32186 points: the
+              loss and gradient norms of the kernel path against the plain
+              path at PDE_PARITY_POINTS and of FlashBias against the dense
+              bias at PDE_TABLE5_POINTS (Table 5's claim), as in phase 23;
+              MODEL_TRAIN_STEPS AdamW steps through ``Model.loss`` at 32186
+              points (the loss must fall; kernel 1 once per layer and step;
+              the backward recomputes the plain attention by query blocks,
+              ``ops.BWD_SCORE_BYTES``); step time, device busy, idle share,
+              peak memory, and the plain attention backward at the step's
+              shape with its share of the step's device busy;
+25. swin-train — SwinV2-B whole (24 layers, d_model 512, 16 heads x 32,
+              window 576, bf16): the loss and gradient norms with the
+              tables' rank-16 SVD factors (kernel 1, once per layer) against
+              the plain path, as in phase 23; then MODEL_TRAIN_STEPS AdamW
+              steps with the dense tables (how the reference trains) on a
+              PatchBatches batch of SWIN_TRAIN_IMAGES x SWIN_TRAIN_WINDOWS
+              windows (the loss must fall); step time, device busy, idle
+              share, peak memory.
 
-Phases 13-14 and 17-22 each run in a process of their own (``run_child``):
+Phases 13-14 and 17-25 each run in a process of their own (``run_child``):
 late in a long process torch.profiler has lost device events (PERF.md
 section 7), and phase 13's library profile did so in PR 22's first full
-run. Kernel 1's
-``launches`` in the record adds phases 13, 14 and 17-22 to the serve
-phase's, kernels 3 and 4 add phases 18-21's, kernel 5's adds phases 17, 18
-and 22's; their times stay at the LM prefill, LM decode and SSM shapes (the
-other shapes' are logged above the record).
+run. Kernel 1's ``launches`` in the record adds phases 13, 14 and 17-25
+to the serve phase's (phases 23-24: their training steps; 25: the
+SVD-factor gradient run), kernels 3 and 4 add phases 18-21's, kernel 5's
+adds phases 17, 18 and 22's; their times stay at the LM prefill, LM decode
+and SSM shapes (the other shapes' are logged above the record).
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -476,8 +511,12 @@ MOE_LLAMA_LAYERS, DENSE_R_LAYERS = 4, 4
 # cut for time, full width (PR 22): with phases 21-22 the whole script
 # must stay well inside its limit on a slow host too (PR 21's ran 1.55x
 # another's): Swin, granite-moe, paged hymba (HYBRID_LAYERS), codeqwen
-# and minicpm run at these depths
-SWIN_LAYERS, MOE_GRANITE_LAYERS, DENSE_LAYERS = 12, 16, 16
+# and minicpm run at these depths. With phases 23-25 the whole script
+# took 858 s (695 s before them, PERF.md section 5), so granite-moe,
+# codeqwen and minicpm run 8 layers and GPT-2's training (phase 22)
+# TRAIN_LAYERS of its 48
+SWIN_LAYERS, MOE_GRANITE_LAYERS, DENSE_LAYERS = 12, 8, 8
+TRAIN_LAYERS = 24
 # MoE parity: the share of the router calls of the parity's other paths
 # (plain, paged kernel, paged plain) whose own top-k expert set differs from
 # the fed one (``RouteFeed``). Rounding re-routes a token only at a near tie
@@ -511,6 +550,35 @@ SSM_TRAIN_STEPS = 4
 # 1e-2 of each leaf's norm (an element of bf16 has 2^-8 = 0.4% relative
 # error).
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-3, 1e-2
+# Phases 22-25 compare leaf gradient norms relative to at least this share
+# of the largest leaf norm: a leaf whose gradient vanishes analytically
+# (the last bias of the Pairformer's phi_k MLP shifts every key's factor by
+# one vector, moving each query's logits by a constant the softmax ignores)
+# holds rounding noise only (2e-10 against leaf norms of 1e-2 on the
+# card, PERF.md section 6)
+TRAIN_GRAD_FLOOR = 1e-6
+# phases 23-25: the paper's models trained whole. Phase 23 fits the
+# Pairformer's factor MLPs (hidden 256, App. H Table 12) with Eq. 5 on
+# PAIR_FIT_COMPLEXES complexes of PAIR_TRAIN_RES residues, then trains on
+# PAIR_TRAIN_BATCH of them; phase 24 trains the PDE solver on PDE_POINTS,
+# its paths compared at PDE_PARITY_POINTS (kernel and plain) and at
+# PDE_TABLE5_POINTS (FlashBias and dense, where the dense bias is small);
+# phase 25 trains Swin on SWIN_TRAIN_IMAGES x SWIN_TRAIN_WINDOWS windows.
+# Each takes MODEL_TRAIN_STEPS AdamW steps (cosine from TRAIN_LR, as
+# phase 22; the Pairformer from PAIR_TRAIN_LR) on one batch, so its loss
+# must fall. On the card, at 1e-3 the PDE's loss rose 4.4x at step 1
+# before falling and Swin's rose over 3 steps of fresh PatchBatches; the
+# Pairformer's rose 4.9x at step 1 from 3e-4 and stayed above its start
+# (PERF.md section 6: Adam's first steps move every weight by the
+# learning rate, and the triangle update sums the coherent change over all
+# N residues; on the CPU at N 192 the loss fell at every step from 1e-5
+# only).
+PAIR_FIT_COMPLEXES, PAIR_TRAIN_RES, PAIR_TRAIN_BATCH = 2, 384, 1
+PAIR_TRAIN_HIDDEN, PAIR_FIT_STEPS, PAIR_FIT_LR = 256, 30, 1e-3
+PAIR_TRAIN_LR = 1e-5
+PDE_TABLE5_POINTS = 2048
+SWIN_TRAIN_IMAGES, SWIN_TRAIN_WINDOWS = 8, 4
+MODEL_TRAIN_STEPS = 4
 
 
 def log(phase: str, msg: str) -> None:
@@ -4432,18 +4500,8 @@ def step0_parity(label: str, cfg, params, batch: dict, kernel: str,
     for p in tree_leaves(params):
         p.grad = None
     torch.cuda.empty_cache()
-    (lk, gk), (lt, gt) = got["cuda"], got["torch"]
-    rel = {k: abs(gk[k] - gt[k]) / max(gt[k], 1e-30) for k in gt}
-    worst = max(rel, key=rel.get)
-    log(label, f"step 0, kernel path against the plain path: loss "
-               f"{lk:.6f} / {lt:.6f} (relative gap {abs(lk - lt) / lt:.3e}, "
-               f"tol {TRAIN_LOSS_RTOL}); leaf gradient norms' worst "
-               f"relative gap {rel[worst]:.3e} at {worst} (norm "
-               f"{gt[worst]:.4e}; tol {TRAIN_GRAD_RTOL}); {len(rel)} leaves")
-    if not (abs(lk - lt) <= TRAIN_LOSS_RTOL * lt
-            and rel[worst] <= TRAIN_GRAD_RTOL):
-        raise AssertionError(f"{label}: kernel and plain paths' step 0 "
-                             f"disagree")
+    paths_agree(label, "step 0, kernel path against the plain path",
+                (*got["cuda"], None), (*got["torch"], None))
     return got["cuda"]
 
 
@@ -4529,8 +4587,9 @@ def phase_train(seed: int, card: str) -> dict:
     from repro_torch.models.common import count_params
     from repro_torch.train import TrainLoop
 
-    cfg = get_config("gpt2_alibi_15b")
-    check_width(cfg, (cfg.n_layers, cfg.d_model, cfg.heads_padded,
+    full = get_config("gpt2_alibi_15b")
+    cfg = full.replace(n_layers=TRAIN_LAYERS)
+    check_width(cfg, (full.n_layers, cfg.d_model, cfg.heads_padded,
                       cfg.resolved_head_dim, cfg.vocab_padded, cfg.remat,
                       cfg.grad_accum), (48, 1600, 64, 32, 50272, "dots", 4))
     n_params = count_params(get_model(cfg).template())
@@ -4721,6 +4780,388 @@ def _keep(losses: list, out):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: training the paper's models (Pairformer, PDE solver, Swin)
+# ---------------------------------------------------------------------------
+
+def loss_and_norms(loss_fn, *trees) -> tuple:
+    """``loss_fn(*trees)`` and its backward on leaf copies of ``trees``,
+    every launch counter set to 0 just before and read just after: (the
+    loss, each leaf's gradient norm by path (0 where the loss does not
+    reach the leaf), {wrapper: launches} of the wrappers that moved)."""
+    import torch
+    from repro_torch.models.common import tree_map
+    leaves = [tree_map(lambda p: p.detach().clone().requires_grad_(True), t)
+              for t in trees]
+    counters = reset_counters()
+    loss = loss_fn(*leaves)
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = {n: w.launches for n, w in counters.items() if w.launches}
+    norms = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{path}/{k}")
+        else:
+            norms[path] = (0.0 if tree.grad is None else float(
+                torch.linalg.vector_norm(tree.grad.float())))
+    for i, tree in enumerate(leaves):
+        walk(tree, str(i))
+    out = float(loss.detach())
+    del leaves, loss
+    torch.cuda.empty_cache()
+    return out, norms, launched
+
+
+def paths_agree(phase: str, label: str, got: tuple, want: tuple) -> None:
+    """Two (loss, leaf gradient norms, launches) results, as
+    ``loss_and_norms`` gives them, within TRAIN_LOSS_RTOL (the loss) and
+    TRAIN_GRAD_RTOL (every leaf's gradient norm, relative to at least
+    TRAIN_GRAD_FLOOR of the largest leaf norm), logged."""
+    (lk, gk, _), (lt, gt, _) = got, want
+    floor = TRAIN_GRAD_FLOOR * max(gt.values())
+    rel = {k: abs(gk[k] - gt[k]) / max(gt[k], floor, 1e-30) for k in gt}
+    worst = max(rel, key=rel.get)
+    ok = (abs(lk - lt) <= TRAIN_LOSS_RTOL * abs(lt)
+          and rel[worst] <= TRAIN_GRAD_RTOL)
+    log(phase, f"{label}: loss {lk:.6f} / {lt:.6f} (relative gap "
+               f"{abs(lk - lt) / abs(lt):.3e}, tol {TRAIN_LOSS_RTOL}); leaf "
+               f"gradient norms' worst relative gap {rel[worst]:.3e} at "
+               f"{worst} (norm {gt[worst]:.4e}; tol {TRAIN_GRAD_RTOL}); "
+               f"{len(rel)} leaves {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{phase}: {label}: the paths disagree")
+
+
+def train_model(phase: str, loss_fn, params, batch: dict, launches: dict,
+                card: str, lr: float = TRAIN_LR) -> dict:
+    """MODEL_TRAIN_STEPS steps of ``make_train_step(loss_fn, AdamW)`` (cosine
+    from ``lr``, the launcher's warmup) on ``batch``, the launch counters
+    set to 0 just before and read just after, each wrapper of ``launches``
+    held to its count a step; then one more step traced (device busy, idle
+    share, top kernels). The losses finite and lower at the last step than
+    at the first. Returns the losses, the step's host ms (median of steps
+    1..), device busy, peak memory (GiB) and the launches."""
+    import torch
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import make_train_step
+    steps = MODEL_TRAIN_STEPS
+    opt = AdamW(lr_fn=cosine(lr, steps // 10, steps))
+    step_fn = make_train_step(loss_fn, opt)
+    state = {"p": params, "o": opt.init(params)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    losses, walls = [], []
+    for i in range(steps):
+        t0 = time.monotonic()
+        state["p"], state["o"], m = step_fn(state["p"], state["o"], batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.monotonic() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launched = {n: w.launches for n, w in counters.items() if w.launches}
+    want = {n: c * steps for n, c in launches.items()}
+    log(phase, f"{steps} steps: losses {losses}; host s "
+               f"{[round(w, 3) for w in walls]}; launches {launched} (expected {want}); peak memory "
+               f"{peak / 2**30:.2f} GiB [{card}]")
+    if launched != want:
+        raise AssertionError(f"{phase}: launches {launched} != {want}")
+    check_tensor_core(phase, tuple(launches))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
+
+    def step():
+        state["p"], state["o"], m = step_fn(state["p"], state["o"], batch)
+        float(m["loss"])
+
+    busy, kernels = profile_steps(step, 1)
+    host = float(np.median(walls[1:])) * 1e3
+    log(phase, f"step: {host:.1f} ms on the host clock (median of steps "
+               f"1-{steps - 1}; step 0 {walls[0] * 1e3:.1f} ms), device "
+               f"busy {busy:.1f} ms, idle share {1 - busy / host:.3f} "
+               f"[{card}]")
+    top_kernels(phase, kernels, top=8)
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": host, "busy_ms": busy,
+            "peak_gib": peak / 2**30, "launches": launched}
+
+
+def phase_pair_train(seed: int, card: str) -> dict:
+    """Pairformer-lite whole: the Eq. 5 fit, denoise_loss through kernel 1
+    held in situ and against the plain path, training steps (see the module
+    docstring, phase 23)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, pairformer
+    from repro_torch.models.common import materialize, stack_layers
+
+    cfg = get_config("pairformer_lite")
+    layers = cfg.n_layers
+    check_width(cfg, (layers, cfg.d_model, cfg.d_pair, cfg.n_heads,
+                      cfg.resolved_head_dim, cfg.bias_rank, cfg.dtype),
+                (16, 384, 128, 4, 96, 96, "bfloat16"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    factors = materialize(stack_layers(pairformer.factor_mlp_template(
+        cfg, PAIR_TRAIN_HIDDEN), layers), gen, device="cuda")
+    n = PAIR_TRAIN_RES
+    feats = torch.randn((PAIR_FIT_COMPLEXES, n, 64), generator=gen,
+                        device="cuda")
+    batch = {"feats": feats[:PAIR_TRAIN_BATCH],
+             "coords": torch.randn((PAIR_TRAIN_BATCH, n, 3), generator=gen,
+                                   device="cuda")}
+    log("pair-train", f"{cfg.name}: {layers} layers, d_single "
+                      f"{cfg.d_model}, d_pair {cfg.d_pair}, {cfg.n_heads} "
+                      f"heads x {cfg.resolved_head_dim}, R {cfg.bias_rank}, "
+                      f"factor MLPs of hidden {PAIR_TRAIN_HIDDEN}, "
+                      f"{cfg.dtype} compute, float32 masters; {n} residues")
+
+    # step 1: Eq. 5 on two complexes, the trunk frozen
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    factors, fit = pairformer.fit_factor_mlps(params, factors, feats, cfg,
+                                              steps=PAIR_FIT_STEPS,
+                                              lr=PAIR_FIT_LR)
+    fit_s = time.monotonic() - t0
+    log("pair-train", f"fit_factor_mlps, {PAIR_FIT_STEPS} steps on "
+                      f"{PAIR_FIT_COMPLEXES} complexes: Eq. 5 loss "
+                      f"{fit[0]:.6f} -> {fit[-1]:.6f} ({fit_s:.1f} s on the "
+                      f"host clock, the trunk replay included)")
+    if not (all(np.isfinite(fit)) and fit[-1] < fit[0]):
+        raise AssertionError(f"pair-train: the Eq. 5 loss did not fall: "
+                             f"{fit}")
+
+    # step 2: the forward through kernel 1, every call held in situ
+    calls: list = []
+    with patched(ops, "flashbias_attention_fwd", in_situ_attention(calls)):
+        loss, launches = counted(lambda: pairformer.denoise_loss(
+            params, batch, cfg, factors))
+    log("pair-train", f"denoise_loss with the fitted factors: "
+                      f"{float(loss):.6f}, launches {launches}")
+    if launches != {"flashbias_attention_fwd": layers}:
+        raise AssertionError(f"pair-train: launches {launches}, want "
+                             f"{layers} of kernel 1")
+    check_tensor_core("pair-train", ("flashbias_attention_fwd",))
+    in_situ_check("pair-train", calls, layers)
+
+    # step 3: loss and gradients of the trunk and the factors, kernel path
+    # against the plain path
+    torch.cuda.reset_peak_memory_stats()
+    paths = {impl: loss_and_norms(
+        lambda p, f, c=cfg.replace(attn_impl=impl):
+            pairformer.denoise_loss(p, batch, c, f), params, factors)
+        for impl in ("cuda", "torch")}
+    grad_peak = torch.cuda.max_memory_allocated()
+    if paths["cuda"][2] != {"flashbias_attention_fwd": layers} or \
+            paths["torch"][2]:
+        raise AssertionError(f"pair-train: launches {paths['cuda'][2]} / "
+                             f"{paths['torch'][2]}")
+    paths_agree("pair-train", f"loss and gradients (trunk and factor MLPs, "
+                              f"B {PAIR_TRAIN_BATCH}), kernel path against "
+                              f"the plain path", paths["cuda"], paths["torch"])
+    log("pair-train", f"peak memory of a forward and backward: "
+                      f"{grad_peak / 2**30:.2f} GiB [{card}]")
+
+    # the output drift of the fitted factors against the dense bias
+    with torch.no_grad():
+        fb = pairformer.forward(params, batch["feats"], cfg, factors)
+        dense = pairformer.forward(params, batch["feats"],
+                                   cfg.replace(bias_mode="dense"))
+    drift = float((fb.float() - dense.float()).abs().max())
+    log("pair-train", f"output drift, fitted factors against the dense "
+                      f"bias: max |gap| {drift:.4e} at a top |output| of "
+                      f"{float(dense.float().abs().max()):.4e}")
+    if not (torch.isfinite(fb).all() and np.isfinite(drift)):
+        raise AssertionError("pair-train: the outputs are not finite")
+
+    # kernel 1 at the training path's shape, on random factors of its rank
+    h, hd, r = cfg.n_heads, cfg.resolved_head_dim, cfg.bias_rank
+    q, k, v = (torch.randn((PAIR_TRAIN_BATCH, h, n, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    fq, fk = (torch.randn((PAIR_TRAIN_BATCH, h, n, r), generator=gen,
+                          device="cuda") * r ** -0.5 for _ in range(2))
+    mask = torch.einsum("bhnr,bhmr->bhnm", fq, fk).to(torch.bfloat16)
+    times = attention_call(
+        "pair-train", f"kernel 1 at the Pairformer's training shape B"
+        f"{PAIR_TRAIN_BATCH} H{h} N=M{n} D{hd} R{r} bf16 phi (float32 "
+        f"factors)", q, k, v, fq, fk, fq, fk, card,
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask))
+    del q, k, v, fq, fk, mask
+
+    # step 4: the trunk and the factor MLPs trained together
+    trained = train_model(
+        "pair-train", lambda p, b: pairformer.denoise_loss(
+            p["trunk"], b, cfg, p["factors"]),
+        {"trunk": params, "factors": factors}, batch,
+        {"flashbias_attention_fwd": layers}, card, lr=PAIR_TRAIN_LR)
+    del params, factors, feats, batch
+    torch.cuda.empty_cache()
+    return {"launches": trained["launches"],
+            "fit": [fit[0], fit[-1]], "drift": drift, "kernel": times,
+            "grad_peak_gib": grad_peak / 2**30, **{
+                k: trained[k] for k in ("losses", "step_ms", "busy_ms",
+                                        "peak_gib")}}
+
+
+def attention_bwd_ms(q, k, v, phi_q, phi_k) -> float:
+    """Device time per call of ``_FlashAttention``'s plain backward (the
+    plain forward recomputed, by query blocks where it must be, and
+    differentiated) on head-major inputs."""
+    import torch
+    from repro_torch.kernels import ops
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, phi_q,
+                                                         phi_k)]
+    out = ops.flash_attention(*leaves[:4], leaves[4].expand_as(leaves[3])
+                              if leaves[4].shape[1] == 1 else leaves[4],
+                              impl="cuda", layout="bhsd")
+    grad = torch.randn_like(out)
+    return device_ms(lambda: torch.autograd.grad(
+        out, leaves, grad, retain_graph=True), iters=2, warmup=1)
+
+
+def phase_pde_train(seed: int, card: str) -> dict:
+    """The PDE solver whole trained at 32186 points through kernel 1 and the
+    query-blocked plain backward (see the module docstring, phase 24)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.bias import sqdist_factors
+    from repro_torch.data import PDEBatches
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model, init_params
+
+    cfg = get_config("pde_solver")
+    layers, heads, hd = cfg.n_layers, cfg.n_heads, cfg.resolved_head_dim
+    check_width(cfg, (layers, cfg.d_model, heads, hd, cfg.d_ff,
+                      cfg.coord_dim, cfg.dtype),
+                (8, 128, 8, 16, 256, 3, "bfloat16"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    model = get_model(cfg)
+
+    def points(n, step=0):
+        b = PDEBatches(n_points=n, global_batch=1, seed=seed).batch(step)
+        return {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+
+    rows = ops.backward_block_rows(1, heads, PDE_POINTS, PDE_POINTS)
+    log("pde-train", f"{cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+                     f"{heads} heads x {hd}, {cfg.dtype}; PDEBatches of "
+                     f"{PDE_POINTS} points; the backward recomputes "
+                     f"{-(-PDE_POINTS // rows)} query blocks of {rows} rows "
+                     f"a layer (scores under {ops.BWD_SCORE_BYTES / 2**30:.1f}"
+                     f" GiB)")
+    # the kernel path against the plain path, and FlashBias against the
+    # dense bias (Table 5), on the same weights
+    small = points(PDE_PARITY_POINTS)
+    paths = {impl: loss_and_norms(
+        lambda p, c=cfg.replace(attn_impl=impl): get_model(c).loss(p, small),
+        params) for impl in ("cuda", "torch")}
+    if paths["cuda"][2] != {"flashbias_attention_fwd": layers} or \
+            paths["torch"][2]:
+        raise AssertionError(f"pde-train: launches {paths['cuda'][2]} / "
+                             f"{paths['torch'][2]}")
+    paths_agree("pde-train", f"N={PDE_PARITY_POINTS}, kernel path against "
+                             f"the plain path", paths["cuda"], paths["torch"])
+    tiny = points(PDE_TABLE5_POINTS)
+    modes = {mode: loss_and_norms(
+        lambda p, c=cfg.replace(bias_mode=mode): get_model(c).loss(p, tiny),
+        params) for mode in ("flashbias", "dense")}
+    if modes["dense"][2]:
+        raise AssertionError(f"pde-train: the dense path launched "
+                             f"{modes['dense'][2]}")
+    paths_agree("pde-train", f"N={PDE_TABLE5_POINTS}, FlashBias against the "
+                             f"dense bias (Table 5)", modes["flashbias"],
+                modes["dense"])
+
+    batch = points(PDE_POINTS)
+    trained = train_model("pde-train", model.loss, params, batch,
+                          {"flashbias_attention_fwd": layers}, card)
+    # the plain backward at the step's attention shape, per layer
+    lp0 = {key: val[0].detach() for key, val in params["layers"].items()}
+    pts = batch["coords"]
+    q, k, v = (torch.randn((1, heads, PDE_POINTS, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    alpha = F.softplus(pts @ lp0["alpha_w"] + lp0["alpha_b"])
+    pq0, pk0 = sqdist_factors(pts, pts, negate=True)
+    phi_q = (alpha[..., None] * pq0[:, :, None]).transpose(1, 2).contiguous()
+    bwd = attention_bwd_ms(q, k, v, phi_q, pk0[:, None])
+    share = bwd * layers / trained["busy_ms"]
+    log("pde-train", f"the plain attention backward at the step's shape (B 1 "
+                     f"H {heads} N=M {PDE_POINTS} D {hd} bf16, R "
+                     f"{pq0.shape[-1]} float32 factors, phi_k shared by the "
+                     f"heads): {bwd:.2f} ms a call; {layers} calls a step "
+                     f"take {bwd * layers:.1f} ms, {share:.3f} of the step's "
+                     f"device busy [{card}]")
+    del params, batch, small, tiny, q, k, v, phi_q
+    torch.cuda.empty_cache()
+    return {"launches": trained["launches"],
+            "bwd_ms": bwd, "bwd_share": share, "block_rows": rows, **{
+                k: trained[k] for k in ("losses", "step_ms", "busy_ms",
+                                        "peak_gib")}}
+
+
+def phase_swin_train(seed: int, card: str) -> dict:
+    """SwinV2-B whole trained with the dense tables, and its gradients with
+    SVD factors through kernel 1 against the plain path (see the module
+    docstring, phase 25)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import PatchBatches
+    from repro_torch.models import get_model, init_params, swin
+
+    cfg = get_config("swinv2_b")
+    layers, w, r = cfg.n_layers, cfg.window, cfg.bias_rank
+    check_width(cfg, (layers, cfg.d_model, cfg.n_heads,
+                      cfg.resolved_head_dim, w, r, cfg.d_ff, cfg.dtype),
+                (24, 512, 16, 32, 576, 16, 2048, "bfloat16"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in PatchBatches(
+        n_windows=SWIN_TRAIN_WINDOWS, window=w, global_batch=SWIN_TRAIN_IMAGES,
+        seed=seed).batch(0).items()}
+    log("swin-train", f"{cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+                      f"{cfg.n_heads} heads x {cfg.resolved_head_dim}, "
+                      f"window {w}, {cfg.dtype}; PatchBatches of "
+                      f"{SWIN_TRAIN_IMAGES} images x {SWIN_TRAIN_WINDOWS} "
+                      f"windows; training with the dense tables")
+    # gradients with the SVD factors of the tables (kernel 1) against the
+    # plain path
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        factors = swin.svd_factorize(params, r)
+    torch.cuda.synchronize()
+    log("swin-train", f"svd_factorize of {layers * cfg.n_heads} tables: "
+                      f"{time.monotonic() - t0:.1f} s on the host clock")
+    paths = {impl: loss_and_norms(
+        lambda p, f, c=cfg.replace(attn_impl=impl):
+            swin.classify_loss(p, batch, c, f), params, factors)
+        for impl in ("cuda", "torch")}
+    if paths["cuda"][2] != {"flashbias_attention_fwd": layers} or \
+            paths["torch"][2]:
+        raise AssertionError(f"swin-train: launches {paths['cuda'][2]} / "
+                             f"{paths['torch'][2]}")
+    paths_agree("swin-train", f"rank-{r} SVD factors, kernel path against "
+                              f"the plain path", paths["cuda"],
+                paths["torch"])
+    launched = paths["cuda"][2]
+    del factors
+    torch.cuda.empty_cache()
+    trained = train_model("swin-train", get_model(cfg).loss, params, batch,
+                          {}, card)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launched, **{
+        k: trained[k] for k in ("losses", "step_ms", "busy_ms", "peak_gib")}}
+
+
 def bound(bytes_: int, flops: int) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -4756,7 +5197,9 @@ CHILD_PHASES = {"swin": lambda seed, card: {"launches": {
                     "flashbias_attention_fwd": phase_pde(seed, card)}},
                 "hybrid": phase_hybrid, "paged-hybrid": phase_paged_hybrid,
                 "moe": phase_moe, "dense-configs": phase_dense_configs,
-                "frontends": phase_frontends, "train": phase_train}
+                "frontends": phase_frontends, "train": phase_train,
+                "pair-train": phase_pair_train, "pde-train": phase_pde_train,
+                "swin-train": phase_swin_train}
 
 
 def main(argv=None) -> int:
@@ -4764,7 +5207,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", choices=tuple(CHILD_PHASES), default=None,
                     help="run one phase alone (the full run starts phases "
-                         "13-14 and 17-22 this way, each in a process of "
+                         "13-14 and 17-25 this way, each in a process of "
                          "its own)")
     args = ap.parse_args(argv)
 
@@ -4870,7 +5313,7 @@ def main(argv=None) -> int:
     for name in ("flashbias_attention_fwd", "ssd_scan_fwd"):
         launches[name] += hybrid[name]
     for phase in ("paged-hybrid", "moe", "dense-configs", "frontends",
-                  "train"):
+                  "train", "pair-train", "pde-train", "swin-train"):
         merge_launches(launches, run_child(phase, args.seed)["launches"])
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"

@@ -5,7 +5,10 @@ shapes, so carrying a tree across is a dict copy: ``params_from_numpy``
 takes nested dicts of numpy arrays (the reference's parameters after
 ``np.asarray`` on every leaf) and returns the port's tensors, checked
 against the port's template; ``factors_from_numpy`` does the same for the
-Pairformer's factor-MLP tree. Nothing here imports JAX.
+Pairformer's factor-MLP tree, and ``neural_decomp_from_numpy`` for the
+neural decomposition's ``NeuralDecompParams`` (``jax.random`` has no torch
+twin, so a parity test carries the reference's initial MLPs across).
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -13,11 +16,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.decomp import NeuralDecompParams
 from repro_torch.models.api import get_model
 from repro_torch.models.common import PDef, stack_layers
 from repro_torch.models.pairformer import factor_mlp_template
 
-__all__ = ["params_from_numpy", "factors_from_numpy"]
+__all__ = ["params_from_numpy", "factors_from_numpy",
+           "neural_decomp_from_numpy"]
 
 
 def _convert(tree, tmpl, device, dtype, path: str):
@@ -49,3 +54,35 @@ def factors_from_numpy(tree: dict, cfg: ArchConfig, hidden: int = 256,
     hidden)`` that the serve path indexes per layer."""
     tmpl = stack_layers(factor_mlp_template(cfg, hidden), cfg.n_layers)
     return _convert(tree, tmpl, device, dtype, "")
+
+
+def neural_decomp_from_numpy(tree, device="cuda",
+                             dtype=torch.float32) -> NeuralDecompParams:
+    """The port's ``NeuralDecompParams`` from the reference's (after
+    ``np.asarray`` on every leaf) or from a dict with its fields
+    (``q_layers``, ``k_layers``: sequences of ``(w, b)`` numpy arrays;
+    ``heads``, ``rank``). Each MLP must chain (a layer's input width is the
+    last one's output) and end at ``heads * rank``."""
+    get = tree.get if isinstance(tree, dict) else (
+        lambda key: getattr(tree, key))
+    heads, rank = int(get("heads")), int(get("rank"))
+
+    def mlp(name):
+        layers, width = [], None
+        for i, (w, b) in enumerate(get(name)):
+            w, b = np.asarray(w), np.asarray(b)
+            if w.ndim != 2 or b.shape != (w.shape[1],) or (
+                    width is not None and w.shape[0] != width):
+                raise ValueError(f"{name}[{i}]: w {w.shape}, b {b.shape} "
+                                 f"after width {width}")
+            width = w.shape[1]
+            layers.append(tuple(
+                torch.from_numpy(np.array(t)).to(device=device, dtype=dtype)
+                for t in (w, b)))
+        if width != heads * rank:
+            raise ValueError(f"{name} ends at {width}, not heads x rank = "
+                             f"{heads * rank}")
+        return tuple(layers)
+
+    return NeuralDecompParams(mlp("q_layers"), mlp("k_layers"), heads=heads,
+                              rank=rank)

@@ -49,8 +49,8 @@ _MAX_RANK_TC = 256             # a TMA box holds at most 256 factor columns
 
 
 def _allowed(n: int, m: int, mask_kind: str, window: int, kv_len: int,
-             device) -> torch.Tensor:
-    q_pos = torch.arange(n, device=device)[:, None]
+             device, q_offset: int = 0) -> torch.Tensor:
+    q_pos = torch.arange(q_offset, q_offset + n, device=device)[:, None]
     k_pos = torch.arange(m, device=device)[None, :]
     allowed = k_pos < kv_len
     if mask_kind in ("causal", "local"):
@@ -68,14 +68,18 @@ def flashbias_attention_torch(
     *, scale: float, mask_kind: str = "none", window: int = 0,
     kv_len: Optional[int] = None,
     lengths: Optional[torch.Tensor] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Plain version of the kernels: dense float32 logits and softmax.
 
     ``lengths (B,)`` (the ragged kernel's bound) masks row ``b``'s keys at
     positions ``>= lengths[b]`` in place of the static ``kv_len``, combined
-    with the ``mask_kind`` mask. Differentiable (the ``ops`` backward
-    recomputes through it). A row with no allowed key outputs 0, as the
-    kernels' ``l == 0`` rows do."""
+    with the ``mask_kind`` mask. ``q_offset`` is the position of ``q``'s
+    first row: ``q``, ``phi_q`` and the output are then the rows
+    ``q_offset ..`` of a longer query, whose causal / local mask and ALiBi
+    distances are built for these rows alone (the ``ops`` backward
+    recomputes by such blocks). Differentiable. A row with no allowed key
+    outputs 0, as the kernels' ``l == 0`` rows do."""
     b, h, n, _ = q.shape
     kvh, m = k.shape[1], k.shape[2]
     if lengths is not None and kv_len is not None:
@@ -90,9 +94,11 @@ def flashbias_attention_torch(
                              phi_k.float().expand(b, h, m, -1))
     if slopes is not None:
         rel = (torch.arange(m, device=q.device)[None, :]
-               - torch.arange(n, device=q.device)[:, None]).float()
+               - torch.arange(q_offset, q_offset + n,
+                              device=q.device)[:, None]).float()
         s = s + slopes.float()[:, None, None] * rel
-    allowed = _allowed(n, m, mask_kind, window, kv_len, q.device)  # (N, M)
+    allowed = _allowed(n, m, mask_kind, window, kv_len, q.device,
+                       q_offset)                                 # (N, M)
     if lengths is not None:
         in_range = (torch.arange(m, device=q.device)[None, :]
                     < lengths.to(q.device).reshape(-1, 1))          # (B, M)

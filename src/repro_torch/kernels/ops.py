@@ -29,7 +29,11 @@ constraints.
 ``torch.autograd.Function`` whose backward recomputes the forward through
 the plain path and differentiates that (flash-style recompute, as the
 reference's ``_bwd`` does with its XLA path). There is no backward
-kernel, as there is none on the TPU. With ``lengths`` (the ragged batch of
+kernel, as there is none on the TPU. ``flash_attention``'s backward
+recomputes by blocks of query rows, each block's float32 scores under
+``BWD_SCORE_BYTES`` (one block wherever the whole scores fit): the plain
+path's ``(B, H, N, M)`` scores of the PDE solver's 32186 points would be
+33 GB a tensor. With ``lengths`` (the ragged batch of
 the Pairformer serve path) ``flash_attention`` runs outside that Function,
 as the reference's ``_flash_attention_ragged`` does: the plain path is
 differentiable by itself, the ragged kernel forward only.
@@ -63,6 +67,10 @@ __all__ = ["flash_attention", "flash_decode", "flash_chunk_attention",
 
 IMPLS = ("torch", "cuda")
 
+# float32 scores of one query block of ``_FlashAttention.backward``'s
+# recompute, (B, H, rows, M) x 4 bytes, stay at or under this
+BWD_SCORE_BYTES = 2 << 30
+
 
 def resolve_impl(impl: str, device: torch.device) -> str:
     """``"auto"`` -> ``"cuda"`` on a CUDA device, ``"torch"`` elsewhere."""
@@ -75,7 +83,8 @@ def resolve_impl(impl: str, device: torch.device) -> str:
 
 class _FlashAttention(torch.autograd.Function):
     """Forward through the kernel (or the plain version); backward through
-    the plain version's autograd, recomputing the forward."""
+    the plain version's autograd, recomputing the forward by query blocks
+    (``backward_block_rows``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, phi_q, phi_k, slopes, mask_kind, window, scale,
@@ -88,17 +97,58 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        needs = ctx.needs_input_grad[:6]
+        saved = ctx.saved_tensors     # unpacked once: remat allows no more
+        q, k = saved[:2]
+        rows = backward_block_rows(q.shape[0], q.shape[1], q.shape[2],
+                                   k.shape[2])
+        return (*_recompute_grads(saved, ctx.needs_input_grad[:6], ctx.opts,
+                                  grad_out, rows),
+                None, None, None, None)
+
+
+def backward_block_rows(b: int, h: int, n: int, m: int) -> int:
+    """Query rows per block of ``_FlashAttention.backward``'s recompute:
+    all ``n`` where the float32 ``(b, h, n, m)`` scores fit in
+    ``BWD_SCORE_BYTES``, else as many as do (at least one)."""
+    return max(1, min(n, BWD_SCORE_BYTES // max(1, b * h * m * 4)))
+
+
+def _recompute_grads(saved, needs, opts, grad_out, rows: int) -> list:
+    """Gradients of the plain attention, recomputed ``rows`` query rows at
+    a time (one block where ``rows`` covers N): each block's rows of ``q``
+    and ``phi_q`` get their own gradient; those of ``k``, ``v``, ``phi_k``
+    and ``slopes`` add up over the blocks. Every input is differentiated as
+    a float32 copy (the plain version computes in float32 anyway) and its
+    gradient cast back once, so a bf16 input's gradient is rounded once,
+    not per block. A ``phi_k`` broadcast over heads or batch gets a
+    gradient of the broadcast shape, which autograd sums back into the
+    caller's factor."""
+    f32 = [None if t is None else t.detach().float() for t in saved]
+    shared = {i: f32[i].requires_grad_(needs[i]) for i in (1, 2, 4, 5)
+              if f32[i] is not None}
+    n = saved[0].shape[2]
+    sums = {i: None for i in shared}
+    parts = {0: [], 3: []}
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        block = {i: f32[i][:, :, lo:hi].detach().requires_grad_(needs[i])
+                 for i in (0, 3) if f32[i] is not None}
+        leaves = [block.get(i, shared.get(i)) for i in range(6)]
+        wrt = [i for i in range(6) if leaves[i] is not None and needs[i]]
         with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, needs)]
-            out = flashbias_attention_torch(*leaves, **ctx.opts)
-            wrt = [t for t, need in zip(leaves, needs)
-                   if t is not None and need]
-            grads = iter(torch.autograd.grad(out, wrt, grad_out))
-        res = [next(grads) if t is not None and need else None
-               for t, need in zip(leaves, needs)]
-        return (*res, None, None, None, None)
+            out = flashbias_attention_torch(*leaves, q_offset=lo, **opts)
+            grads = torch.autograd.grad(out, [leaves[i] for i in wrt],
+                                        grad_out[:, :, lo:hi].float())
+        for i, g in zip(wrt, grads):
+            if i in parts:
+                parts[i].append(g)
+            else:
+                sums[i] = g if sums[i] is None else sums[i] + g
+    res = [None] * 6
+    for i in wrt:
+        g = torch.cat(parts[i], dim=2) if i in parts else sums[i]
+        res[i] = g.to(saved[i].dtype)
+    return res
 
 
 def flash_attention(

@@ -1,5 +1,5 @@
 """Models: the decoder LM (dense FlashBias-ALiBi and Mamba2 SSM families),
-the Pairformer serve path, and the paper's SwinV2 window-attention stack and
+the Pairformer (training and serving), and the paper's SwinV2 window-attention stack and
 PDE solver, behind the uniform ``Model`` interface."""
 from repro_torch.models import (  # noqa: F401
     api, common, lm, pairformer, pde, ssd, swin)

@@ -10,7 +10,9 @@ Pairformer, and the paper's vision (SwinV2) and PDE models).
   ``batch["labels"]``, frontend rows in ``batch["frontend"]``; swin: mean
   cross-entropy of ``batch["patches"]`` against ``batch["labels"]``; pde:
   mean squared error of ``batch["coords"]`` against ``batch["targets"]``;
-  None for the Pairformer, whose loss waits for a later slice),
+  pairformer: ``denoise_loss``, the mean squared error of the coordinates
+  predicted from ``batch["feats"]`` against ``batch["coords"]``, without
+  factor MLPs),
 - ``prefill(params, batch, max_len, lengths)`` — prompts -> (logits, cache),
 - ``decode(params, cache, tokens, max_pages)`` — one token -> (logits,
   cache), against a contiguous or a paged cache,
@@ -74,6 +76,7 @@ def _pairformer_model(cfg: ArchConfig) -> Model:
     return Model(
         cfg=cfg,
         template=lambda: pairformer.pairformer_template(cfg),
+        loss=lambda p, batch: pairformer.denoise_loss(p, batch, cfg),
         prefill=lambda p, batch, max_len=None, lengths=None, factors=None:
             pairformer.serve_prefill(p, batch, cfg, factors,
                                      max_len=max_len, lengths=lengths),

@@ -1,7 +1,9 @@
-"""Pairformer-lite serve path: attention with a pair-representation bias
-(AF3, the paper's Sec. 4.4).
+"""Pairformer-lite: attention with a pair-representation bias (AF3, the
+paper's Sec. 4.4).
 
-Port of the batched serve path of ``repro.models.pairformer``. Per block:
+Port of ``repro.models.pairformer``: the training path (``forward``,
+``denoise_loss``, ``fit_factor_mlps``) and the batched serve path. Per
+block:
 
 1. triangle multiplicative update (outgoing) on the pair rep ``z (B, N, N,
    Dp)``,
@@ -46,8 +48,16 @@ is bit-identical whether it runs alone or with strangers at the same slot
 count. ``insert_serve_cache_at_slots`` writes in place (the reference
 returns new arrays) and drops out-of-range slot ids on the host.
 
-``forward``, ``denoise_loss`` and ``fit_factor_mlps`` (training) wait for
-ROADMAP.md Queue A item 9.
+Training: ``forward`` runs the layers in a Python loop (the reference
+scans them) over residue features ``(B, N, 64)`` to ``(B, N, 3)``
+coordinates. With ``bias_mode="flashbias"`` and fitted factor MLPs
+(``factors=``) each layer's attention takes the MLPs' float32 factors
+through ``ops.flash_attention`` (kernel 1 in phi mode on the card, R =
+``bias_rank``); otherwise the projected dense bias goes through the plain
+chunked ``core.attention``. ``denoise_loss`` is the mean squared error
+against ``batch["coords"]``, differentiable in the trunk and in the factor
+MLPs. ``fit_factor_mlps`` fits the factor MLPs to every layer's projected
+bias with the trunk frozen (Eq. 5, plain Adam).
 """
 from __future__ import annotations
 
@@ -58,7 +68,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.attention import attention as core_attn
-from repro_torch.core.decomp import svd_factors
+from repro_torch.core.decomp import adam_step, svd_factors
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
     PDef,
@@ -70,6 +80,7 @@ from repro_torch.models.common import (
 )
 
 __all__ = ["pairformer_template", "factor_mlp_template", "cast_params",
+           "forward", "denoise_loss", "fit_factor_mlps",
            "init_serve_cache", "serve_prefill", "serve_step",
            "insert_serve_cache_at_slots"]
 
@@ -211,6 +222,131 @@ def _attend_cached(lp: dict, s: torch.Tensor, bias_state, cfg: ArchConfig,
     return s + o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _pair_transition(lp: dict, z: torch.Tensor) -> torch.Tensor:
+    return z + gelu_mlp(rmsnorm(z, lp["pair_ln"]), lp["pair_wi"],
+                        lp["pair_wo"])
+
+
+def _unbound(tree: dict, n_layers: int) -> list:
+    """The per-layer trees of a layer-stacked tree, through one ``unbind``
+    per leaf: the backward then stacks each leaf's gradient once, where
+    indexing the stack per layer would fill and add a gradient of the
+    whole stack in every layer."""
+    split = tree_map(lambda x: x.unbind(0), tree)
+    return [tree_map(lambda x: x[i], split) for i in range(n_layers)]
+
+
+def _single_attention(lp: dict, s: torch.Tensor, z: torch.Tensor,
+                      cfg: ArchConfig, factors_l=None) -> torch.Tensor:
+    """One pair-biased attention of the training path. With
+    ``bias_mode="flashbias"`` and the layer's factor MLPs, their float32
+    factors ride with q and k through ``ops.flash_attention`` (no ragged
+    lengths: every residue is real); otherwise the projected dense bias is
+    added by the plain chunked attention."""
+    if cfg.bias_mode == "flashbias" and factors_l is not None:
+        fx = _factor_inputs(z, rmsnorm(s, lp["ln1"])).float()
+        state = tuple(
+            _factor_apply(factors_l[key], fx, cfg.n_heads,
+                          cfg.bias_rank).float().transpose(1, 2)
+            for key in ("q", "k"))                      # (B, H, N, R)
+    else:
+        state = _pair_bias(lp, z).float()
+    return _attend_cached(lp, s, state, cfg, None)
+
+
+def _embed(params: dict, feats: torch.Tensor, cfg: ArchConfig):
+    """The single rep and the outer-sum pair rep of residue features."""
+    dt = compute_dtype(cfg)
+    f = feats.to(dt)
+    s = f @ params["single_in"].to(dt)
+    z = f @ params["pair_in"].to(dt)
+    return s, z[:, :, None, :] + z[:, None, :, :]
+
+
+def forward(params: dict, feats: torch.Tensor, cfg: ArchConfig,
+            factors: Optional[dict] = None) -> torch.Tensor:
+    """feats ``(B, N, 64)`` residue features (the stub) -> ``(B, N, 3)``
+    coordinates in the compute dtype. ``factors``: the layer-stacked factor
+    MLPs (``factor_mlp_template``), used in flashbias mode."""
+    dt = compute_dtype(cfg)
+    s, z = _embed(params, feats, cfg)
+    layers = _unbound(params["layers"], cfg.n_layers)
+    fls = (_unbound(factors, cfg.n_layers) if factors is not None
+           else [None] * cfg.n_layers)
+    for lp, fl in zip(layers, fls):
+        z = _triangle_update(lp, z)
+        s = _single_attention(lp, s, z, cfg, fl)
+        s = _transition(lp, s)
+        z = _pair_transition(lp, z)
+    s = rmsnorm(s, params["final_norm"])
+    return s @ params["out_head"].to(dt)
+
+
+def denoise_loss(params: dict, batch: dict, cfg: ArchConfig,
+                 factors: Optional[dict] = None) -> torch.Tensor:
+    """Mean squared error of ``forward``'s coordinates against
+    ``batch["coords"] (B, N, 3)``, in float32."""
+    pred = forward(params, batch["feats"], cfg, factors).float()
+    return ((pred - batch["coords"].float()) ** 2).mean()
+
+
+def fit_factor_mlps(params: dict, factor_params: dict,
+                    sample_feats: torch.Tensor, cfg: ArchConfig, *,
+                    steps: int = 300, lr: float = 1e-3, gen=None):
+    """The paper's fine-tuning (Eq. 5): fit every layer's factor MLPs so
+    that ``phi_q phi_k^T`` matches the layer's projected pair bias on
+    ``sample_feats``, the trunk frozen. The trunk is replayed once with
+    the dense attention (as the reference replays it, whatever the bias
+    mode), and each layer's target bias and factor inputs kept; the loss
+    is the mean over layers of each layer's mean squared error. Plain Adam
+    (``core.decomp.adam_step``, the step count in float32). ``gen`` stands
+    where the reference takes a PRNG key, which it never reads: the fit
+    draws nothing at random.
+    Returns (the fitted factor tree, the loss of every step as floats)."""
+    del gen
+    dense = cfg.replace(bias_mode="dense")
+    ctxs = []
+    with torch.no_grad():
+        s, z = _embed(params, sample_feats, cfg)
+        for lp in _unbound(params["layers"], cfg.n_layers):
+            z = _triangle_update(lp, z)
+            ctxs.append((_pair_bias(lp, z),
+                         _factor_inputs(z, rmsnorm(s, lp["ln1"])).float()))
+            s = _single_attention(lp, s, z, dense)
+            s = _transition(lp, s)
+            z = _pair_transition(lp, z)
+
+    def loss_fn(fp: dict) -> torch.Tensor:
+        total = 0.0
+        for (target, fx), fl in zip(ctxs, _unbound(fp, cfg.n_layers)):
+            pq, pk = (_factor_apply(fl[key], fx, cfg.n_heads, cfg.bias_rank)
+                      for key in ("q", "k"))
+            pred = torch.einsum("bnhr,bmhr->bhnm", pq, pk)
+            total = total + ((pred - target) ** 2).mean()
+        return total / len(ctxs)
+
+    names = [(key, w) for key in ("q", "k") for w in factor_params[key]]
+    p = [factor_params[key][w].detach().clone() for key, w in names]
+    mu = [torch.zeros_like(t) for t in p]
+    nu = [torch.zeros_like(t) for t in p]
+
+    def tree(leaves) -> dict:
+        out = {"q": {}, "k": {}}
+        for (key, w), t in zip(names, leaves):
+            out[key][w] = t
+        return out
+
+    losses = []
+    for step in range(1, steps + 1):
+        leaves = [t.requires_grad_(True) for t in p]
+        loss = loss_fn(tree(leaves))
+        grads = torch.autograd.grad(loss, leaves)
+        adam_step(p, mu, nu, grads, torch.tensor(
+            float(step), dtype=torch.float32, device=p[0].device), lr)
+        losses.append(float(loss.detach()))
+    return tree(p), losses
+
+
 def _serve_mode(cfg: ArchConfig, factors) -> str:
     if cfg.bias_mode == "dense":
         return "dense"
@@ -303,8 +439,7 @@ def serve_prefill(params: dict, batch: dict, cfg: ArchConfig, factors=None,
         attn_state = _pair_bias(lp, state).float() if mode == "pair" else state
         s = _attend_cached(lp, s, attn_state, cfg, lengths)
         s = _transition(lp, s)
-        z = z + gelu_mlp(rmsnorm(z, lp["pair_ln"]), lp["pair_wi"],
-                         lp["pair_wo"])
+        z = _pair_transition(lp, z)
         states.append(state)
 
     cache = {"s": s, "length": lengths}

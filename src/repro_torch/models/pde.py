@@ -1,7 +1,7 @@
 """Transformer PDE solver with a learnable-scaled spatial-distance bias —
 the paper's Sec. 4.4 / Table 5 model.
 
-Port of ``repro.models.pde`` (forward and loss value). The bias is
+Port of ``repro.models.pde`` (forward and a differentiable loss). The bias is
 ``f(x_i, x_j) = -alpha_i * ||x_i - x_j||^2`` with ``alpha = softplus(coords
 @ alpha_w + alpha_b)``, one per token and head, in float32. ``cfg.bias_mode``:
 
@@ -77,7 +77,10 @@ def forward(params: dict, coords: torch.Tensor,
     fields in the compute dtype."""
     dt = compute_dtype(cfg)
     x = coords.to(dt) @ params["in_proj"].to(dt)
-    layers = params["layers"]
+    # one unbind per stacked leaf: its backward stacks the layers'
+    # gradients once, where indexing per layer would fill and add a
+    # gradient of the whole stack in every layer
+    layers = {key: val.unbind(0) for key, val in params["layers"].items()}
     for i in range(cfg.n_layers):
         lp = {key: val[i] for key, val in layers.items()}
         x = x + _pde_attention(lp, rmsnorm(x, lp["ln1"]), coords, cfg)
@@ -89,7 +92,9 @@ def forward(params: dict, coords: torch.Tensor,
 
 def regression_loss(params: dict, batch: dict,
                     cfg: ArchConfig) -> torch.Tensor:
-    """Mean squared error of ``forward`` against ``batch["targets"]`` (the
-    value; no backward is ported)."""
+    """Mean squared error of ``forward`` against ``batch["targets"]``,
+    differentiable: in flashbias mode the gradient reaches ``alpha_w`` /
+    ``alpha_b`` through ``phi_q`` (Table 5's training through the factored
+    bias)."""
     pred = forward(params, batch["coords"], cfg).float()
     return ((pred - batch["targets"].float()) ** 2).mean()

@@ -1,7 +1,8 @@
 """SwinV2-style window attention with a learnable relative-position bias —
 the paper's vision experiment (Sec. 4.3).
 
-Port of ``repro.models.swin`` (forward and loss value). Each layer owns a
+Port of ``repro.models.swin`` (forward and a differentiable loss; training
+uses the dense tables, as the reference's does). Each layer owns a
 learnable ``(H, W, W)`` bias table; at inference FlashBias replaces it with
 rank-R SVD factors computed offline (``svd_factorize``), which ride with
 q/k through ``ops.flash_attention`` (kernel 1 on the card, phi mode, no
@@ -90,11 +91,16 @@ def forward(params: dict, patches: torch.Tensor, cfg: ArchConfig,
     dt = compute_dtype(cfg)
     x = patches.to(dt) @ params["patch_embed"].to(dt)
     x = x.reshape(b * nw, w, cfg.d_model)
-    layers = params["layers"]
+    # one unbind per stacked leaf: its backward stacks the layers'
+    # gradients once, where indexing per layer would fill and add a
+    # gradient of the whole stack in every layer
+    layers = {key: val.unbind(0) for key, val in params["layers"].items()}
+    per_layer = (None if factors is None
+                 else {key: val.unbind(0) for key, val in factors.items()})
     for i in range(cfg.n_layers):
         lp = {key: val[i] for key, val in layers.items()}
         fl = (None if factors is None
-              else {key: val[i] for key, val in factors.items()})
+              else {key: val[i] for key, val in per_layer.items()})
         x = x + _window_attention(lp, rmsnorm(x, lp["ln1"]), cfg, fl)
         x = x + gelu_mlp(rmsnorm(x, lp["ln2"]), lp["wi"].to(dt),
                          lp["wo_mlp"].to(dt))
@@ -106,7 +112,7 @@ def forward(params: dict, patches: torch.Tensor, cfg: ArchConfig,
 def classify_loss(params: dict, batch: dict, cfg: ArchConfig,
                   factors: Optional[dict] = None) -> torch.Tensor:
     """Mean cross-entropy of ``forward``'s logits against ``batch["labels"]``
-    (the value; no backward is ported)."""
+    (differentiable)."""
     logits = forward(params, batch["patches"], cfg, factors).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"].long()[:, None])[:, 0]
