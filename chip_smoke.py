@@ -355,15 +355,32 @@ as it runs, any failure ending the run:
               PatchBatches batch of SWIN_TRAIN_IMAGES x SWIN_TRAIN_WINDOWS
               windows (the loss must fall); step time, device busy, idle
               share, peak memory.
+26. sharded — the sharded serve path on a one-card mesh: a ``(1, 1)``
+              ``(data, model)`` DeviceMesh over an NCCL process group of one
+              rank. GPT-2-ALiBi-1.5B at full width and depth (bf16, weights
+              from ``--seed``), SHARDED_REQUESTS of the serve phase's
+              requests, served by the unsharded and the sharded engine,
+              contiguous and then paged; then mamba2-130m whole on the SSM
+              mix's first SHARDED_REQUESTS requests. Every stream of the
+              sharded engine bit-equal to the unsharded one's (one rank
+              reorders no sum); kernels 1, 3, 4 and 5 launched as often on
+              the sharded path as on the unsharded one (the counters prove
+              the local shards reach the kernels, with no plain fallback);
+              ``check_backend_mesh`` with no finding (state axes in the
+              vocabulary, no pool replicated; no collective expected, none
+              can run on one rank). Then the decode step of each engine on
+              the host clock in alternating rounds, with device busy and
+              idle share.
 
-Phases 13-14 and 17-25 each run in a process of their own (``run_child``):
+Phases 13-14 and 17-26 each run in a process of their own (``run_child``):
 late in a long process torch.profiler has lost device events (PERF.md
 section 7), and phase 13's library profile did so in PR 22's first full
-run. Kernel 1's ``launches`` in the record adds phases 13, 14 and 17-25
+run. Kernel 1's ``launches`` in the record adds phases 13, 14 and 17-26
 to the serve phase's (phases 23-24: their training steps; 25: the
-SVD-factor gradient run), kernels 3 and 4 add phases 18-21's, kernel 5's
-adds phases 17, 18 and 22's; their times stay at the LM prefill, LM decode
-and SSM shapes (the other shapes' are logged above the record).
+SVD-factor gradient run; 26: its sharded engines'), kernels 3 and 4 add
+phases 18-21's and 26's, kernel 5's adds phases 17, 18, 22 and 26's; their
+times stay at the LM prefill, LM decode and SSM shapes (the other shapes'
+are logged above the record).
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -374,6 +391,7 @@ import argparse
 import contextlib
 import functools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -4051,8 +4069,9 @@ def bf16_params(cfg, seed: int) -> dict:
             return materialize({"w": p}, gen, device="cuda", dtype=bf)["w"]
         out = torch.empty(p.shape, dtype=bf, device="cuda")
         for i in range(p.shape[0]):
-            out[i] = materialize({"w": PDef(p.shape[1:], p.init)}, gen,
-                                 device="cuda", dtype=bf)["w"]
+            layer = PDef(p.shape[1:], p.axes[1:], p.init)
+            out[i] = materialize({"w": layer}, gen, device="cuda",
+                                 dtype=bf)["w"]
         return out
 
     tmpl = get_model(cfg).template()
@@ -5162,6 +5181,154 @@ def phase_swin_train(seed: int, card: str) -> dict:
         k: trained[k] for k in ("losses", "step_ms", "busy_ms", "peak_gib")}}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: sharded serving on a one-card mesh
+# ---------------------------------------------------------------------------
+
+SHARDED_REQUESTS = 4             # of the serve phase's (and the SSM mix's)
+SHARDED_TIMING_TOKENS = 64       # budget of the timed engines' requests
+
+
+def one_card_mesh():
+    """A ``(1, 1)`` ``(data, model)`` DeviceMesh over an NCCL process group
+    of one rank (a file rendezvous under ``build/``; no port)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store = ROOT / "build" / f"mesh-store-{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+def sharded_pair(label: str, model, params, requests, mesh, prefill: str,
+                 decode, **kw) -> dict:
+    """``requests`` through an unsharded and a sharded engine of the same
+    settings, each drive counted: the sharded streams bit-equal to the
+    unsharded ones, the same launches (``prefill``, kernel 1 or 5, once per
+    layer and wave; ``decode``, kernel 3 or 4 or None, once per layer and
+    step), and ``check_backend_mesh`` clean. Returns the sharded drive's
+    launches."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    from repro_torch.statcheck import check_backend_mesh
+    runs = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        eng = ServeEngine(model, params, n_slots=SLOTS, device="cuda",
+                          mesh=m, **kw)
+        rids, launches, tok_s, wall = drive_counted(eng, requests)
+        runs[name] = (eng, [eng.result(r) for r in rids], launches)
+        log(label, f"{name}: {len(rids)} requests OK in {wall:.2f}s "
+                   f"({tok_s:.1f} tok/s); {eng.stats()['prefill_waves']} "
+                   f"waves, {eng.stats()['decode_steps']} decode steps; "
+                   f"launches {launches}")
+    (ref, want, want_l), (eng, got, got_l) = runs["unsharded"], \
+        runs["sharded"]
+    equal = [bool(np.array_equal(a, b)) for a, b in zip(got, want)]
+    stats = eng.stats()
+    if not all(equal):
+        raise AssertionError(f"{label}: sharded streams differ: {equal}")
+    layers = model.cfg.n_layers
+    per = {prefill: layers * stats["prefill_waves"]}
+    if decode is not None:
+        per[decode] = layers * stats["decode_steps"]
+    if got_l != want_l or any(not n or got_l.get(k) != n
+                              for k, n in per.items()):
+        raise AssertionError(f"{label}: launches {got_l} (unsharded "
+                             f"{want_l}, per layer x wave / step {per})")
+    findings = check_backend_mesh(eng.backend, expect_any=())
+    placed = {k: [repr(p) for p in d.placements]
+              for k, d in eng.backend.state_dtensors().items()}
+    log(label, f"sharded streams bit-equal to the unsharded engine's "
+               f"({sum(equal)}/{len(equal)}); launches equal; "
+               f"check_backend_mesh findings: {[str(f) for f in findings]};"
+               f" state placements {placed}")
+    if findings:
+        raise AssertionError(f"{label}: {findings}")
+    del runs, ref, eng
+    torch.cuda.empty_cache()
+    return got_l
+
+
+def sharded_step_times(label: str, model, params, requests, mesh,
+                       card: str, **kw) -> dict:
+    """The decode step (``engine.step()``: the step, the sampling and the
+    host bookkeeping) of an unsharded and a sharded engine, the same
+    requests admitted to both: host ms in alternating rounds, then device
+    busy from a complete profile and the idle share."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    engines = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        eng = ServeEngine(model, params, n_slots=SLOTS, device="cuda",
+                          mesh=m, **kw)
+        for p, _, sp in requests:
+            eng.submit(p, SHARDED_TIMING_TOKENS, sampling=sp)
+        eng.step()                   # the admission wave and a first step
+        engines[name] = eng
+    walls = alternate({name: eng.step for name, eng in engines.items()},
+                      rounds=4, per_round=3)
+    out = {}
+    for name, eng in engines.items():
+        kernels = profiled(eng.step, 3, uniform=False)
+        busy = sum(device_us(e) for e in kernels) / 3 / 1e3
+        out[name] = {"step_ms": walls[name], "busy_ms": busy,
+                     "idle_share": 1 - busy / walls[name]}
+        log(label, f"{name} decode step ({SLOTS} slots, "
+                   f"{model.cfg.n_layers} layers): {walls[name]:.3f} ms on "
+                   f"the host clock (median, rounds alternating), device "
+                   f"busy {busy:.3f} ms, idle share "
+                   f"{out[name]['idle_share']:.3f} [{card}]")
+    log(label, f"sharded / unsharded host step: "
+               f"{out['sharded']['step_ms'] / out['unsharded']['step_ms']:.4f}"
+               f" [{card}]")
+    del engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded(seed: int, card: str) -> dict:
+    """Phase 26 (module docstring)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    mesh = one_card_mesh()
+    log("sharded", f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+                   f"over {dist.get_backend()} (world "
+                   f"{dist.get_world_size()}) [{card}]")
+    cfg = get_config("gpt2_alibi_15b")
+    if cfg.n_layers != N_LAYERS:
+        raise AssertionError(f"config has {cfg.n_layers} layers")
+    model, params = get_model(cfg), bf16_params(cfg, seed)
+    requests = make_requests(seed, cfg.vocab)[:SHARDED_REQUESTS]
+    launches, times = {}, {}
+    for paged in (False, True):
+        label = "sharded-paged" if paged else "sharded"
+        kw = {"max_len": MAX_LEN, "prefill_len": PROMPT_MAX}
+        if paged:
+            kw.update(page_size=PAGE, pages_per_slot=MAX_LEN // PAGE)
+        merge_launches(launches, sharded_pair(
+            label, model, params, requests, mesh, "flashbias_attention_fwd",
+            "flash_decode_paged_fwd" if paged else "flash_decode_fwd", **kw))
+        times[label] = sharded_step_times(label, model, params, requests,
+                                          mesh, card, **kw)
+    del params
+    torch.cuda.empty_cache()
+    cfg = get_config("mamba2_130m")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    from repro_torch.models import init_params
+    model = get_model(cfg)
+    params = init_params(cfg, gen, device="cuda")
+    ssm = make_ssm_requests(seed, cfg.vocab)[:SHARDED_REQUESTS]
+    merge_launches(launches, sharded_pair(
+        "sharded-ssm", model, params, ssm, mesh, "ssd_scan_fwd", None,
+        max_len=SSM_MAX_LEN))
+    dist.destroy_process_group()
+    return {"launches": launches, "times": times}
+
+
 def bound(bytes_: int, flops: int) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -5199,7 +5366,7 @@ CHILD_PHASES = {"swin": lambda seed, card: {"launches": {
                 "moe": phase_moe, "dense-configs": phase_dense_configs,
                 "frontends": phase_frontends, "train": phase_train,
                 "pair-train": phase_pair_train, "pde-train": phase_pde_train,
-                "swin-train": phase_swin_train}
+                "swin-train": phase_swin_train, "sharded": phase_sharded}
 
 
 def main(argv=None) -> int:
@@ -5207,7 +5374,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", choices=tuple(CHILD_PHASES), default=None,
                     help="run one phase alone (the full run starts phases "
-                         "13-14 and 17-25 this way, each in a process of "
+                         "13-14 and 17-26 this way, each in a process of "
                          "its own)")
     args = ap.parse_args(argv)
 
@@ -5313,7 +5480,8 @@ def main(argv=None) -> int:
     for name in ("flashbias_attention_fwd", "ssd_scan_fwd"):
         launches[name] += hybrid[name]
     for phase in ("paged-hybrid", "moe", "dense-configs", "frontends",
-                  "train", "pair-train", "pde-train", "swin-train"):
+                  "train", "pair-train", "pde-train", "swin-train",
+                  "sharded"):
         merge_launches(launches, run_child(phase, args.seed)["launches"])
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"

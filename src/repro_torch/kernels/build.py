@@ -20,7 +20,9 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["KERNELS", "build", "load", "library_path"]
+import torch
+
+__all__ = ["KERNELS", "build", "load", "library_path", "refuse_dtensors"]
 
 KERNELS = ("flashbias_attn", "flash_decode", "ssd_scan")
 
@@ -30,6 +32,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def refuse_dtensors(name: str, *tensors) -> None:
+    """A kernel wrapper takes plain local tensors (a sharded caller passes
+    ``DTensor.to_local()`` shards): a DTensor raises here instead of
+    reaching the plain path or a kernel pointer. A plain tensor costs one
+    type check."""
+    for t in tensors:
+        if t is not None and type(t) is not torch.Tensor:
+            from torch.distributed.tensor import DTensor
+            if isinstance(t, DTensor):
+                raise TypeError(f"{name}: got a DTensor; pass its local "
+                                f"shard (DTensor.to_local())")
 
 
 def _nvcc() -> str:

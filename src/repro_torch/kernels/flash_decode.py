@@ -330,6 +330,8 @@ def flash_decode_fwd(
 ) -> torch.Tensor:
     """Kernel wrapper: launches ``flash_decode.cu`` on CUDA tensors, runs the
     plain version on CPU tensors."""
+    build.refuse_dtensors("flash_decode_fwd", q, k_cache, v_cache, lengths,
+                          phi_q, phi_k, slopes, k_new, v_new)
     if q.device.type == "cpu":
         return flash_decode_torch(q, k_cache, v_cache, lengths, phi_q, phi_k,
                                   slopes, scale=scale, k_new=k_new,
@@ -379,6 +381,9 @@ def flash_decode_paged_fwd(
     """Kernel wrapper: launches the paged entry of ``flash_decode.cu`` on
     CUDA tensors, runs the plain version on CPU tensors. The kernel reads
     only rows below ``lengths[b]``, so it needs no page cap."""
+    build.refuse_dtensors("flash_decode_paged_fwd", q, k_pages, v_pages,
+                          lengths, page_table, phi_q, phi_pages, slopes,
+                          k_new, v_new)
     if q.device.type == "cpu":
         return flash_decode_paged_torch(q, k_pages, v_pages, lengths,
                                         page_table, phi_q, phi_pages, slopes,

@@ -225,6 +225,8 @@ def flashbias_attention_fwd(
 ) -> torch.Tensor:
     """Kernel 1's wrapper: launches ``flashbias_attn.cu`` on CUDA tensors,
     runs the plain version on CPU tensors. Forward only."""
+    build.refuse_dtensors("flashbias_attention_fwd", q, k, v, phi_q, phi_k,
+                          slopes)
     if q.device.type == "cpu":
         return flashbias_attention_torch(
             q, k, v, phi_q, phi_k, slopes, scale=scale, mask_kind=mask_kind,
@@ -264,6 +266,8 @@ def flashbias_attention_ragged_fwd(
     kernel clamps it into ``[0, M]`` itself. Launches the ragged entry of
     ``flashbias_attn.cu`` on CUDA tensors, runs the plain version on CPU
     tensors. Forward only."""
+    build.refuse_dtensors("flashbias_attention_ragged_fwd", q, k, v, phi_q,
+                          phi_k, slopes, lengths)
     if q.device.type == "cpu":
         return flashbias_attention_torch(
             q, k, v, phi_q, phi_k, slopes, scale=scale, mask_kind=mask_kind,

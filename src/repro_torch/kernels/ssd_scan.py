@@ -110,6 +110,7 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     plain version on CPU tensors. x and y may be strided views whose last
     (P) axis has unit stride; b and c may be strided or broadcast over the
     head axis with a unit-stride last (N) axis."""
+    build.refuse_dtensors("ssd_scan_fwd", x, dt, a, b, c, h0)
     if x.device.type == "cpu":
         return ssd_scan_torch(x, dt, a, b, c, chunk=chunk, h0=h0)
     if x.device.type != "cuda":

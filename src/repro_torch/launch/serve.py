@@ -17,10 +17,20 @@ reference's does. ``--inject-fault PLAN`` drives the engine under a fault plan
 (``kind@step[/slot][xcount]``, comma-separated; kinds alloc, nan, step,
 delay) and prints every fault that fired; ``--deadline-steps`` and
 ``--max-retries`` set every request's deadline and quarantine retries.
+
+``--mesh DxM`` serves on a ``(data, model)`` ``DeviceMesh`` of D*M ranks,
+one process each, started by ``torchrun`` (or anything that sets ``RANK``,
+``WORLD_SIZE`` and ``LOCAL_RANK``): ``gloo`` with ``--device cpu``,
+``nccl`` on the cards, rank r on card ``LOCAL_RANK``. Every rank serves the
+same traffic and only rank 0 prints::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch stablelm_12b --smoke --device cpu --mesh 2x2
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import List, Optional, Tuple
 
@@ -118,6 +128,15 @@ def main(argv=None):
                     help="fault plan, e.g. 'nan@6/0x2,alloc@3x4' — "
                          "kind@step[/slot][xcount], comma-separated; kinds: "
                          "alloc, nan, step, delay")
+    ap.add_argument("--mesh", default="",
+                    help="DxM (e.g. 2x2): serve on a (data, model) device "
+                         "mesh — TP-split heads / pools, DP-split slot "
+                         "rows; needs a world of D*M ranks (torchrun "
+                         "--nproc-per-node D*M)")
+    ap.add_argument("--init-method", default="env://",
+                    help="process-group rendezvous of --mesh (env:// reads "
+                         "torchrun's MASTER_ADDR / MASTER_PORT; file://PATH "
+                         "needs no port)")
     args = ap.parse_args(argv)
     if args.pool_pages and not args.page_size:
         ap.error("--pool-pages requires --page-size (paged KV)")
@@ -127,6 +146,9 @@ def main(argv=None):
         args.prefill_chunk = args.page_size
 
     device = resolve_device(args.device)
+    mesh, rank = None, 0
+    if args.mesh:
+        mesh, rank, device = _mesh(ap, args.mesh, args.init_method, device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -148,6 +170,8 @@ def main(argv=None):
         kw["prefix_cache"] = True
     if args.inject_fault:
         kw["faults"] = FaultPlan.parse(args.inject_fault)
+    if mesh is not None:
+        kw["mesh"] = mesh
     engine = ServeEngine(model, params, max_len=max_len, n_slots=args.slots,
                          prefill_len=args.shared_prefix + args.prompt_len,
                          device=device, **kw)
@@ -167,9 +191,17 @@ def main(argv=None):
                  deadline_steps=args.deadline_steps or None,
                  max_retries=args.max_retries)
     dt = time.monotonic() - t0
+    results = [engine.result(r) for r in rids]
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        if rank:                      # every rank served; rank 0 reports
+            return results
 
-    n_tok = sum(engine.result(r).size for r in rids)
-    print(f"[serve] {cfg.name} on {device}: {args.requests} ragged requests "
+    n_tok = sum(r.size for r in results)
+    where = device if mesh is None else (
+        f"{device.type} mesh {args.mesh} (data x model)")
+    print(f"[serve] {cfg.name} on {where}: {args.requests} ragged requests "
           f"(prompts {lens.min()}-{lens.max()}) over {args.slots} slots: "
           f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s)")
     counts = engine.status_counts()
@@ -192,8 +224,36 @@ def main(argv=None):
                   f"tokens), {pf['entries']} entries, "
                   f"{pf['cow_copies']} CoW copies, "
                   f"{pf['evictions']} evictions")
-    print("first request:", engine.result(rids[0])[:16])
-    return [engine.result(r) for r in rids]
+    print("first request:", results[0][:16])
+    return results
+
+
+def _mesh(ap, spec: str, init_method: str, device: torch.device):
+    """The ``(data, model)`` mesh of ``--mesh DxM`` over a process group of
+    ``WORLD_SIZE`` ranks (an error unless it is D*M, as the reference's
+    launcher errs without D*M devices); returns (mesh, rank, this rank's
+    device)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    try:
+        d, m = (int(v) for v in spec.lower().split("x"))
+    except ValueError:
+        ap.error(f"--mesh {spec!r}: expected DxM, e.g. 2x2")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != d * m:
+        ap.error(f"--mesh {spec} needs a world of {d * m} ranks (torchrun "
+                 f"--nproc-per-node {d * m}), found {world}")
+    rank = int(os.environ.get("RANK", "0"))
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                         rank)))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=init_method, rank=rank,
+                            world_size=world)
+    mesh = init_device_mesh(device.type, (d, m),
+                            mesh_dim_names=("data", "model"))
+    return mesh, rank, device
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ config's dtype, AdamW with a cosine or WSD schedule, ``--grad-accum``
 microbatches (default: the config's), checkpoints under ``--ckpt-dir``
 every ``--ckpt-every`` steps (a rerun with the same directory resumes),
 one JSON line per step in ``--log``. Runs on the CUDA device unless
-``--device cpu`` is given. There is no ``--mesh``: distribution is a later
-slice.
+``--device cpu`` is given. There is no ``--mesh`` yet: sharded serving is
+ported (``launch.serve --mesh``), sharded training is ROADMAP.md Queue A
+item 10b.
 """
 from __future__ import annotations
 

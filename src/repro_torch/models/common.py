@@ -1,10 +1,13 @@
 """Parameter templates and the layers shared by the models.
 
 A model is described by a *template*: nested dicts whose leaves are ``PDef``
-(shape + init law), the same shapes and laws as ``repro.models.common``.
-``init_params`` materializes one with an explicit ``torch.Generator``; it
-does not reproduce JAX's random bits (tests carry the reference's
-parameters across with ``repro_torch.interop.params_from_numpy``).
+(shape + logical sharding axes + init law), the same shapes, axes and laws
+as ``repro.models.common``. ``init_params`` materializes one with an
+explicit ``torch.Generator``; it does not reproduce JAX's random bits
+(tests carry the reference's parameters across with
+``repro_torch.interop.params_from_numpy``). ``param_specs`` resolves the
+axes against a mesh and ``shard_params`` places a parameter tree on it as
+DTensors (the reference's ``param_specs`` / ``param_shardings``).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.core.bias import alibi_slopes
 
 __all__ = ["PDef", "stack_layers", "materialize", "init_params",
+           "template_map", "param_specs", "shard_params",
            "tree_map", "tree_leaves", "compute_dtype", "cast_floats",
            "param_bytes", "count_params", "rmsnorm", "swiglu", "gelu_mlp",
            "embed_lookup", "unembed_logits", "cross_entropy_loss",
@@ -27,13 +31,20 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class PDef:
-    """One parameter: shape + init law.
+    """One parameter: shape + logical axes (one per dim, ``None`` for a
+    replicated dim; ``repro_torch.dist.sharding``) + init law.
 
     init: ("normal", stddev) | ("zeros",) | ("ones",) | ("slopes", n_real)
     — "slopes" holds ALiBi slopes for the first ``n_real`` heads and zeros
     for the TP padding heads."""
     shape: tuple
+    axes: tuple
     init: tuple = ("normal", 0.02)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"PDef: {len(self.axes)} axes {self.axes} for "
+                             f"shape {self.shape}")
 
 
 def tree_map(fn, tree):
@@ -52,8 +63,35 @@ def tree_leaves(tree) -> list:
 
 
 def stack_layers(layer_tmpl: dict, n_layers: int) -> dict:
-    """Add a leading layers dim to every leaf."""
-    return tree_map(lambda p: PDef((n_layers,) + p.shape, p.init), layer_tmpl)
+    """Add a leading layers dim (logical axis ``"layers"``, never sharded by
+    the default rules) to every leaf."""
+    return tree_map(lambda p: PDef((n_layers,) + p.shape,
+                                   ("layers",) + p.axes, p.init), layer_tmpl)
+
+
+def template_map(fn, tmpl: dict, tree: dict, path: tuple = ()) -> dict:
+    """``fn(pdef, leaf, path)`` over a template and a tree of its shape
+    (``path`` the leaf's keys from the root)."""
+    if isinstance(tmpl, dict):
+        return {k: template_map(fn, tmpl[k], tree[k], path + (k,))
+                for k in tmpl}
+    return fn(tmpl, tree, path)
+
+
+def param_specs(tmpl: dict, mesh, rules) -> dict:
+    """Each leaf's ``spec_for`` its logical axes on ``mesh``."""
+    from repro_torch.dist.sharding import spec_for
+    return tree_map(lambda p: spec_for(p.axes, mesh, rules), tmpl)
+
+
+def shard_params(params: dict, tmpl: dict, mesh, rules) -> dict:
+    """The tree as DTensors on ``mesh``, each leaf placed by its template
+    axes (``shard_put``: a dim that does not divide its mesh axes is
+    replicated). Every rank holds the same full tree (one seed) and keeps
+    its own shards, with no collective."""
+    from repro_torch.dist.sharding import shard_put
+    return template_map(lambda p, x, _: shard_put(x, mesh, rules, p.axes),
+                        tmpl, params)
 
 
 def _materialize(pdef: PDef, generator: torch.Generator, device,

@@ -31,6 +31,14 @@ Entry points:
   ``pages_phi``. ``decode_step`` and ``prefill_chunk`` take either cache;
   ``copy_paged_pages`` is prefix caching's copy-on-write.
 
+Under an ambient mesh (``repro_torch.dist.use_mesh_rules``, set by the
+sharded serve backend) the serve entry points run one rank's local shards:
+its heads, kv heads, FFN columns, experts and vocab rows, with the sums and
+gathers over ranks of ``repro_torch.dist.collectives`` (after ``wo``, the
+FFN, the MoE combine, the embedding lookup; the logits over ``vocab``),
+and the ALiBi slopes of its own heads. Outside a mesh those helpers are
+the identity.
+
 The SSM family (``mamba2_130m``) caches a constant-size state per slot:
 ``ssm_h (L, B, Hs, P, N)`` in float32 and the causal-conv tails ``conv_x``
 and ``conv_bc`` in the compute dtype. Its prefill runs the SSD chunk scan
@@ -91,8 +99,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.attention import MaskSpec, attention
 from repro_torch.core.bias import alibi_dense
+from repro_torch.dist.collectives import (axis_rank, axis_size, gather_over,
+                                          local_part, local_range,
+                                          reduce_over)
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_decode import paged_write_plan
+from repro_torch.kernels.flash_decode import paged_write_plan, write_paged_row
 from repro_torch.models import ssd
 from repro_torch.models.common import (
     PDef,
@@ -145,19 +156,20 @@ def _attn_template(cfg: ArchConfig) -> dict:
     hd = cfg.resolved_head_dim
     sd, sd_out = 0.02, 0.02 / np.sqrt(2 * cfg.n_layers)
     return {
-        "wq": PDef((d, hp, hd), ("normal", sd)),
-        "wk": PDef((d, kvp, hd), ("normal", sd)),
-        "wv": PDef((d, kvp, hd), ("normal", sd)),
-        "wo": PDef((hp, hd, d), ("normal", sd_out)),
-        "slopes": PDef((hp,), ("slopes", cfg.n_heads)),
+        "wq": PDef((d, hp, hd), ("fsdp", "heads", None), ("normal", sd)),
+        "wk": PDef((d, kvp, hd), ("fsdp", "kv_heads", None), ("normal", sd)),
+        "wv": PDef((d, kvp, hd), ("fsdp", "kv_heads", None), ("normal", sd)),
+        "wo": PDef((hp, hd, d), ("heads", None, "fsdp"), ("normal", sd_out)),
+        "slopes": PDef((hp,), (None,), ("slopes", cfg.n_heads)),
     }
 
 
 def _mlp_template(cfg: ArchConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "wi": PDef((d, f, 2), ("normal", 0.02)),
-        "wo": PDef((f, d), ("normal", 0.02 / np.sqrt(2 * cfg.n_layers))),
+        "wi": PDef((d, f, 2), ("fsdp", "mlp", None), ("normal", 0.02)),
+        "wo": PDef((f, d), ("mlp", "fsdp"),
+                   ("normal", 0.02 / np.sqrt(2 * cfg.n_layers))),
     }
 
 
@@ -166,54 +178,58 @@ def _ssm_template(cfg: ArchConfig) -> dict:
     hs, p, n = cfg.ssm_heads_padded, cfg.ssm_head_dim, cfg.ssm_state
     w, sd = cfg.conv_width, 0.02
     return {
-        "in_x": PDef((d, hs, p), ("normal", sd)),
-        "in_z": PDef((d, hs, p), ("normal", sd)),
-        "in_b": PDef((d, n), ("normal", sd)),
-        "in_c": PDef((d, n), ("normal", sd)),
-        "in_dt": PDef((d, hs), ("normal", sd)),
-        "conv_w": PDef((w, hs, p), ("normal", 0.2)),
-        "conv_bc_w": PDef((w, 2 * n), ("normal", 0.2)),
-        "a_log": PDef((hs,), ("zeros",)),
-        "dt_bias": PDef((hs,), ("zeros",)),
-        "d_skip": PDef((hs,), ("ones",)),
-        "gate_norm": PDef((hs, p), ("zeros",)),
-        "out": PDef((hs, p, d), ("normal", sd / np.sqrt(2 * cfg.n_layers))),
+        "in_x": PDef((d, hs, p), ("fsdp", "heads", None), ("normal", sd)),
+        "in_z": PDef((d, hs, p), ("fsdp", "heads", None), ("normal", sd)),
+        "in_b": PDef((d, n), ("fsdp", None), ("normal", sd)),
+        "in_c": PDef((d, n), ("fsdp", None), ("normal", sd)),
+        "in_dt": PDef((d, hs), ("fsdp", "heads"), ("normal", sd)),
+        "conv_w": PDef((w, hs, p), (None, "heads", None), ("normal", 0.2)),
+        "conv_bc_w": PDef((w, 2 * n), (None, None), ("normal", 0.2)),
+        "a_log": PDef((hs,), ("heads",), ("zeros",)),
+        "dt_bias": PDef((hs,), ("heads",), ("zeros",)),
+        "d_skip": PDef((hs,), ("heads",), ("ones",)),
+        "gate_norm": PDef((hs, p), ("heads", None), ("zeros",)),
+        "out": PDef((hs, p, d), ("heads", None, "fsdp"),
+                    ("normal", sd / np.sqrt(2 * cfg.n_layers))),
     }
 
 
 def _moe_template(cfg: ArchConfig) -> dict:
     d, f, ep = cfg.d_model, cfg.d_ff, cfg.experts_padded
     return {
-        "router": PDef((d, ep), ("normal", 0.02)),
-        "wi": PDef((ep, d, f, 2), ("normal", 0.02)),
-        "wo": PDef((ep, f, d), ("normal", 0.02 / np.sqrt(2 * cfg.n_layers))),
+        "router": PDef((d, ep), ("fsdp", None), ("normal", 0.02)),
+        "wi": PDef((ep, d, f, 2), ("expert", "fsdp", None, None),
+                   ("normal", 0.02)),
+        "wo": PDef((ep, f, d), ("expert", None, "fsdp"),
+                   ("normal", 0.02 / np.sqrt(2 * cfg.n_layers))),
     }
 
 
 def _layer_template(cfg: ArchConfig) -> dict:
-    layer = {"ln1": PDef((cfg.d_model,), ("zeros",))}
+    layer = {"ln1": PDef((cfg.d_model,), (None,), ("zeros",))}
     if cfg.family in _ATTN:
         layer["attn"] = _attn_template(cfg)
     if cfg.family in _SSM:
         layer["ssm"] = _ssm_template(cfg)
     if cfg.family == "hybrid":
-        layer["branch_norm_attn"] = PDef((cfg.d_model,), ("zeros",))
-        layer["branch_norm_ssm"] = PDef((cfg.d_model,), ("zeros",))
+        layer["branch_norm_attn"] = PDef((cfg.d_model,), (None,), ("zeros",))
+        layer["branch_norm_ssm"] = PDef((cfg.d_model,), (None,), ("zeros",))
     if cfg.family == "moe":
         layer["moe"] = _moe_template(cfg)
     elif cfg.family in _ATTN:
         layer["mlp"] = _mlp_template(cfg)
     if cfg.family in _ATTN:
-        layer["ln2"] = PDef((cfg.d_model,), ("zeros",))
+        layer["ln2"] = PDef((cfg.d_model,), (None,), ("zeros",))
     return layer
 
 
 def lm_template(cfg: ArchConfig) -> dict:
     _check_supported(cfg)
     return {
-        "embed": PDef((cfg.vocab_padded, cfg.d_model), ("normal", 0.02)),
+        "embed": PDef((cfg.vocab_padded, cfg.d_model), ("vocab", "fsdp"),
+                      ("normal", 0.02)),
         "layers": stack_layers(_layer_template(cfg), cfg.n_layers),
-        "final_norm": PDef((cfg.d_model,), ("zeros",)),
+        "final_norm": PDef((cfg.d_model,), (None,), ("zeros",)),
     }
 
 
@@ -247,8 +263,19 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _heads_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The attention's output projection, summed over the ranks that hold
+    the other heads (the reference's ``constrain(y, "batch", "seq",
+    None)`` after ``wo``)."""
+    return reduce_over(_out_proj(o, wo), "heads")
+
+
 def _slopes(lp: dict, cfg: ArchConfig) -> Optional[torch.Tensor]:
-    return lp["slopes"].float() if cfg.bias_kind == "alibi" else None
+    """The float32 ALiBi slopes of this rank's heads (all heads outside a
+    mesh): the ``slopes`` leaf is replicated while the heads are split."""
+    if cfg.bias_kind != "alibi":
+        return None
+    return local_part(lp["slopes"].float(), -1, "heads")
 
 
 def _attention(lp: dict, x: torch.Tensor, cfg: ArchConfig):
@@ -268,9 +295,9 @@ def _attention(lp: dict, x: torch.Tensor, cfg: ArchConfig):
         bias = F.pad(bias, (0, 0, 0, 0, 0, cfg.heads_padded - cfg.n_heads))
         q, k, v = (_project(x, lp[w]) for w in ("wq", "wk", "wv"))
         o = attention(q, k, v, mask=MaskSpec(_mask_kind(cfg), cfg.window),
-                      bias=bias[None], impl="chunked",
-                      chunk_size=cfg.attn_chunk)
-        return (_out_proj(o, lp["wo"]), k.transpose(1, 2).contiguous(),
+                      bias=local_part(bias, 0, "heads")[None],
+                      impl="chunked", chunk_size=cfg.attn_chunk)
+        return (_heads_out(o, lp["wo"]), k.transpose(1, 2).contiguous(),
                 v.transpose(1, 2).contiguous())
     q = _project(x, lp["wq"]).transpose(1, 2).contiguous()
     k = _project(x, lp["wk"]).transpose(1, 2).contiguous()
@@ -278,7 +305,7 @@ def _attention(lp: dict, x: torch.Tensor, cfg: ArchConfig):
     o = ops.flash_attention(q, k, v, slopes=_slopes(lp, cfg),
                             mask_kind=_mask_kind(cfg), window=cfg.window,
                             impl=cfg.attn_impl, layout="bhsd")
-    return _out_proj(o.transpose(1, 2), lp["wo"]), k, v
+    return _heads_out(o.transpose(1, 2), lp["wo"]), k, v
 
 
 def _mask_kind(cfg: ArchConfig) -> str:
@@ -305,18 +332,30 @@ def _attention_decode(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
 
     A ring cache (``window`` rows) takes the new row at slot ``(len-1) %
     window`` and is attended in plain torch (``_ring_window_attention``),
-    as the reference does outside any kernel."""
+    as the reference does outside any kernel.
+
+    Under a mesh that splits the slots over ``batch``, the pool is
+    replicated over those ranks, so every replica takes every slot's row:
+    ``paged["all_rows"]`` holds all slots' lengths and table rows, the new
+    rows are gathered over ``batch`` and written first, and the kernel then
+    attends for this rank's slots only."""
     q = _project(x, lp["wq"])                                # (B, 1, H, E)
     new = {"k_new": _project(x, lp["wk"])[:, 0],             # (B, KVH, E)
            "v_new": _project(x, lp["wv"])[:, 0]}
+    if paged is not None and paged.get("all_rows") is not None:
+        lens_all, table_all = paged["all_rows"]
+        write_paged_row(k_cache, v_cache, lens_all, table_all,
+                        *(gather_over(new[k], 0, "batch")
+                          for k in ("k_new", "v_new")))
+        new = {}
     if paged is None and _is_ring(cfg, k_cache):
         _ring_write(k_cache, v_cache, new["k_new"], new["v_new"], lengths)
         o = _ring_window_attention(q, k_cache, v_cache, lengths, slopes)
-        return _out_proj(o, lp["wo"])
+        return _heads_out(o, lp["wo"])
     if paged is None:
         o = ops.flash_decode(q, k_cache, v_cache, lengths, slopes=slopes,
                              impl=cfg.attn_impl, kv_layout="bhsd", **new)
-        return _out_proj(o, lp["wo"])
+        return _heads_out(o, lp["wo"])
     phi_k = None
     if phi_q is not None:
         phi_k, slopes = paged["phi"], None
@@ -325,7 +364,7 @@ def _attention_decode(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
                          page_table=paged["table"],
                          max_pages=paged["max_pages"], kv_layout="bhsd",
                          **new)
-    return _out_proj(o, lp["wo"])
+    return _heads_out(o, lp["wo"])
 
 
 def _ring_positions(last: torch.Tensor, w: int) -> torch.Tensor:
@@ -447,7 +486,7 @@ def _attention_chunk(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
         if rows is not None:
             k_cache[rows, :, pos] = k_new[rows, cols]
             v_cache[rows, :, pos] = v_new[rows, cols]
-        return _out_proj(o, lp["wo"])
+        return _heads_out(o, lp["wo"])
     if paged is None:
         rows, cols, pos = chunk["rows"], chunk["cols"], chunk["pos"]
         if rows is not None:
@@ -456,10 +495,13 @@ def _attention_chunk(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
         o = ops.flash_chunk_attention(
             q, k_cache, v_cache, chunk["offsets"], chunk["chunk_lens"],
             slopes, impl=cfg.attn_impl, kv_layout="bhsd")
-        return _out_proj(o, lp["wo"])
+        return _heads_out(o, lp["wo"])
     if chunk["page"] is not None:
         page, off, keep = chunk["page"], chunk["off"], chunk["keep"]
         rows, cols = chunk["src_rows"], chunk["src_cols"]
+        if chunk.get("all_rows"):        # every slot's rows, every replica
+            k_new, v_new = (gather_over(t, 0, "batch")
+                            for t in (k_new, v_new))
         for pool, new in ((k_cache, k_new), (v_cache, v_new)):
             val = new[rows, cols].transpose(0, 1)            # (KVH, n, E)
             pool[:, page, off] = torch.where(keep, val, pool[:, page, off])
@@ -467,7 +509,7 @@ def _attention_chunk(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
         q, k_cache, v_cache, chunk["offsets"], chunk["chunk_lens"], slopes,
         impl=cfg.attn_impl, page_table=paged["table"],
         max_pages=paged["max_pages"], kv_layout="bhsd")
-    return _out_proj(o, lp["wo"])
+    return _heads_out(o, lp["wo"])
 
 
 def _ffn(lp: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -478,7 +520,7 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ArchConfig,
     h = rmsnorm(x, lp["ln2"])
     if cfg.family == "moe":
         return _moe_ffn(lp["moe"], h, cfg, valid)[0]
-    return swiglu(h, lp["mlp"]["wi"], lp["mlp"]["wo"])
+    return reduce_over(swiglu(h, lp["mlp"]["wi"], lp["mlp"]["wo"]), "mlp")
 
 
 # ---------------------------------------------------------------------------
@@ -522,7 +564,11 @@ def _moe_ffn(mp: dict, x: torch.Tensor, cfg: ArchConfig,
     each entry its slot, kept entries are scattered into a ``(B, E, C, D)``
     buffer (dropped ones into a spare row), the expert products run as
     batched GEMMs, and each position gathers its k outputs back and sums
-    them with its gates in float32."""
+    them with its gates in float32.
+
+    Under a mesh that splits the experts (``"expert"``), every rank routes
+    the whole batch, runs its own experts' GEMMs, and the ranks sum the
+    gated outputs in float32 (the reference's combine over ``expert``)."""
     b, s, d = x.shape
     ep, k = cfg.experts_padded, cfg.top_k
     cap = _moe_capacity(cfg, s)
@@ -544,14 +590,20 @@ def _moe_ffn(mp: dict, x: torch.Tensor, cfg: ArchConfig,
     xin = x.new_zeros((spare + 1, d))
     # kept entries land on distinct rows; every dropped one on the spare
     xin[row] = x[:, None].expand(b, k, s, d).reshape(-1, d)
-    xe = xin[:spare].view(b, ep, cap, d).transpose(0, 1).reshape(
-        ep, b * cap, d)
     wi = mp["wi"]                                                # (E,D,F,2)
-    h2 = torch.bmm(xe, wi.reshape(ep, d, -1)).unflatten(-1, wi.shape[2:])
+    el = wi.shape[0]                     # this rank's experts (all: ep)
+    e0 = axis_rank("expert") * el
+    xe = xin[:spare].view(b, ep, cap, d)[:, e0:e0 + el].transpose(
+        0, 1).reshape(el, b * cap, d)
+    h2 = torch.bmm(xe, wi.reshape(el, d, -1)).unflatten(-1, wi.shape[2:])
     eo = torch.bmm(F.silu(h2[..., 0]) * h2[..., 1], mp["wo"])   # (E,B*C,D)
+    if el < ep:                          # the other ranks' experts add 0
+        eo = F.pad(eo.view(el, b, cap, d),
+                   (0, 0, 0, 0, 0, 0, e0, ep - e0 - el))
     eo = eo.view(ep, b, cap, d).transpose(0, 1).reshape(spare, d)
     eo = torch.cat([eo, eo.new_zeros((1, d))])
-    y = (eo[row].float() * gate).view(b, k, s, d).sum(1)
+    y = reduce_over((eo[row].float() * gate).view(b, k, s, d).sum(1),
+                    "expert")
     counts = torch.zeros((b, ep), device=dev).scatter_add_(
         1, sel, keep.float())
     frac = counts / max(s * k, 1)
@@ -673,6 +725,19 @@ def _ssm_decode(sp: dict, x: torch.Tensor, h: torch.Tensor,
 # Entry points
 # ---------------------------------------------------------------------------
 
+def _embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of ``tokens``. With the table split over ``vocab`` (a
+    mesh), each rank looks up the ids its rows hold, zeroes the others, and
+    the ranks sum: one nonzero term per entry, so the rows are exact."""
+    if axis_size("vocab") == 1:
+        return embed_lookup(table, tokens)
+    local = tokens - axis_rank("vocab") * table.shape[0]
+    hit = ((local >= 0) & (local < table.shape[0]))[..., None]
+    rows = embed_lookup(table, local.clamp(0, table.shape[0] - 1))
+    return reduce_over(torch.where(hit, rows, torch.zeros_like(rows)),
+                       "vocab")
+
+
 def _embed_in(params: dict, tokens: torch.Tensor,
               frontend: Optional[torch.Tensor],
               cfg: ArchConfig) -> torch.Tensor:
@@ -680,7 +745,7 @@ def _embed_in(params: dict, tokens: torch.Tensor,
     the frontend rows ``(B, F, D)`` (precomputed audio / vision embeddings)
     prepended in the compute dtype, unscaled, as the reference does."""
     dt = compute_dtype(cfg)
-    x = embed_lookup(params["embed"], tokens).to(dt)
+    x = _embed_rows(params["embed"], tokens).to(dt)
     x = x * float(np.sqrt(cfg.d_model))
     if frontend is not None:
         x = torch.cat([frontend.to(dt), x], dim=1)
@@ -792,8 +857,11 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Tied unembedding; a ``vocab``-split table's logits are gathered over
+    the ranks (the reference constrains them to ``vocab``)."""
     hid = rmsnorm(x, params["final_norm"])
-    return unembed_logits(hid, params["embed"].to(hid.dtype))
+    return gather_over(unembed_logits(hid, params["embed"].to(hid.dtype)),
+                       -1, "vocab")
 
 
 def _mix(lp: dict, x: torch.Tensor, y: Optional[torch.Tensor],
@@ -855,7 +923,8 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *,
         sc = cfg.window if ring else max_len
         if sc < s and not ring:
             raise ValueError(f"max_len {max_len} < prompt width {s}")
-        shape = (cfg.n_layers, b, cfg.kv_heads_padded, sc,
+        shape = (cfg.n_layers, b,            # this rank's kv heads
+                 cfg.kv_heads_padded // axis_size("kv_heads"), sc,
                  cfg.resolved_head_dim)
         alloc = torch.zeros if sc > s else torch.empty
         cache["k"] = alloc(shape, dtype=dt, device=dev)
@@ -922,7 +991,12 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     engine passes a power-of-two rounding of its host-side longest length)
     and bounds the plain path's gather. The new position's factor row
     ``[1, pos]`` is written to the slab once, outside the layer loop. A
-    ring cache takes the new row at ``(len-1) % window``."""
+    ring cache takes the new row at ``(len-1) % window``.
+
+    Under a mesh (``repro_torch.dist``) the call runs this rank's shards:
+    its slots' rows where ``batch`` is split (the paged pool, the page
+    table and the factor slab stay whole, and take every slot's writes) and
+    its heads, FFN columns, experts and vocab rows where ``model`` is."""
     _check_supported(cfg)
     active = cache["length"] > 0
     lengths = cache["length"] + active.to(torch.int32)
@@ -932,20 +1006,30 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     # one copy per step, not one per layer
     slopes = phi_q = paged = None
     if cfg.family in _ATTN and cfg.bias_kind == "alibi":
-        slopes = params["layers"]["attn"]["slopes"].to(dt).float()  # (L, H)
+        slopes = local_part(params["layers"]["attn"]["slopes"].to(dt).float(),
+                            1, "heads")                              # (L, H)
     if "pages_k" in cache:
         n_pages, ps = cache["pages_k"].shape[2], cache["pages_k"].shape[3]
         table = cache["page_table"]
         phi = cache.get("pages_phi")
         paged = {"table": table, "phi": phi, "max_pages": max_pages}
+        lens_all, act_all = lengths, active
+        if axis_size("batch") > 1:       # this rank's slots of a whole pool
+            lens_all = gather_over(lengths, 0, "batch")
+            act_all = lens_all > 0
+            paged["table"] = table[local_range(table.shape[0], "batch")]
+            paged["all_rows"] = (lens_all, table)
         if phi is not None:
             page, off, src, keep = paged_write_plan(
-                table, torch.arange(lengths.shape[0], device=lengths.device),
-                torch.where(active, lengths - 1, 0), active, n_pages, ps)
-            pos = (lengths - 1).float()
+                table, torch.arange(lens_all.shape[0], device=table.device),
+                torch.where(act_all, lens_all - 1, 0), act_all, n_pages, ps)
+            pos = (lens_all - 1).float()
             one = torch.ones_like(pos)
             row = torch.stack([one, pos], -1)[src]
             phi[page, off] = torch.where(keep[:, None], row, phi[page, off])
+            if lens_all is not lengths:  # phi_q of this rank's slots
+                pos = (lengths - 1).float()
+                one = torch.ones_like(pos)
             if slopes is not None:                 # (L, B, 1, H, 2)
                 phi_q = (torch.stack([-pos, one], -1)[None, :, None, None]
                          * slopes[:, None, None, :, None])
@@ -983,7 +1067,7 @@ def _chunk_plan(cache: dict, offsets: np.ndarray, chunk_lens: np.ndarray,
     pos = offsets[rows] + cols
     plan = {"offsets": torch.as_tensor(offsets, device=dev),
             "chunk_lens": torch.as_tensor(chunk_lens, device=dev),
-            "rows": None, "page": None}
+            "rows": None, "cols": None, "pos": None, "page": None}
     if not rows.size or not ("k" in cache or "pages_k" in cache):
         return plan                     # nothing writes, or SSM state only
     rows_t, cols_t = (torch.as_tensor(a, device=dev) for a in (rows, cols))
@@ -1083,25 +1167,46 @@ def prefill_chunk(params: dict, cache: dict, tokens: torch.Tensor,
     are written to ``pages_phi`` once, outside the layer loop, and
     ``max_pages`` caps the attention's page view (default: the pages of
     the longest ``offsets + chunk_lens``). The ALiBi slopes are cast once
-    per call, not per layer."""
+    per call, not per layer.
+
+    Under a mesh that splits the slots over ``batch``, the arguments are
+    the whole slot batch's (host-planned, the same on every rank) and the
+    call computes this rank's rows, returning their logits; a paged pool,
+    replicated over those ranks, takes every slot's chunk rows (gathered
+    over ``batch``)."""
     _check_supported(cfg)
     b, c = tokens.shape
     dev, dt = tokens.device, compute_dtype(cfg)
     offs, clens, flens = (_host_ids(x)
                           for x in (offsets, chunk_lens, final_lens))
     ring = cfg.window if "k" in cache and _is_ring(cfg, cache["k"][0]) else 0
+    every_slot = axis_size("batch") > 1 and "pages_k" in cache
+    if axis_size("batch") > 1:
+        rows = local_range(b, "batch")
+        tokens, b = tokens[rows], rows.stop - rows.start
+        mine = offs[rows], clens[rows]
+        flens = flens[rows]
+        if not every_slot:
+            offs, clens = mine
     chunk = _chunk_plan(cache, offs, clens, c, dev, ring=ring)
+    if every_slot:                   # attention and SSM: this rank's rows
+        offs, clens = mine
+        chunk.update(all_rows=True, offsets=torch.as_tensor(offs, device=dev),
+                     chunk_lens=torch.as_tensor(clens, device=dev))
     if cfg.family == "moe":         # MoE capacity ignores the padding
         chunk["valid"] = (torch.arange(c, device=dev)[None, :]
                           < chunk["chunk_lens"][:, None])
     slopes = paged = None
     if cfg.family in _ATTN and cfg.bias_kind == "alibi":
-        slopes = params["layers"]["attn"]["slopes"].to(dt).float()  # (L, H)
+        slopes = local_part(params["layers"]["attn"]["slopes"].to(dt).float(),
+                            1, "heads")                              # (L, H)
     if "pages_k" in cache:
         ps = cache["pages_k"].shape[3]
         if max_pages is None:
             max_pages = max(1, -(-int((offs + clens).max()) // ps))
-        paged = {"table": cache["page_table"], "max_pages": max_pages}
+        table = cache["page_table"]
+        paged = {"table": table[local_range(table.shape[0], "batch")],
+                 "max_pages": max_pages}
         phi = cache.get("pages_phi")
         if phi is not None and chunk["page"] is not None:
             page, off = chunk["page"], chunk["off"]
@@ -1247,7 +1352,8 @@ def _host_ids(x) -> np.ndarray:
     return np.asarray(x, np.int64)
 
 
-def insert_paged_cache_at_slots(dst: dict, src: dict, slots, tables) -> dict:
+def insert_paged_cache_at_slots(dst: dict, src: dict, slots, tables,
+                                slot_rows=None) -> dict:
     """Scatter a prefilled wave into the paged cache, whole pages at a time,
     in place.
 
@@ -1259,10 +1365,14 @@ def insert_paged_cache_at_slots(dst: dict, src: dict, slots, tables) -> dict:
     of range (``>= n_slots``). ``slots`` and ``tables`` are host arrays;
     they are filtered on the host, so no out-of-range index reaches the
     device. Prompt pages take K/V content and position factors; the page
-    table, ``length`` and (hybrid) the SSM leaves land at ``slots``."""
+    table, ``length`` and (hybrid) the SSM leaves land at ``slots``. Where
+    ``length`` and the SSM leaves hold only some slots' rows (a mesh
+    splitting the slots over ``batch``), ``slot_rows`` gives each wave
+    row's row in them, out of range where another rank holds it."""
     slots, tables = _host_ids(slots), _host_ids(tables)
+    slot_rows = slots if slot_rows is None else _host_ids(slot_rows)
     n_pages, ps = dst["pages_k"].shape[2], dst["pages_k"].shape[3]
-    n_slots = dst["length"].shape[0]
+    n_slots = dst["page_table"].shape[0]
     s = src["k"].shape[3]
     if s % ps:
         raise ValueError(f"wave cache length {s} is not a multiple of the "
@@ -1286,10 +1396,13 @@ def insert_paged_cache_at_slots(dst: dict, src: dict, slots, tables) -> dict:
             dst["pages_phi"][ids] = slab.reshape(p_w, ps, 2)[b_t]
     keep = np.nonzero((slots >= 0) & (slots < n_slots))[0]
     if keep.size:
+        dst["page_table"][torch.as_tensor(slots[keep], device=dev)] = \
+            torch.as_tensor(tables[keep], dtype=torch.int32, device=dev)
+    keep = np.nonzero((slot_rows >= 0)
+                      & (slot_rows < dst["length"].shape[0]))[0]
+    if keep.size:
         k_t = torch.as_tensor(keep, device=dev)
-        s_t = torch.as_tensor(slots[keep], device=dev)
-        dst["page_table"][s_t] = torch.as_tensor(
-            tables[keep], dtype=torch.int32, device=dev)
+        s_t = torch.as_tensor(slot_rows[keep], device=dev)
         dst["length"][s_t] = src["length"][k_t.to(src["length"].device)]
         for key in _SSM_LEAVES:
             if key in dst:
@@ -1304,7 +1417,7 @@ def grow_page_tables_at_slots(dst: dict, slots, tables) -> dict:
     growing slot's full new row; rows whose ``slots`` entry is out of range
     (``>= n_slots``) are skipped, on the host."""
     slots, tables = _host_ids(slots), _host_ids(tables)
-    n_slots = dst["length"].shape[0]
+    n_slots = dst["page_table"].shape[0]
     keep = np.nonzero((slots >= 0) & (slots < n_slots))[0]
     if keep.size:
         dev = dst["page_table"].device

@@ -94,31 +94,31 @@ def pairformer_template(cfg: ArchConfig) -> dict:
     hd = cfg.resolved_head_dim
     layer = {
         # triangle multiplicative update (outgoing)
-        "tri_ln": PDef((dp,), ("zeros",)),
-        "tri_a": PDef((dp, dp)),
-        "tri_b": PDef((dp, dp)),
-        "tri_g": PDef((dp, dp)),
-        "tri_o": PDef((dp, dp)),
+        "tri_ln": PDef((dp,), (None,), ("zeros",)),
+        "tri_a": PDef((dp, dp), (None, None)),
+        "tri_b": PDef((dp, dp), (None, None)),
+        "tri_g": PDef((dp, dp), (None, None)),
+        "tri_o": PDef((dp, dp), (None, None)),
         # single attention with pair bias
-        "ln1": PDef((d,), ("zeros",)),
-        "wqkv": PDef((d, 3, h, hd)),
-        "wo": PDef((h, hd, d)),
-        "pair_bias_ln": PDef((dp,), ("zeros",)),
-        "pair_bias_w": PDef((dp, h)),
+        "ln1": PDef((d,), (None,), ("zeros",)),
+        "wqkv": PDef((d, 3, h, hd), ("fsdp", None, "heads", None)),
+        "wo": PDef((h, hd, d), ("heads", None, "fsdp")),
+        "pair_bias_ln": PDef((dp,), (None,), ("zeros",)),
+        "pair_bias_w": PDef((dp, h), (None, "heads")),
         # transitions
-        "ln2": PDef((d,), ("zeros",)),
-        "wi": PDef((d, f)),
-        "wo_mlp": PDef((f, d)),
-        "pair_ln": PDef((dp,), ("zeros",)),
-        "pair_wi": PDef((dp, 4 * dp)),
-        "pair_wo": PDef((4 * dp, dp)),
+        "ln2": PDef((d,), (None,), ("zeros",)),
+        "wi": PDef((d, f), ("fsdp", "mlp")),
+        "wo_mlp": PDef((f, d), ("mlp", "fsdp")),
+        "pair_ln": PDef((dp,), (None,), ("zeros",)),
+        "pair_wi": PDef((dp, 4 * dp), (None, None)),
+        "pair_wo": PDef((4 * dp, dp), (None, None)),
     }
     return {
-        "single_in": PDef((64, d)),      # residue-feature stub
-        "pair_in": PDef((64, dp)),
+        "single_in": PDef((64, d), (None, "fsdp")),      # residue-feature stub
+        "pair_in": PDef((64, dp), (None, None)),
         "layers": stack_layers(layer, cfg.n_layers),
-        "final_norm": PDef((d,), ("zeros",)),
-        "out_head": PDef((d, 3)),        # coordinate denoise stub
+        "final_norm": PDef((d,), (None,), ("zeros",)),
+        "out_head": PDef((d, 3), ("fsdp", None)),   # coordinate denoise stub
     }
 
 
@@ -129,12 +129,12 @@ def factor_mlp_template(cfg: ArchConfig, hidden: int = 256) -> dict:
 
     def mlp():
         return {
-            "w0": PDef((din, hidden)),
-            "b0": PDef((hidden,), ("zeros",)),
-            "w1": PDef((hidden, hidden)),
-            "b1": PDef((hidden,), ("zeros",)),
-            "w2": PDef((hidden, h * r)),
-            "b2": PDef((h * r,), ("zeros",)),
+            "w0": PDef((din, hidden), (None, None)),
+            "b0": PDef((hidden,), (None,), ("zeros",)),
+            "w1": PDef((hidden, hidden), (None, None)),
+            "b1": PDef((hidden,), (None,), ("zeros",)),
+            "w2": PDef((hidden, h * r), (None, None)),
+            "b2": PDef((h * r,), (None,), ("zeros",)),
         }
     return {"q": mlp(), "k": mlp()}
 

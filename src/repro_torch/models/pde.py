@@ -32,20 +32,20 @@ def pde_template(cfg: ArchConfig) -> dict:
     d, h, f, cd = cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.coord_dim
     hd = cfg.resolved_head_dim
     layer = {
-        "ln1": PDef((d,), ("zeros",)),
-        "wqkv": PDef((d, 3, h, hd)),
-        "wo": PDef((h, hd, d)),
-        "alpha_w": PDef((cd, h), ("normal", 0.2)),
-        "alpha_b": PDef((h,), ("ones",)),
-        "ln2": PDef((d,), ("zeros",)),
-        "wi": PDef((d, f)),
-        "wo_mlp": PDef((f, d)),
+        "ln1": PDef((d,), (None,), ("zeros",)),
+        "wqkv": PDef((d, 3, h, hd), ("fsdp", None, "heads", None)),
+        "wo": PDef((h, hd, d), ("heads", None, "fsdp")),
+        "alpha_w": PDef((cd, h), (None, "heads"), ("normal", 0.2)),
+        "alpha_b": PDef((h,), ("heads",), ("ones",)),
+        "ln2": PDef((d,), (None,), ("zeros",)),
+        "wi": PDef((d, f), ("fsdp", "mlp")),
+        "wo_mlp": PDef((f, d), ("mlp", "fsdp")),
     }
     return {
-        "in_proj": PDef((cd, d)),
+        "in_proj": PDef((cd, d), (None, "fsdp")),
         "layers": stack_layers(layer, cfg.n_layers),
-        "final_norm": PDef((d,), ("zeros",)),
-        "out_head": PDef((d, 4)),                # pressure + 3 velocity
+        "final_norm": PDef((d,), (None,), ("zeros",)),
+        "out_head": PDef((d, 4), ("fsdp", None)),   # pressure + 3 velocity
     }
 
 

@@ -40,20 +40,20 @@ def swin_template(cfg: ArchConfig) -> dict:
     d, h, w, f = cfg.d_model, cfg.n_heads, cfg.window, cfg.d_ff
     hd = cfg.resolved_head_dim
     layer = {
-        "ln1": PDef((d,), ("zeros",)),
-        "wqkv": PDef((d, 3, h, hd)),
-        "wo": PDef((h, hd, d)),
+        "ln1": PDef((d,), (None,), ("zeros",)),
+        "wqkv": PDef((d, 3, h, hd), ("fsdp", None, "heads", None)),
+        "wo": PDef((h, hd, d), ("heads", None, "fsdp")),
         # learnable relative-position bias table, one per window position
-        "bias_table": PDef((h, w, w), ("normal", 0.5)),
-        "ln2": PDef((d,), ("zeros",)),
-        "wi": PDef((d, f)),
-        "wo_mlp": PDef((f, d)),
+        "bias_table": PDef((h, w, w), ("heads", None, None), ("normal", 0.5)),
+        "ln2": PDef((d,), (None,), ("zeros",)),
+        "wi": PDef((d, f), ("fsdp", "mlp")),
+        "wo_mlp": PDef((f, d), ("mlp", "fsdp")),
     }
     return {
-        "patch_embed": PDef((48, d)),            # 4x4x3 patch stub
+        "patch_embed": PDef((48, d), (None, "fsdp")),   # 4x4x3 patch stub
         "layers": stack_layers(layer, cfg.n_layers),
-        "final_norm": PDef((d,), ("zeros",)),
-        "head": PDef((d, 1000)),
+        "final_norm": PDef((d,), (None,), ("zeros",)),
+        "head": PDef((d, 1000), ("fsdp", None)),
     }
 
 

@@ -45,19 +45,32 @@ A ``serve.faults.FaultPlan`` set as ``faults`` injects faults: ``alloc``
 fails a lazy page growth before it touches the pool, ``nan`` overwrites a
 slot's logits with NaN on the device before the guard and the sampler.
 
-Mesh sharding waits for a later slice.
+``mesh`` / ``rules`` (a torch ``DeviceMesh`` and ``dist.Rules``) shard the
+token backend: the parameters and the persistent state are placed as
+DTensors by their logical axes (``_state_axes``: K/V caches and pools on
+``kv_heads``, slot rows on ``batch``, page tables and the factor slab
+replicated), and every model call runs this rank's local shards under
+``use_mesh_rules``, with the collectives ``dist.collectives`` writes. The
+page allocator, the scheduler and the prefix index stay on the host and
+run the same on every rank: each rank reads back the whole slot batch's
+tokens and guard values, so all take the same decisions.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.dist.collectives import gather_over, local_range
+from repro_torch.dist.sharding import (Rules, mesh_axis_sizes, shard_put,
+                                       spec_for, use_mesh_rules)
 from repro_torch.models import pairformer
 from repro_torch.models.api import Model
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import (PDef, shard_params, tree_leaves,
+                                       tree_map)
 from repro_torch.models.lm import cast_layers
 from repro_torch.serve.lifecycle import (AdmissionRejected, PoolError,
                                          PoolExhausted)
@@ -66,7 +79,44 @@ from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import sample_tokens, sample_tokens_guarded
 from repro_torch.serve.scheduler import ChunkPlan, Request
 
-__all__ = ["Backend", "TokenDecodeBackend", "PairBatchBackend"]
+__all__ = ["Backend", "TokenDecodeBackend", "PairBatchBackend",
+           "serve_rules"]
+
+# the tensor-parallel logical axes a served weight keeps split
+_TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "expert")
+
+
+def _serve_template(tmpl: dict, in_ssm: bool = False) -> dict:
+    """The template with the axes of the weights' serve layout: the
+    tensor-parallel axes kept, every other one (``fsdp``, ``layers``)
+    replicated, and the SSM branch replicated whole."""
+    if isinstance(tmpl, dict):
+        return {k: _serve_template(v, in_ssm or k == "ssm")
+                for k, v in tmpl.items()}
+    return PDef(tmpl.shape, tuple(None if in_ssm or a not in _TP_AXES
+                                  else a for a in tmpl.axes), tmpl.init)
+
+
+def serve_rules(tmpl: dict, mesh, rules: Rules, n_slots: int) -> Rules:
+    """``rules`` with every logical axis that some leaf of ``tmpl`` (or the
+    ``n_slots`` slot batch, for ``batch``) cannot split evenly over its
+    mesh axes replicated for all of them, and ``heads`` / ``kv_heads``
+    replicated together: a layer's local q heads must group over its local
+    kv heads. Placement and the model's collectives then agree leaf for
+    leaf, where ``shard_put`` alone would replicate leaf by leaf."""
+    sizes = mesh_axis_sizes(mesh)
+
+    def split(logical):
+        entry = spec_for((logical,), mesh, rules)[0]
+        return int(np.prod([sizes[a] for a in entry])) if entry else 1
+
+    drop = {a for p in tree_leaves(tmpl) for n, a in zip(p.shape, p.axes)
+            if a is not None and n % split(a)}
+    if n_slots % split("batch"):
+        drop.add("batch")
+    if drop & {"heads", "kv_heads"}:
+        drop |= {"heads", "kv_heads"}
+    return Rules.make({**rules.table, **{a: None for a in drop}})
 
 
 class Backend:
@@ -199,6 +249,20 @@ class TokenDecodeBackend(Backend):
     so decode steps freeze its lane; its final chunk sets the length to the
     prompt's and samples the first token, so sampling streams and decode
     match the whole-prompt path's.
+
+    Sharded (``mesh``): ``params`` / ``_cache`` hold this rank's local
+    shards, ``dparams`` / ``state_dtensors()`` the same storage as
+    DTensors. The weights are placed in their serve layout
+    (``_serve_template``): their tensor-parallel axes (heads, kv heads, FFN
+    hidden, vocab, experts) split over the mesh, ``fsdp`` gathered once at
+    load (ZeRO-3's per-step gather buys nothing in a decode loop) and the
+    SSM branch whole on every ``model`` rank (its state is split on
+    ``batch`` only, as in the reference's table). A tensor-parallel axis
+    that some weight cannot split evenly is replicated for every weight
+    (``serve_rules``), so the local head groups always match. Each rank
+    decodes its own slots where ``batch`` splits ``n_slots``; a wave's
+    prefill runs whole on every rank (each inserts its own slots), and a
+    paged pool, replicated over ``batch``, takes every slot's writes.
     """
 
     def __init__(self, model: Model, params: dict, max_len: int,
@@ -209,6 +273,7 @@ class TokenDecodeBackend(Backend):
                  page_reservation: str = "lazy",
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = False,
+                 mesh=None, rules: Optional[Rules] = None,
                  device="cuda"):
         if page_reservation not in ("lazy", "whole"):
             raise ValueError(f"page_reservation must be 'lazy' or "
@@ -275,6 +340,22 @@ class TokenDecodeBackend(Backend):
             self._tok_matchable = 0        # full-block prompt tokens admitted
         self.params = cast_layers(
             tree_map(lambda x: x.to(self.device), params), model.cfg)
+        self.mesh = mesh
+        self.rules = (rules or Rules()) if mesh is not None else rules
+        self.dparams = None               # the DTensor view (mesh only)
+        self._rows = slice(0, n_slots)    # the slot rows this rank holds
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch DeviceMesh, got "
+                                f"{type(mesh).__name__}")
+            tmpl = _serve_template(model.template())
+            self._serve_rules = serve_rules(tmpl, mesh, self.rules, n_slots)
+            self.dparams = shard_params(self.params, tmpl, mesh,
+                                        self._serve_rules)
+            self.params = tree_map(lambda t: t.to_local(), self.dparams)
+            with self._sharded():
+                self._rows = local_range(n_slots, "batch")
         self._cache = None                        # allocated on first use
         self.n_waves = 0                          # whole-prompt waves run
         self.n_chunk_steps = 0                    # prefill chunk steps run
@@ -299,6 +380,74 @@ class TokenDecodeBackend(Backend):
         self._counts = np.zeros((ns,), np.int64)
         self._last_tok = torch.zeros((ns, 1), dtype=torch.int64,
                                      device=self.device)
+        self._shard_state()
+
+    def _state_axes(self) -> Dict[str, tuple]:
+        """Logical axes of every persistent cache leaf, one per dim (the
+        reference's table): K/V content on ``kv_heads`` and slot rows on
+        ``batch``; the host-planned page table and the factor slab
+        replicated, so the allocator never needs a collective to rewrite a
+        row. SSM state is split on ``batch`` only. The legacy layout's
+        entries are the reference's; the port keeps the kernel layout."""
+        kernel = self.model.cfg.cache_layout == "kernel"
+        axes: Dict[str, tuple] = {
+            "length": ("batch",),
+            "ssm_h": ("layers", "batch", None, None, None),
+            "conv_x": ("layers", "batch", None, None, None),
+            "conv_bc": ("layers", "batch", None, None),
+        }
+        if self.paged:
+            pool = (("layers", "kv_heads", None, None, None) if kernel
+                    else ("layers", None, None, "kv_heads", None))
+            axes.update(pages_k=pool, pages_v=pool,
+                        page_table=(None, None),
+                        pages_phi=(None, None, None))
+        else:
+            kv = (("layers", "batch", "kv_heads", None, None) if kernel
+                  else ("layers", "batch", None, "kv_heads", None))
+            axes.update(k=kv, v=kv)
+        return axes
+
+    def _shard_state(self) -> None:
+        """Place the persistent state by ``_state_axes`` (``shard_put``: an
+        odd slot count replicates the ``batch`` rows) and keep its local
+        shards; ``_last_tok`` rides on ``batch``. No-op without a mesh."""
+        if self.mesh is None:
+            return
+        self._placements = {}
+        axes = dict(self._state_axes(), last_tok=("batch", None))
+        for key, a in axes.items():
+            full = (self._last_tok if key == "last_tok"
+                    else self._cache.get(key))
+            if full is None:
+                continue
+            d = shard_put(full, self.mesh, self._serve_rules, a)
+            self._placements[key] = d.placements
+            if key == "last_tok":
+                self._last_tok = d.to_local()
+            else:
+                self._cache[key] = d.to_local()
+
+    def state_dtensors(self) -> Dict[str, object]:
+        """The persistent state as DTensors over its local shards (no
+        copy): what ``_shard_state`` placed, with the current ``length``."""
+        from torch.distributed.tensor import DTensor
+        live = dict(self._cache, last_tok=self._last_tok)
+        return {k: DTensor.from_local(live[k], self.mesh, p, run_check=False)
+                for k, p in self._placements.items()}
+
+    def _sharded(self):
+        """The ambient (mesh, serve rules) of a sharded backend's model
+        calls; a null context without a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_mesh_rules(self.mesh, self._serve_rules)
+
+    def _local_row(self, slot: int) -> int:
+        """``slot``'s row in the batch-split state, or ``n_slots`` (out of
+        range) where another rank holds it."""
+        lo, hi = self._rows.start, self._rows.stop
+        return slot - lo if lo <= slot < hi else self.n_slots
 
     def validate(self, req: Request) -> None:
         if not np.issubdtype(req.tokens.dtype, np.integer):
@@ -444,8 +593,9 @@ class TokenDecodeBackend(Backend):
             pages = self._slot_pages[slot]
             pages.append(page)
             tables[i, :len(pages)] = pages
-        self._cache = self.model.grow_page_table(self._cache, growing,
-                                                 tables)
+        with self._sharded():
+            self._cache = self.model.grow_page_table(self._cache, growing,
+                                                     tables)
 
     # -- admit / step ----------------------------------------------------
 
@@ -491,12 +641,13 @@ class TokenDecodeBackend(Backend):
                 * self.page_size
         elif self.model.cfg.window:
             pf_len = max(self.max_len, padded + front_len)
-        with torch.no_grad():
+        with torch.no_grad(), self._sharded():
             logits, wave_cache = self.model.prefill(
                 self.params, batch, max_len=pf_len,
                 lengths=torch.as_tensor(lengths, device=self.device))
             slot_ids = np.full((ns,), ns, np.int64)   # padding rows dropped
             slot_ids[:w] = slots
+            rows = np.array([self._local_row(int(s)) for s in slot_ids])
             if self.paged:
                 tables = np.full((ns, self.pages_per_slot), self.n_pages,
                                  np.int64)
@@ -505,10 +656,11 @@ class TokenDecodeBackend(Backend):
                     self._slot_pages[slot] = pages
                     tables[i, :len(pages)] = pages
                 self._cache = self.model.insert_paged(
-                    self._cache, wave_cache, slot_ids, tables)
+                    self._cache, wave_cache, slot_ids, tables,
+                    slot_rows=rows)
             else:
                 self._cache = self.model.insert_cache(self._cache,
-                                                      wave_cache, slot_ids)
+                                                      wave_cache, rows)
             del wave_cache
             # first token: scatter wave-row logits into slot rows, sample
             lg = torch.zeros((ns, logits.shape[-1]), dtype=logits.dtype,
@@ -567,14 +719,17 @@ class TokenDecodeBackend(Backend):
                 # quarantine invalidates exactly those
                 self._slot_kept[slot] = len(kept)
                 tables[i, :len(pages)] = pages
-            self._cache = self.model.grow_page_table(self._cache, slots,
-                                                     tables)
+            with self._sharded():
+                self._cache = self.model.grow_page_table(self._cache, slots,
+                                                         tables)
             if cow:
                 # before any chunk or decode writes; the copies read the
                 # pool as it was, so a page evicted and reused in this
                 # wave cannot misorder them
                 src, dst = (np.array(a, np.int64) for a in zip(*cow))
-                self._cache = self.model.copy_pages(self._cache, src, dst)
+                with self._sharded():
+                    self._cache = self.model.copy_pages(self._cache, src,
+                                                        dst)
                 self._n_cow += len(cow)
                 # the sharer now owns private copies: drop the pins
                 self._pool.free(src.tolist())
@@ -622,11 +777,12 @@ class TokenDecodeBackend(Backend):
             if final:
                 flens[slot] = plan.req.prompt_len
                 finalized.append(slot)
-        with torch.no_grad():
+        with torch.no_grad(), self._sharded():
             logits, self._cache = self.model.prefill_chunk(
                 self.params, self._cache,
                 torch.as_tensor(toks, device=self.device), offs, clens,
                 flens, max_pages=self._chunk_page_cap())
+            logits = gather_over(logits[:, 0], 0, "batch")
         self.n_chunk_steps += 1
         for slot in finalized:
             plan = self._pending.pop(slot)
@@ -638,24 +794,25 @@ class TokenDecodeBackend(Backend):
                                     self._pool)
         mask = np.zeros((ns,), bool)
         mask[finalized] = True
-        return self._sample(logits[:, 0], mask), mask
+        return self._sample(logits, mask), mask
 
     def step(self, live):
         """One decode step over the full slot batch. Slots mid-chunked-
         prefill ride it frozen (device length 0) and stay out of the mask:
         committing their sampling state here would spend a draw the
         whole-prompt path never spends."""
-        with torch.no_grad():
+        with torch.no_grad(), self._sharded():
             logits, self._cache = self.model.decode(
                 self.params, self._cache, self._last_tok,
                 max_pages=self.page_cap(live))
+            logits = gather_over(logits[:, 0], 0, "batch")
         self.n_steps += 1
         mask = np.zeros((self.n_slots,), bool)
         for s, st in live.items():
             if s not in self._pending:
                 st.length += 1
                 mask[s] = True
-        return self._sample(logits[:, 0], mask), mask
+        return self._sample(logits, mask), mask
 
     def _sample(self, logits2d: torch.Tensor, mask: np.ndarray) -> np.ndarray:
         """Sample all slots; commit stream/token state for ``mask`` slots
@@ -665,7 +822,9 @@ class TokenDecodeBackend(Backend):
         stream state stays aligned with its committed token count, so the
         retry resumes bit-identically. A fault plan's ``nan`` slots have
         their logits overwritten with NaN on the device first, so a drill
-        flows through the same guard as a real fault."""
+        flows through the same guard as a real fault. ``logits2d`` holds
+        every slot's row on every rank (a sharded backend gathers them
+        first), so every rank samples, guards and commits alike."""
         if self.faults is not None:
             bad = self.faults.nan_slots()
             if bad:
@@ -691,8 +850,10 @@ class TokenDecodeBackend(Backend):
                 toks = sample_tokens(logits2d, *args)
             toks_h = toks.cpu().numpy()
             self._counts[commit] += 1
-            keep = torch.as_tensor(commit, device=self.device)[:, None]
-            self._last_tok = torch.where(keep, toks[:, None], self._last_tok)
+            keep = torch.as_tensor(commit[self._rows],
+                                   device=self.device)[:, None]
+            self._last_tok = torch.where(keep, toks[self._rows, None],
+                                         self._last_tok)
         return toks_h
 
     # -- retire / preempt ------------------------------------------------
@@ -702,7 +863,9 @@ class TokenDecodeBackend(Backend):
         active mask freezes the lane, drop its chunk plan, and return its
         pages (a decref: pages the prefix index or a sharer also holds
         stay allocated)."""
-        self._cache["length"][slot] = 0
+        row = self._local_row(slot)
+        if row < self._cache["length"].shape[0]:
+            self._cache["length"][row] = 0
         self._pending.pop(slot, None)
         self._slot_kept.pop(slot, None)
         if self.paged:

@@ -108,11 +108,6 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def _deferred(arg: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{arg} is not ported yet (ROADMAP.md Queue A item {item})")
-
-
 @dataclasses.dataclass
 class _Slot:
     """Host-side state of one occupied lane. ``length`` mirrors the device
@@ -188,8 +183,13 @@ class ServeEngine:
             prompt pages are shared by later prompts that start with them.
         faults: a ``serve.faults.FaultPlan`` for deterministic fault
             injection (drills); None injects nothing.
-        mesh: a later slice of the port; passing it raises
-            ``NotImplementedError``.
+        mesh / rules: a torch ``DeviceMesh`` with ``data`` / ``model``
+            axes and the logical-axis ``dist.Rules`` (default ``Rules()``):
+            the token backend places its weights and state on the mesh and
+            runs each rank's shards (``serve/backend.py``). Every rank runs
+            this engine with the same requests and takes the same host
+            decisions. The pair backend refuses a mesh, as the
+            reference's does.
     """
 
     def __init__(self, model: Model, params: dict, max_len: int = 1024,
@@ -202,14 +202,12 @@ class ServeEngine:
                  scheduler_policy: str = "fifo",
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = False,
-                 mesh=None,
+                 mesh=None, rules=None,
                  guards: bool = True,
                  faults: Optional[FaultPlan] = None,
                  stall_limit: int = 64,
                  factors: Optional[dict] = None,
                  device=None):
-        if mesh is not None:
-            raise _deferred("mesh (sharded serving)", 10)
         if stall_limit < 1:
             raise ValueError(f"stall_limit must be >= 1, got {stall_limit}")
         if model.prefill is None:
@@ -220,9 +218,10 @@ class ServeEngine:
         self.max_len, self.eos_id = max_len, eos_id
         self.n_slots, self.prefill_len = n_slots, prefill_len
         if model.cfg.family == "pairformer":
-            if prefill_chunk is not None or prefix_cache:
-                raise ValueError("chunked prefill / prefix cache are "
-                                 "token-backend paths")
+            if prefill_chunk is not None or mesh is not None or prefix_cache:
+                raise ValueError(
+                    "chunked prefill / prefix cache / mesh sharding are "
+                    "token-backend paths")
             self.backend = PairBatchBackend(
                 model, params, max_len=max_len, n_slots=n_slots,
                 factors=factors, device=self.device)
@@ -233,7 +232,7 @@ class ServeEngine:
                 n_pages=n_pages, pages_per_slot=pages_per_slot,
                 page_reservation=page_reservation,
                 prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-                device=self.device)
+                mesh=mesh, rules=rules, device=self.device)
         if self.backend.paged:
             self.page_size = self.backend.page_size
             self.n_pages = self.backend.n_pages

@@ -1,8 +1,11 @@
 """The port's examples run on the CPU at their demo sizes, a few steps
 each (``--device cpu --steps 3``): the LM trainer's exactness check
 (FlashBias-ALiBi loss == dense-ALiBi loss at init, which the script itself
-enforces) and its loop, and the neural decomposition's Eq. 5 fits of the
-gravity and haversine biases, whose losses must fall."""
+enforces) and its loop, the neural decomposition's Eq. 5 fits of the
+gravity and haversine biases, whose losses must fall, and the sharded
+serve engine on a (2, 2) mesh of four ``gloo`` processes (the script
+asserts the decode step's collectives and streams equal to the unsharded
+engine's)."""
 import importlib.util
 import math
 from pathlib import Path
@@ -44,3 +47,7 @@ def test_neural_decomposition_example(capsys):
     for first, last, rel in results.values():
         assert last < first and math.isfinite(rel)
     assert "held-out rel err" in capsys.readouterr().out
+
+
+def test_serve_sharded_example():
+    assert _load("serve_sharded_torch").main([]) == 0

@@ -2,7 +2,8 @@
 engine on the same staggered schedule, and the engine's in-port contracts
 (sampled streams independent of batch packing, lifecycle statuses, cancel,
 deadlines, bit-identical preemption resume, guard quarantine) plus the
-constructor argument that belongs to a later slice (``mesh``) and the prefix
+constructor's refusals (a ``mesh`` that is no ``DeviceMesh``; sharded
+serving is in ``test_torch_sharded_serve.py``) and the prefix
 cache's requirements (paged serving is in ``test_torch_paged.py``, chunked prefill
 and prefix caching in ``test_torch_chunked_prefill.py`` and
 ``test_torch_prefix_cache.py``)."""
@@ -221,9 +222,9 @@ def test_guards_off_lets_poison_through(gpt2):
      "prefix_cache": True},                              # recurrent state
     {"mesh": object()}])
 def test_later_slice_arguments_raise(gpt2, kwarg):
-    """``mesh`` belongs to a later slice of the port; a prefix
-    cache without paged KV, without chunked prefill or on the SSM family
-    raises the reference's ``ValueError``."""
+    """A ``mesh`` that is no torch ``DeviceMesh`` raises ``TypeError``; a
+    prefix cache without paged KV, without chunked prefill or on the SSM
+    family raises the reference's ``ValueError``."""
     kwarg = dict(kwarg)
     model, params = gpt2
     if "arch" in kwarg:
@@ -232,7 +233,7 @@ def test_later_slice_arguments_raise(gpt2, kwarg):
         params = init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
     if "mesh" in kwarg:
-        err, match = NotImplementedError, "ROADMAP.md Queue A item"
+        err, match = TypeError, "DeviceMesh"
     else:
         err, match = ValueError, "prefix_cache"
     with pytest.raises(err, match=match):
