@@ -33,18 +33,19 @@ as it runs, any failure ending the run:
               bit-identical outputs; kernels 3 and 4 also at 12 and 16 q
               heads per kv head (KVH 8, D 128, the MG = 16 body) at
               SPLIT_LENGTHS;
-3. serve    — GPT-2-ALiBi-1.5B at full width (48 layers, d_model 1600,
+3. serve    — GPT-2-ALiBi-1.5B at full width (N_LAYERS = 24 of its 48
+              layers, d_model 1600,
               bf16, random weights from ``--seed``) through ``ServeEngine``
               on 4 slots x 2048 positions: 8 ragged requests (prompts
               64-512 tokens, 32 new tokens each, 6 greedy and 2 sampled),
               staggered as the launcher does. Every request must end OK
               with 32 tokens, and the kernels' launch counters must equal
-              48 x prefill waves and 48 x decode steps, every prefill
+              24 x prefill waves and 24 x decode steps, every prefill
               launch on the tensor-core body;
 4. paged    — the same 8 requests through a paged engine (page size 16,
               lazy reservation) whose pool is sized from the mix so that
               it grows pages and preempts; every request OK with 32
-              tokens, the paged decode kernel launched 48 x decode steps
+              tokens, the paged decode kernel launched 24 x decode steps
               and the contiguous one never, every prefill launch on the
               tensor-core body, every page free at the end;
 5. parity   — the first wave's prefill and 4 decode steps again, with the
@@ -71,7 +72,7 @@ as it runs, any failure ending the run:
               Every request OK; each request's first-token logits within
               LOGIT_TOL of the whole-prompt engine's (the serve phase's,
               and for the long two a whole-prompt wave's); the decode
-              kernel launched 48 x decode steps and the prefill kernel
+              kernel launched 24 x decode steps and the prefill kernel
               never; some engine step ran a chunk and a decode together;
               paged, every page free after the drain. Then the chunk step,
               the decode step and the 1900-token prompt's first-token time
@@ -184,8 +185,8 @@ as it runs, any failure ending the run:
               growth, a failed decode step): every request OK with 32
               tokens, its stream, greedy and sampled, bit-equal to the
               paged phase's fault-free run; faults contained >= 2, a
-              quarantine, every page free; kernel 1 launched 48 x waves and
-              the paged decode kernel 48 x the decode steps that
+              quarantine, every page free; kernel 1 launched 24 x waves and
+              the paged decode kernel 24 x the decode steps that
               dispatched;
 16. checkpoint — engines snapshotted part way (``snapshot_engine``),
               through ``json.dumps`` / ``json.loads``, the source run on and
@@ -294,7 +295,7 @@ as it runs, any failure ending the run:
               frontend rows included) and 4 decode steps; kernels 1, 3 and
               4 at phi-3-vision's D 96 shapes checked against their plain
               versions, then timed with them, bounds and library calls;
-22. train   — GPT-2-ALiBi-1.5B at full width (TRAIN_LAYERS = 24 of its
+22. train   — GPT-2-ALiBi-1.5B at full width (TRAIN_LAYERS = 12 of its
               48 layers) trained through ``TrainLoop``:
               float32 master weights from ``init_params`` and ``--seed``,
               bf16 compute, the config's remat "dots" and grad_accum 4,
@@ -305,21 +306,21 @@ as it runs, any failure ending the run:
               TRAIN_GRAD_RTOL. Then TRAIN_STEPS = 8 steps, a checkpoint
               after step TRAIN_CKPT_STEP = 3 (the first loop ends there;
               steps 4-7 go on in the same process), kernel 1 launched
-              exactly 2 x 24 x 4 times a step (forward, and again where the
+              exactly 2 x 12 x 4 times a step (forward, and again where the
               backward recomputes each checkpointed layer), every launch on
               the tensor-core body, the loss finite and lower at step 7
               than at step 0; a fresh loop on fresh weights restores the
               checkpoint and runs steps 4-7 with losses equal to the
               uninterrupted run's (its own final save skipped: the
               machine allows 45 GiB of disk writes, a checkpoint is ~26
-              GB). The step's host time, device busy
+              GB at full depth). The step's host time, device busy
               (a profile checked against the counters), idle share,
               tokens/s, the share of 989 TFLOP/s the model FLOPs reach
               (``train_flops``), peak memory, and kernel 1's forward and
               the plain attention backward at the step's shape with the
               backward's share of the step. Then Mamba2-130M whole
               (remat "dots", grad_accum 4): step 0 against the plain path
-              as above, SSM_TRAIN_STEPS = 4 steps, kernel 5 launched 2 x
+              as above, SSM_TRAIN_STEPS = 2 steps, kernel 5 launched 2 x
               24 x 4 times a step on the tensor-core body.
 23. pair-train — Pairformer-lite whole (16 layers, d_single 384, d_pair
               128, 4 heads x 96, R 96, bf16 compute, float32 masters from
@@ -357,7 +358,8 @@ as it runs, any failure ending the run:
               share, peak memory.
 26. sharded — the sharded serve path on a one-card mesh: a ``(1, 1)``
               ``(data, model)`` DeviceMesh over an NCCL process group of one
-              rank. GPT-2-ALiBi-1.5B at full width and depth (bf16, weights
+              rank. GPT-2-ALiBi-1.5B at full width (N_LAYERS of its 48
+              layers; bf16, weights
               from ``--seed``), SHARDED_REQUESTS of the serve phase's
               requests, served by the unsharded and the sharded engine,
               contiguous and then paged; then mamba2-130m whole on the SSM
@@ -372,13 +374,38 @@ as it runs, any failure ending the run:
               the host clock in alternating rounds, with device busy and
               idle share.
 
-Phases 13-14 and 17-26 each run in a process of their own (``run_child``):
+27. sharded-train — the sharded train step on the same one-card mesh
+              (``make_train_step(mesh=)``, masters placed by
+              ``TrainLayout``): GPT-2-ALiBi-1.5B at full width and phase
+              22's depth (TRAIN_LAYERS of 48, remat "dots", grad_accum 4,
+              TRAIN_BATCH x TRAIN_SEQ tokens a step) for
+              SHARDED_TRAIN_STEPS steps from the seed's float32 masters,
+              once unsharded and once sharded: the losses, grad norms and
+              every final parameter bit-equal (one rank reorders no sum;
+              every collective is the identity), kernel 1 launched 2 x
+              layers x 4 times a step on both paths; Mamba2-130M whole for
+              SHARDED_SSM_STEPS steps the same way with kernel 5. Then
+              ``launch.train --mesh 1x1`` on Mamba2 in this process (its
+              process group, ``--grad-accum`` LAUNCH_ACCUM): LAUNCH_STEPS
+              steps with a checkpoint, a rerun
+              that resumes for one more, kernel 5's launches counted; the
+              checkpoint restored unsharded and stepped once must give the
+              resumed step's loss and grad norm bit for bit. The sharded
+              and unsharded host step times (TRAIN_TIMING_ROUNDS more
+              GPT-2 steps each, SSM_TIMING_ROUNDS Mamba2 steps, rounds
+              alternating) are logged beside the card's
+              name and power limit. No collective runs on one rank: the
+              CPU tests (``gloo``) carry the collectives.
+
+Phases 13-14 and 17-27 each run in a process of their own (``run_child``):
 late in a long process torch.profiler has lost device events (PERF.md
 section 7), and phase 13's library profile did so in PR 22's first full
-run. Kernel 1's ``launches`` in the record adds phases 13, 14 and 17-26
+run. Kernel 1's ``launches`` in the record adds phases 13, 14 and 17-27
 to the serve phase's (phases 23-24: their training steps; 25: the
-SVD-factor gradient run; 26: its sharded engines'), kernels 3 and 4 add
-phases 18-21's and 26's, kernel 5's adds phases 17, 18, 22 and 26's; their
+SVD-factor gradient run; 26: its sharded engines'; 27: its sharded train
+steps), kernels 3 and 4 add phases 18-21's and 26's, kernel 5's adds
+phases 17, 18, 22, 26 and 27's (27: the sharded steps and the
+launcher's); their
 times stay at the LM prefill, LM decode and SSM shapes (the other shapes'
 are logged above the record).
 
@@ -406,10 +433,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
-N_LAYERS = 48
+# GPT-2's serve phases (3-6c, 15-16, 26) run N_LAYERS of its 48 layers
+# (cut when phase 27 was added, PERF.md section 4)
+N_LAYERS = 24
 SLOTS, MAX_LEN, PROMPT_MAX, NEW_TOKENS = 4, 2048, 512, 32
 PAGE = 16                        # page size of the paged phases
-LOGIT_TOL = 0.25                 # bf16 logits, 48 layers deep (see phase 5)
+LOGIT_TOL = 0.25                 # bf16 logits, set 48 layers deep (phase 5)
 # LOGIT_TOL is 4 bf16 ulps of logits in [8, 16), GPT-2's top scale. Wider
 # models' logits reach higher (random embeddings: std 0.02 * sqrt(d_model),
 # 2.2 at command-r-plus's 12288), where a bf16 ulp is larger: 0.25 is one
@@ -532,9 +561,13 @@ MOE_LLAMA_LAYERS, DENSE_R_LAYERS = 4, 4
 # and minicpm run at these depths. With phases 23-25 the whole script
 # took 858 s (695 s before them, PERF.md section 5), so granite-moe,
 # codeqwen and minicpm run 8 layers and GPT-2's training (phase 22)
-# TRAIN_LAYERS of its 48
+# TRAIN_LAYERS of its 48. With phase 26 it took 887 s (74% of the
+# limit); phase 27 adds ~50-65 s, so GPT-2's training (phases 22 and 27)
+# runs 12 layers, its serving N_LAYERS and phase 22's Mamba2
+# SSM_TRAIN_STEPS steps (785 s and 889 s on two hosts with serving at 48
+# layers, PERF.md section 5)
 SWIN_LAYERS, MOE_GRANITE_LAYERS, DENSE_LAYERS = 12, 8, 8
-TRAIN_LAYERS = 24
+TRAIN_LAYERS = 12
 # MoE parity: the share of the router calls of the parity's other paths
 # (plain, paged kernel, paged plain) whose own top-k expert set differs from
 # the fed one (``RouteFeed``). Rounding re-routes a token only at a near tie
@@ -554,7 +587,7 @@ FRONTEND_PROMPTS, FRONTEND_NEW_TOKENS = (512, 300, 64, 450, 200, 128), 24
 # TRAIN_LR (the launcher's recipe: warmup steps // 10)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_STEP = 8, 1024, 8, 3
 TRAIN_LR = 3e-4
-SSM_TRAIN_STEPS = 4
+SSM_TRAIN_STEPS = 2
 # Step 0 of the kernel path (impl="cuda") against the plain path
 # (impl="torch") on the same weights and batch, bf16 compute. The paths
 # differ in each layer's attention forward (kernel 1 against the plain
@@ -1287,9 +1320,10 @@ def phase_serve(seed: int):
     from repro_torch.models import get_model, init_params
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config("gpt2_alibi_15b")
-    if cfg.n_layers != N_LAYERS:
-        raise AssertionError(f"config has {cfg.n_layers} layers")
+    full = get_config("gpt2_alibi_15b")
+    check_width(full, (full.n_layers, full.d_model, full.heads_padded),
+                (48, 1600, 64))
+    cfg = full.replace(n_layers=N_LAYERS)
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, device="cuda")
@@ -3558,7 +3592,7 @@ def serve_weights(seed: int):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import get_model, init_params
-    cfg = get_config("gpt2_alibi_15b")
+    cfg = get_config("gpt2_alibi_15b").replace(n_layers=N_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return get_model(cfg), init_params(cfg, gen, device="cuda")
 
@@ -4674,7 +4708,7 @@ def phase_train(seed: int, card: str) -> dict:
 
     # a fresh loop on fresh weights restores the checkpoint and runs on;
     # its own final save is skipped: the card's machine takes at most 45
-    # GiB of disk writes a call, and each checkpoint is ~26 GB
+    # GiB of disk writes a call, and each checkpoint is ~26 GB at 48 layers
     ckpt_bytes = sum(f.stat().st_size
                      for f in Path(ckpt_dir).rglob("*.npy"))
     del params, opt_state
@@ -5298,9 +5332,7 @@ def phase_sharded(seed: int, card: str) -> dict:
     log("sharded", f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
                    f"over {dist.get_backend()} (world "
                    f"{dist.get_world_size()}) [{card}]")
-    cfg = get_config("gpt2_alibi_15b")
-    if cfg.n_layers != N_LAYERS:
-        raise AssertionError(f"config has {cfg.n_layers} layers")
+    cfg = get_config("gpt2_alibi_15b").replace(n_layers=N_LAYERS)
     model, params = get_model(cfg), bf16_params(cfg, seed)
     requests = make_requests(seed, cfg.vocab)[:SHARDED_REQUESTS]
     launches, times = {}, {}
@@ -5327,6 +5359,225 @@ def phase_sharded(seed: int, card: str) -> dict:
         max_len=SSM_MAX_LEN))
     dist.destroy_process_group()
     return {"launches": launches, "times": times}
+
+
+# ---------------------------------------------------------------------------
+# phase 27: sharded training on a one-card mesh
+# ---------------------------------------------------------------------------
+
+# GPT-2 1.5B at phase 22's width, depth and batch, SHARDED_TRAIN_STEPS steps
+# on each path; Mamba2-130M whole SHARDED_SSM_STEPS steps; the launcher on
+# Mamba2 (LAUNCH_STEPS steps with a checkpoint, then one more resumed, at
+# grad_accum LAUNCH_ACCUM: Mamba2's step is host-bound, 2.7 s at 4 on a
+# slow host). The
+# host step of each path is then timed over TRAIN_TIMING_ROUNDS more steps
+# in alternating rounds (medians of 1-2 steps per path read 0.907-1.085,
+# the host clock's noise, PERF.md section 6)
+SHARDED_TRAIN_STEPS, SHARDED_SSM_STEPS, LAUNCH_STEPS, LAUNCH_ACCUM = \
+    3, 2, 2, 1
+TRAIN_TIMING_ROUNDS, SSM_TIMING_ROUNDS = 4, 2
+
+
+def train_run(cfg, seed: int, steps: int, mesh, kernel: str,
+              per_step: int) -> dict:
+    """``steps`` steps of ``cfg`` from the seed's weights on the path of
+    ``mesh`` (None: the unsharded step; a mesh: the sharded step on its
+    local shards), the counters set to 0 just before and read just after:
+    ``kernel`` must launch ``per_step`` times a step, no other wrapper.
+    Returns the losses, grad norms, host step times, the final parameters
+    (the local shards; on one rank the whole tensors) and ``more``, which
+    runs one more step on the last batch (updating them in place)."""
+    import torch
+    from repro_torch.data import LMBatches
+    from repro_torch.models import get_model, init_params
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import make_train_step
+    model = get_model(cfg)
+    opt = AdamW(lr_fn=cosine(TRAIN_LR, steps // 10, steps))
+    step_fn = make_train_step(model.loss, opt, grad_accum=cfg.grad_accum,
+                              mesh=mesh, template=model.template())
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    if step_fn.layout is not None:
+        params = step_fn.layout.shard(params)
+    state = opt.init(params)
+    data = LMBatches(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                     global_batch=TRAIN_BATCH, seed=seed)
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in data.batch(i).items()} for i in range(steps)]
+    torch.cuda.synchronize()
+    counters = reset_counters()
+    losses, norms, walls = [], [], []
+    for batch in batches:
+        t0 = time.monotonic()
+        params, state, m = step_fn(params, state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.monotonic() - t0)
+        norms.append(float(m["grad_norm"]))
+    launched = {n: w.launches for n, w in counters.items() if w.launches}
+    if launched != {kernel: per_step * steps}:
+        raise AssertionError(f"sharded-train: {cfg.name} "
+                             f"{'sharded' if mesh else 'unsharded'}: "
+                             f"launches {launched} != {kernel} "
+                             f"{per_step} x {steps}")
+    live = {"params": params, "state": state}
+
+    def more():
+        live["params"], live["state"], m = step_fn(
+            live["params"], live["state"], batches[-1])
+        float(m["loss"])
+    return {"losses": losses, "norms": norms, "walls": walls,
+            "params": params, "launches": launched[kernel], "more": more}
+
+
+def sharded_train_pair(label: str, cfg, seed: int, steps: int, mesh,
+                       kernel: str, card: str, rounds: int) -> dict:
+    """The unsharded and the sharded step from the same weights on the
+    same batches: losses, grad norms and every final parameter bit-equal,
+    ``kernel`` launched 2 x layers x grad_accum times a step on both."""
+    import torch
+    per_step = (2 if cfg.remat != "none" else 1) * cfg.n_layers \
+        * cfg.grad_accum
+    want = train_run(cfg, seed, steps, None, kernel, per_step)
+    got = train_run(cfg, seed, steps, mesh, kernel, per_step)
+    differ = [k for k in want["params"]
+              if not _tree_equal(got["params"][k], want["params"][k])]
+    runs = {"unsharded": want, "sharded": got}
+    walls = {name: [] for name in runs}
+    for r in range(rounds):                       # A B B A ...
+        for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            runs[name]["more"]()
+            walls[name].append(time.monotonic() - t0)
+    host = {name: float(np.median(w)) for name, w in walls.items()}
+    log(label, f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model},"
+               f" remat {cfg.remat!r}, grad_accum {cfg.grad_accum}, "
+               f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step): losses "
+               f"{got['losses']} (unsharded {want['losses']}); grad norms "
+               f"{got['norms']} (unsharded {want['norms']}); {kernel} "
+               f"{got['launches']} launches (unsharded {want['launches']}, "
+               f"{per_step} a step); parameters that differ: {differ}")
+    log(label, f"host step (median of {rounds} more steps "
+               f"each, rounds alternating): sharded "
+               f"{host['sharded'] * 1e3:.1f} ms, unsharded "
+               f"{host['unsharded'] * 1e3:.1f} ms, ratio "
+               f"{host['sharded'] / host['unsharded']:.4f}; steps 0-"
+               f"{steps - 1} {[round(w * 1e3, 1) for w in got['walls']]} "
+               f"/ {[round(w * 1e3, 1) for w in want['walls']]} ms [{card}]")
+    if got["losses"] != want["losses"] or got["norms"] != want["norms"] \
+            or differ or got["launches"] != want["launches"]:
+        raise AssertionError(f"{label}: the sharded step is not bit-equal "
+                             f"to the unsharded one")
+    out = {"launches": got["launches"], "host_ms": {
+        k: v * 1e3 for k, v in host.items()}, "losses": got["losses"]}
+    del got, want, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+    if isinstance(a, dict):
+        return all(_tree_equal(a[k], b[k]) for k in a)
+    return bool(torch.equal(a, b))
+
+
+def phase_sharded_train(seed: int, card: str) -> dict:
+    """Phase 27 (module docstring)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMBatches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import get_model, init_params
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import make_train_step
+    mesh = one_card_mesh()
+    log("sharded-train", f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                         f" over {dist.get_backend()} (world "
+                         f"{dist.get_world_size()}) [{card}]")
+    full = get_config("gpt2_alibi_15b")
+    cfg = full.replace(n_layers=TRAIN_LAYERS)
+    check_width(cfg, (full.n_layers, cfg.d_model, cfg.heads_padded,
+                      cfg.resolved_head_dim, cfg.vocab_padded, cfg.remat,
+                      cfg.grad_accum), (48, 1600, 64, 32, 50272, "dots", 4))
+    gpt2 = sharded_train_pair("sharded-train", cfg, seed,
+                              SHARDED_TRAIN_STEPS, mesh,
+                              "flashbias_attention_fwd", card,
+                              TRAIN_TIMING_ROUNDS)
+    ssm_cfg = get_config("mamba2_130m")
+    check_width(ssm_cfg, (ssm_cfg.n_layers, ssm_cfg.d_model,
+                          ssm_cfg.ssm_heads_padded, ssm_cfg.remat,
+                          ssm_cfg.grad_accum), (24, 768, 32, "dots", 4))
+    ssm = sharded_train_pair("sharded-train-ssm", ssm_cfg, seed,
+                             SHARDED_SSM_STEPS, mesh, "ssd_scan_fwd", card,
+                             SSM_TIMING_ROUNDS)
+
+    # the launcher on the same one-card mesh (the process group is this
+    # phase's): LAUNCH_STEPS steps with a checkpoint, then a resumed run
+    # to LAUNCH_STEPS + 1; the checkpoint after step LAUNCH_STEPS - 1 then
+    # restored unsharded and stepped once, bit-equal to the resumed run
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_sharded_ckpt_")
+    argv = ["--arch", "mamba2_130m", "--mesh", "1x1", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", str(seed),
+            "--grad-accum", str(LAUNCH_ACCUM),
+            "--ckpt-dir", ckpt, "--ckpt-every", str(LAUNCH_STEPS),
+            "--log", f"{ckpt}/log.jsonl"]
+    counters = reset_counters()
+    t0 = time.monotonic()
+    first = launch_train.main(argv + ["--steps", str(LAUNCH_STEPS)])
+    again = launch_train.main(argv + ["--steps", str(LAUNCH_STEPS + 1)])
+    wall = time.monotonic() - t0
+    launched = {n: w.launches for n, w in counters.items() if w.launches}
+    with open(f"{ckpt}/log.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    steps = LAUNCH_STEPS + 1
+    model = get_model(ssm_cfg)
+    opt = AdamW(lr_fn=cosine(3e-4, steps // 10, steps))
+    params = init_params(ssm_cfg, torch.Generator(device="cuda")
+                         .manual_seed(seed + 1), device="cuda")
+    (params, state), extras = restore_checkpoint(
+        ckpt, LAUNCH_STEPS - 1, (params, opt.init(params)))
+    step_fn = make_train_step(model.loss, opt, grad_accum=LAUNCH_ACCUM)
+    data = LMBatches(vocab=ssm_cfg.vocab, seq_len=TRAIN_SEQ,
+                     global_batch=TRAIN_BATCH, seed=seed)
+    _, _, m = step_fn(params, state, {
+        k: torch.as_tensor(v, device="cuda")
+        for k, v in data.batch(LAUNCH_STEPS).items()})
+    resumed = recs[-1]
+    log("sharded-train", f"launch.train --mesh 1x1 (mamba2-130m): "
+                         f"{first} then {again} in {wall:.1f}s; steps "
+                         f"logged {[r['step'] for r in recs]}; launches "
+                         f"{launched}; the checkpoint of step "
+                         f"{extras['step']} restored unsharded: step "
+                         f"{LAUNCH_STEPS} loss {float(m['loss'])} grad norm "
+                         f"{float(m['grad_norm'])} (resumed on the mesh "
+                         f"{resumed['loss']}, {resumed['grad_norm']})")
+    per_step = (2 if ssm_cfg.remat != "none" else 1) * ssm_cfg.n_layers \
+        * LAUNCH_ACCUM
+    if launched != {"ssd_scan_fwd": per_step * steps}:
+        raise AssertionError(f"sharded-train: the launcher's launches "
+                             f"{launched} != ssd_scan_fwd {per_step} x "
+                             f"{steps}")
+    if first["final_step"] != LAUNCH_STEPS or again["final_step"] != steps \
+            or [r["step"] for r in recs] != list(range(steps)) or \
+            float(m["loss"]) != resumed["loss"] or \
+            float(m["grad_norm"]) != resumed["grad_norm"]:
+        raise AssertionError("sharded-train: the launcher's run did not "
+                             "resume, or its checkpoint restored unsharded "
+                             "gives another step")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del params, state
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return {"launches": {
+        "flashbias_attention_fwd": gpt2["launches"],
+        "ssd_scan_fwd": ssm["launches"] + launched.get("ssd_scan_fwd", 0)},
+        "gpt2": gpt2, "ssm": ssm}
 
 
 def bound(bytes_: int, flops: int) -> dict:
@@ -5366,7 +5617,8 @@ CHILD_PHASES = {"swin": lambda seed, card: {"launches": {
                 "moe": phase_moe, "dense-configs": phase_dense_configs,
                 "frontends": phase_frontends, "train": phase_train,
                 "pair-train": phase_pair_train, "pde-train": phase_pde_train,
-                "swin-train": phase_swin_train, "sharded": phase_sharded}
+                "swin-train": phase_swin_train, "sharded": phase_sharded,
+                "sharded-train": phase_sharded_train}
 
 
 def main(argv=None) -> int:
@@ -5374,7 +5626,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", choices=tuple(CHILD_PHASES), default=None,
                     help="run one phase alone (the full run starts phases "
-                         "13-14 and 17-26 this way, each in a process of "
+                         "13-14 and 17-27 this way, each in a process of "
                          "its own)")
     args = ap.parse_args(argv)
 
@@ -5425,7 +5677,8 @@ def main(argv=None) -> int:
     for label, rate in (("contiguous", tok_s), ("paged", paged_tok_s)):
         t = traces[label]
         log("times", f"{label}: decode step {t['step_ms']:.3f} ms (4 slots, "
-                     f"48 layers), device idle share {t['idle_share']:.3f}; "
+                     f"{N_LAYERS} layers), device idle share "
+                     f"{t['idle_share']:.3f}; "
                      f"end to end {rate:.1f} tok/s [{card}]")
     times = phase_times(engine, decode_lengths, card)
     phase_chunked(engine, requests, whole_first, args.seed, card)
@@ -5481,7 +5734,7 @@ def main(argv=None) -> int:
         launches[name] += hybrid[name]
     for phase in ("paged-hybrid", "moe", "dense-configs", "frontends",
                   "train", "pair-train", "pde-train", "swin-train",
-                  "sharded"):
+                  "sharded", "sharded-train"):
         merge_launches(launches, run_child(phase, args.seed)["launches"])
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"

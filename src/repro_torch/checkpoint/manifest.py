@@ -17,6 +17,14 @@ package restores in the other::
   ``1/0`` (the step), ``1/1/...`` (mu), ``1/2/...`` (nu).
 - bfloat16 leaves, which numpy lacks, are stored as their ``u2`` bits with
   the logical dtype in the manifest, and restored bit-exactly.
+- Sharded runs (DTensor leaves, e.g. ``TrainLayout.dtensors`` of the local
+  shards): every rank takes part in each leaf's gather, rank 0 alone
+  writes the GLOBAL array in the same format, and all ranks meet at a
+  barrier once the step is renamed into place. A restore whose template
+  holds DTensors puts each global leaf onto the template's mesh and
+  placements, whatever mesh wrote it: a run saved on ``(2, 2)`` restores
+  onto ``(1, 2)``, ``(2, 1)`` or no mesh (the elastic restore of the
+  reference's ``restore_checkpoint(..., shardings=)``).
 """
 from __future__ import annotations
 
@@ -96,35 +104,60 @@ def _to_numpy(leaf):
     return arr, str(arr.dtype)
 
 
+def _is_dtensor(x) -> bool:
+    if not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def save_checkpoint(directory: str, step: int, tree: Any, *,
                     extras: Optional[dict] = None, keep_n: int = 3) -> str:
     """Save ``tree`` (nested dicts, tuples, lists and dataclasses of
-    tensors, arrays or scalars) atomically. Returns the step's path."""
-    os.makedirs(directory, exist_ok=True)
+    tensors, arrays or scalars) atomically. Returns the step's path. With
+    DTensor leaves every rank must call it: the leaves are gathered, rank
+    0 writes, and the ranks return together."""
+    leaves = _flatten_with_names(tree)
+    sharded = any(_is_dtensor(leaf) for _, leaf in leaves)
+    writer = True
+    if sharded:
+        import torch.distributed as dist
+        writer = dist.get_rank() == 0
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + f".tmp-{os.getpid()}"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    leaves = _flatten_with_names(tree)
+    if writer:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     manifest = {"step": step, "extras": extras or {},
                 "treedef": f"repro_torch: {len(leaves)} leaves",
                 "leaves": []}
     for i, (name, leaf) in enumerate(leaves):
+        if _is_dtensor(leaf):
+            with torch.no_grad():
+                leaf = leaf.full_tensor()         # a collective: all ranks
+        if not writer:
+            continue
         arr, dtype_name = _to_numpy(leaf)
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"].append({"name": name, "file": fname,
                                    "shape": list(arr.shape),
                                    "dtype": dtype_name})
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    for old in sorted(all_steps(directory))[:-keep_n]:
-        shutil.rmtree(os.path.join(directory, f"step_{old:08d}"),
-                      ignore_errors=True)
+        del leaf, arr
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        for old in sorted(all_steps(directory))[:-keep_n]:
+            shutil.rmtree(os.path.join(directory, f"step_{old:08d}"),
+                          ignore_errors=True)
+    if sharded:
+        import torch.distributed as dist
+        dist.barrier()
     return final
 
 
@@ -161,7 +194,9 @@ def _from_numpy(arr: np.ndarray, dtype_name: str, like) -> torch.Tensor:
 
 def restore_checkpoint(directory: str, step: Optional[int], template: Any):
     """Restore into the structure of ``template`` (its leaves give the
-    names, shapes and devices; the dtypes are the manifest's). ``step``
+    names, global shapes and devices, and a DTensor leaf its mesh and
+    placements: the restored leaf is then a DTensor holding this rank's
+    shard of the global array; the dtypes are the manifest's). ``step``
     None takes the latest. Returns (tree, extras)."""
     if step is None:
         step = latest_step(directory)
@@ -184,4 +219,9 @@ def restore_checkpoint(directory: str, step: Optional[int], template: Any):
             raise ValueError(f"{name}: shape {arr.shape} != template "
                              f"{tuple(like.shape)}")
         values[name] = _from_numpy(arr, entry["dtype"], like)
+        if _is_dtensor(like):
+            from torch.distributed.tensor import distribute_tensor
+            values[name] = distribute_tensor(values[name], like.device_mesh,
+                                             like.placements,
+                                             src_data_rank=None)
     return _unflatten(template, values), manifest["extras"]

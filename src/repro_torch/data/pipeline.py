@@ -8,7 +8,12 @@ Design rules:
   The "data iterator state" in a checkpoint is just the integer step.
 - **Shard-aware**: ``LMBatches(..., shard=(i, n))`` yields the i-th of n
   disjoint slices of the global batch, so each host materializes only its
-  slice (the launcher maps hosts to shards).
+  slice. Its rows are drawn with ``salt=i``, so they are not the rows of
+  the ``shard=(0, 1)`` batch: sharded training (``launch.train --mesh``)
+  builds the same global ``shard=(0, 1)`` batch on every rank, which is
+  deterministic and cheap, and the train step keeps each rank's rows
+  (frontend rows with their tokens), as jit's input sharding cuts the
+  reference's global batch, so its losses are the unsharded run's.
 - **Learnable**: token streams follow a noisy modular-increment process so
   examples can demonstrate a falling loss; PDE targets are smooth analytic
   fields of the coordinates.

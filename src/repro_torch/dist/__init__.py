@@ -15,14 +15,18 @@ from repro_torch.dist.sharding import (
     batch_axes_for,
     constrain,
     degraded_spec,
+    even_rules,
     get_active_mesh,
+    grad_sum_axes,
     mesh_axis_sizes,
     placements_for,
     shard_put,
     spec_for,
+    split_axes,
     use_mesh_rules,
 )
 
 __all__ = ["Rules", "spec_for", "batch_axes_for", "use_mesh_rules",
            "get_active_mesh", "constrain", "shard_put", "DEFAULT_RULES",
-           "mesh_axis_sizes", "placements_for", "degraded_spec"]
+           "mesh_axis_sizes", "placements_for", "degraded_spec",
+           "even_rules", "split_axes", "grad_sum_axes"]

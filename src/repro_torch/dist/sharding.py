@@ -50,7 +50,8 @@ import torch
 
 __all__ = ["Rules", "spec_for", "batch_axes_for", "use_mesh_rules",
            "get_active_mesh", "constrain", "shard_put", "DEFAULT_RULES",
-           "mesh_axis_sizes", "placements_for", "degraded_spec"]
+           "mesh_axis_sizes", "placements_for", "degraded_spec",
+           "even_rules", "split_axes", "grad_sum_axes"]
 
 # One logical axis maps to: None (replicate) or a tuple of mesh axis names.
 MeshAxes = Optional[Tuple[str, ...]]
@@ -181,6 +182,52 @@ def degraded_spec(shape: Sequence[int], axes: Sequence[Optional[str]],
         if n > 1 and int(shape[i]) % n:
             entries[i] = None
     return tuple(entries)
+
+
+def even_rules(leaves, mesh, rules: Rules,
+               batch: Optional[int] = None) -> Rules:
+    """``rules`` with every logical axis that some leaf (``(shape, axes)``
+    pairs) cannot split evenly over its mesh axes replicated for ALL
+    leaves, ``batch`` too where a given row count does not split, and
+    ``heads`` / ``kv_heads`` replicated together (a layer's local q heads
+    must group over its local kv heads). The model's collectives read one
+    logical axis for every leaf, so placement and collectives then agree
+    leaf for leaf, where ``shard_put`` alone replicates leaf by leaf."""
+    sizes = mesh_axis_sizes(mesh)
+
+    def split(logical):
+        return _product(spec_for((logical,), mesh, rules)[0], sizes)
+
+    drop = {a for shape, axes in leaves for n, a in zip(shape, axes)
+            if a is not None and n % split(a)}
+    if batch is not None and batch % split("batch"):
+        drop.add("batch")
+    if drop & {"heads", "kv_heads"}:
+        drop |= {"heads", "kv_heads"}
+    return Rules.make({**rules.table, **{a: None for a in drop}})
+
+
+def split_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes a leaf of ``spec`` is split on, over all its dims."""
+    return tuple(a for entry in spec for a in (entry or ()))
+
+
+def grad_sum_axes(shape: Sequence[int], axes: Sequence[Optional[str]],
+                  mesh, rules: Rules) -> Tuple[str, ...]:
+    """The mesh axes over which a training step must still sum a leaf's
+    gradient after its backward: the ``batch`` mesh axes (their ranks hold
+    different rows of the global batch), minus those its ``fsdp`` gather
+    already reduce-scattered over. On a ``(pod, data, model)`` mesh an
+    ``fsdp`` leaf sums over ``pod`` (the reduce-scatter covered ``data``:
+    the intra-pod reduce-scatter and inter-pod all-reduce), a replicated
+    leaf over ``pod`` and ``data``; a dim ``degraded_spec`` replicates
+    counts as replicated. ``model`` never appears: its ranks compute the
+    same loss, and ``collectives.copy_to`` already summed their parts."""
+    spec = degraded_spec(shape, axes, mesh, rules)
+    gathered = {a for logical, entry in zip(axes, spec)
+                if logical == "fsdp" for a in (entry or ())}
+    batch = spec_for(("batch",), mesh, rules)[0] or ()
+    return tuple(a for a in batch if a not in gathered)
 
 
 def placements_for(spec: Spec, mesh) -> tuple:

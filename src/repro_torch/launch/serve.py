@@ -30,7 +30,6 @@ same traffic and only rank 0 prints::
 from __future__ import annotations
 
 import argparse
-import os
 import time
 from typing import List, Optional, Tuple
 
@@ -233,26 +232,12 @@ def _mesh(ap, spec: str, init_method: str, device: torch.device):
     ``WORLD_SIZE`` ranks (an error unless it is D*M, as the reference's
     launcher errs without D*M devices); returns (mesh, rank, this rank's
     device)."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import init_mesh
     try:
-        d, m = (int(v) for v in spec.lower().split("x"))
-    except ValueError:
-        ap.error(f"--mesh {spec!r}: expected DxM, e.g. 2x2")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world != d * m:
-        ap.error(f"--mesh {spec} needs a world of {d * m} ranks (torchrun "
-                 f"--nproc-per-node {d * m}), found {world}")
-    rank = int(os.environ.get("RANK", "0"))
-    if device.type == "cuda":
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
-                                                         rank)))
-        torch.cuda.set_device(device)
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            init_method=init_method, rank=rank,
-                            world_size=world)
-    mesh = init_device_mesh(device.type, (d, m),
-                            mesh_dim_names=("data", "model"))
+        mesh, rank, device, _ = init_mesh(spec, init_method, device,
+                                          names=(("data", "model"),))
+    except ValueError as e:
+        ap.error(str(e))
     return mesh, rank, device
 
 

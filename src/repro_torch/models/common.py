@@ -8,6 +8,8 @@ explicit ``torch.Generator``; it does not reproduce JAX's random bits
 ``repro_torch.interop.params_from_numpy``). ``param_specs`` resolves the
 axes against a mesh and ``shard_params`` places a parameter tree on it as
 DTensors (the reference's ``param_specs`` / ``param_shardings``).
+``TrainLayout`` is the masters' placement for sharded training: each
+rank's FSDP and tensor-parallel shard as a plain local tensor.
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ import torch.nn.functional as F
 from repro_torch.core.bias import alibi_slopes
 
 __all__ = ["PDef", "stack_layers", "materialize", "init_params",
-           "template_map", "param_specs", "shard_params",
-           "tree_map", "tree_leaves", "compute_dtype", "cast_floats",
+           "template_map", "param_specs", "shard_params", "train_template",
+           "TrainLayout",
+           "tree_map", "tree_zip_map", "tree_leaves", "compute_dtype", "cast_floats",
            "param_bytes", "count_params", "rmsnorm", "swiglu", "gelu_mlp",
            "embed_lookup", "unembed_logits", "cross_entropy_loss",
            "apply_rope"]
@@ -52,6 +55,15 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_zip_map(fn, *trees):
+    """``fn`` over matching leaves of nested dicts with one structure (the
+    first tree's keys)."""
+    if isinstance(trees[0], dict):
+        return {k: tree_zip_map(fn, *(t[k] for t in trees))
+                for k in trees[0]}
+    return fn(*trees)
 
 
 def tree_leaves(tree) -> list:
@@ -92,6 +104,131 @@ def shard_params(params: dict, tmpl: dict, mesh, rules) -> dict:
     from repro_torch.dist.sharding import shard_put
     return template_map(lambda p, x, _: shard_put(x, mesh, rules, p.axes),
                         tmpl, params)
+
+
+# the tensor-parallel logical axes (split over ``model`` by default)
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "expert")
+
+
+def train_template(tmpl: dict, in_ssm: bool = False) -> dict:
+    """The template with the axes of the masters' training layout: every
+    axis kept (``fsdp`` and the tensor-parallel ones), except that the SSM
+    branch (``"ssm"`` subtrees) keeps only ``fsdp``: it runs whole on every
+    ``model`` rank, as it serves (ROADMAP.md Queue C)."""
+    if isinstance(tmpl, dict):
+        return {k: train_template(v, in_ssm or k == "ssm")
+                for k, v in tmpl.items()}
+    if not in_ssm:
+        return tmpl
+    return PDef(tmpl.shape, tuple(None if a in TP_AXES else a
+                                  for a in tmpl.axes), tmpl.init)
+
+
+class TrainLayout:
+    """Where a sharded training run keeps each float32 master, and what
+    its step must sum (the reference's ``param_shardings`` and
+    ``grad_shardings`` under ``use_mesh_rules``).
+
+    ``rules`` are the given ones with every logical axis that some leaf
+    cannot split evenly replicated for all leaves (``dist.even_rules``);
+    ``specs`` the per-leaf ``degraded_spec`` of ``train_template(tmpl)``;
+    ``split_axes`` the mesh axes each leaf is split on (the gradient norm
+    sums its squares over those); ``sum_axes`` the mesh axes its gradient
+    is summed over after the backward (``dist.grad_sum_axes``), both
+    without the axes of one rank; ``n_batch`` the ranks holding different
+    rows. ``fsdp`` must resolve inside ``batch``: an FSDP reduce-scatter
+    sums the gradients of different rows only there."""
+
+    def __init__(self, tmpl: dict, mesh, rules):
+        from repro_torch.dist.sharding import (
+            degraded_spec, even_rules, grad_sum_axes, mesh_axis_sizes,
+            spec_for, split_axes)
+        self.template = train_template(tmpl)
+        self.mesh = mesh
+        self.rules = even_rules(((p.shape, p.axes)
+                                 for p in tree_leaves(self.template)),
+                                mesh, rules)
+        fsdp = spec_for(("fsdp",), mesh, self.rules)[0] or ()
+        batch = spec_for(("batch",), mesh, self.rules)[0] or ()
+        if not set(fsdp) <= set(batch):
+            raise ValueError(f"fsdp mesh axes {fsdp} outside the batch mesh "
+                             f"axes {batch}: an FSDP gradient would sum "
+                             f"ranks that hold the same rows")
+        self.specs = tree_map(lambda p: degraded_spec(p.shape, p.axes, mesh,
+                                                      self.rules),
+                              self.template)
+        sizes = mesh_axis_sizes(mesh)
+
+        def real(axes):       # the axes of more than one rank, mesh order
+            return tuple(a for a in sizes if a in axes and sizes[a] > 1)
+        self.split_axes = tree_map(lambda s: real(split_axes(s)), self.specs)
+        self.sum_axes = tree_map(lambda p: real(grad_sum_axes(
+            p.shape, p.axes, mesh, self.rules)), self.template)
+        self.n_batch = int(np.prod([sizes[a] for a in batch]))
+
+    def shard(self, params: dict) -> dict:
+        """Each rank's local shards of the full tree every rank made from
+        one seed (no collective)."""
+        return tree_map(lambda d: d.to_local(), shard_params(
+            params, self.template, self.mesh, self.rules))
+
+    def dtensors(self, tree):
+        """DTensor views (no copy) of a tree of local shards: every dict of
+        the masters' structure (the masters, the optimizer's moments) by
+        the masters' placements, any other tensor replicated. Tuples,
+        lists and dataclasses (``OptState``) are walked."""
+        from torch.distributed.tensor import DTensor, Replicate
+        from repro_torch.dist.sharding import placements_for
+
+        def view(t, spec):
+            return DTensor.from_local(t.detach(), self.mesh,
+                                      placements_for(spec, self.mesh),
+                                      run_check=False)
+
+        def replicated(t):
+            return DTensor.from_local(t.detach(), self.mesh,
+                                      [Replicate()] * self.mesh.ndim,
+                                      run_check=False)
+
+        def masters(d):
+            return (tree_zip_map(view, d, self.specs)
+                    if _same_keys(d, self.specs) else None)
+        return _walk(tree, replicated, masters)
+
+    @staticmethod
+    def local(tree):
+        """The tree with every DTensor leaf replaced by its local shard."""
+        from torch.distributed.tensor import DTensor
+        return _walk(tree, lambda t: t.to_local() if isinstance(t, DTensor)
+                     else t, lambda d: None)
+
+
+def _same_keys(a, b) -> bool:
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same_keys(a[k], b[k])
+                                            for k in a)
+    return not isinstance(a, dict) and not isinstance(b, dict)
+
+
+def _walk(tree, leaf_fn, dict_fn):
+    """``leaf_fn`` over the tensors of nested dicts, tuples, lists and
+    dataclasses; ``dict_fn(d)``, where not None, replaces a whole dict."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        whole = dict_fn(tree)
+        if whole is not None:
+            return whole
+        return {k: _walk(v, leaf_fn, dict_fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_walk(v, leaf_fn, dict_fn) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _walk(getattr(tree, f.name), leaf_fn, dict_fn)
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, torch.Tensor):
+        return leaf_fn(tree)
+    return tree
 
 
 def _materialize(pdef: PDef, generator: torch.Generator, device,

@@ -86,6 +86,18 @@ dtype once per call (``_compute_layers``), so gradients flow back to them.
 Attention runs ``ops.flash_attention`` (kernel 1 forward on the card, its
 backward the plain version's, recomputed) and the SSM branch
 ``ops.ssd_scan`` (kernel 5 forward, likewise).
+
+Sharded training (the ambient mesh of ``train.make_train_step(mesh=)``)
+runs the same functions on one rank's masters as laid out by
+``models.common.TrainLayout``: its rows of the batch, its heads, FFN
+columns, experts and vocab rows, and its ``fsdp`` shard of each weight,
+gathered one layer at a time inside the layer's remat body
+(``collectives.fsdp_gather``). Where a replicated activation enters a
+tensor-parallel region it passes ``collectives.copy_to`` (Megatron's *f*)
+and where partial products leave it ``collectives.reduce_from`` (*g*); the
+logits are gathered over ``vocab`` with a slicing backward
+(``gather_from``) before the cross-entropy. The SSM branch runs whole on
+every ``model`` rank, as it serves.
 """
 from __future__ import annotations
 
@@ -99,9 +111,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.attention import MaskSpec, attention
 from repro_torch.core.bias import alibi_dense
-from repro_torch.dist.collectives import (axis_rank, axis_size, gather_over,
+from repro_torch.dist.collectives import (axis_rank, axis_size, copy_to,
+                                          fsdp_gather, gather_from,
                                           local_part, local_range,
-                                          reduce_over)
+                                          reduce_from)
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import paged_write_plan, write_paged_row
 from repro_torch.models import ssd
@@ -113,6 +126,7 @@ from repro_torch.models.common import (
     rmsnorm,
     stack_layers,
     swiglu,
+    template_map,
     tree_map,
     unembed_logits,
 )
@@ -266,16 +280,19 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def _heads_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """The attention's output projection, summed over the ranks that hold
     the other heads (the reference's ``constrain(y, "batch", "seq",
-    None)`` after ``wo``)."""
-    return reduce_over(_out_proj(o, wo), "heads")
+    None)`` after ``wo``; *g*: the backward passes the gradient as it
+    is)."""
+    return reduce_from(_out_proj(o, wo), "heads")
 
 
 def _slopes(lp: dict, cfg: ArchConfig) -> Optional[torch.Tensor]:
     """The float32 ALiBi slopes of this rank's heads (all heads outside a
-    mesh): the ``slopes`` leaf is replicated while the heads are split."""
+    mesh): the ``slopes`` leaf is replicated while the heads are split, so
+    each rank's gradient holds its own heads' entries only, and ``copy_to``
+    sums them over the ranks into the whole."""
     if cfg.bias_kind != "alibi":
         return None
-    return local_part(lp["slopes"].float(), -1, "heads")
+    return local_part(copy_to(lp["slopes"].float(), "heads"), -1, "heads")
 
 
 def _attention(lp: dict, x: torch.Tensor, cfg: ArchConfig):
@@ -345,7 +362,7 @@ def _attention_decode(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
     if paged is not None and paged.get("all_rows") is not None:
         lens_all, table_all = paged["all_rows"]
         write_paged_row(k_cache, v_cache, lens_all, table_all,
-                        *(gather_over(new[k], 0, "batch")
+                        *(gather_from(new[k], 0, "batch")
                           for k in ("k_new", "v_new")))
         new = {}
     if paged is None and _is_ring(cfg, k_cache):
@@ -500,7 +517,7 @@ def _attention_chunk(lp: dict, x: torch.Tensor, k_cache: torch.Tensor,
         page, off, keep = chunk["page"], chunk["off"], chunk["keep"]
         rows, cols = chunk["src_rows"], chunk["src_cols"]
         if chunk.get("all_rows"):        # every slot's rows, every replica
-            k_new, v_new = (gather_over(t, 0, "batch")
+            k_new, v_new = (gather_from(t, 0, "batch")
                             for t in (k_new, v_new))
         for pool, new in ((k_cache, k_new), (v_cache, v_new)):
             val = new[rows, cols].transpose(0, 1)            # (KVH, n, E)
@@ -520,7 +537,8 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ArchConfig,
     h = rmsnorm(x, lp["ln2"])
     if cfg.family == "moe":
         return _moe_ffn(lp["moe"], h, cfg, valid)[0]
-    return reduce_over(swiglu(h, lp["mlp"]["wi"], lp["mlp"]["wo"]), "mlp")
+    return reduce_from(swiglu(copy_to(h, "mlp"), lp["mlp"]["wi"],
+                              lp["mlp"]["wo"]), "mlp")
 
 
 # ---------------------------------------------------------------------------
@@ -568,14 +586,17 @@ def _moe_ffn(mp: dict, x: torch.Tensor, cfg: ArchConfig,
 
     Under a mesh that splits the experts (``"expert"``), every rank routes
     the whole batch, runs its own experts' GEMMs, and the ranks sum the
-    gated outputs in float32 (the reference's combine over ``expert``)."""
+    gated outputs in float32 (the reference's combine over ``expert``).
+    The router's own gradient is whole on every rank; the dispatched rows
+    and the gates pass ``copy_to``, whose backward sums the parts the
+    ranks' experts give."""
     b, s, d = x.shape
     ep, k = cfg.experts_padded, cfg.top_k
     cap = _moe_capacity(cfg, s)
     dev = x.device
     probs, gates, idx = _moe_route(mp, x, cfg)                   # (B, S, K)
     sel = idx.transpose(1, 2).reshape(b, k * s)                  # slot-major
-    gate = gates.transpose(1, 2).reshape(b * k * s, 1)
+    gate = copy_to(gates, "expert").transpose(1, 2).reshape(b * k * s, 1)
     ok = (torch.ones_like(sel, dtype=torch.bool) if valid is None
           else valid[:, None, :].expand(b, k, s).reshape(b, k * s))
     # (B, E, K*S): the running count is a scan along the innermost axis
@@ -589,7 +610,7 @@ def _moe_ffn(mp: dict, x: torch.Tensor, cfg: ArchConfig,
     row = torch.where(keep, row, spare).reshape(-1)              # (B*K*S,)
     xin = x.new_zeros((spare + 1, d))
     # kept entries land on distinct rows; every dropped one on the spare
-    xin[row] = x[:, None].expand(b, k, s, d).reshape(-1, d)
+    xin[row] = copy_to(x, "expert")[:, None].expand(b, k, s, d).reshape(-1, d)
     wi = mp["wi"]                                                # (E,D,F,2)
     el = wi.shape[0]                     # this rank's experts (all: ep)
     e0 = axis_rank("expert") * el
@@ -602,7 +623,7 @@ def _moe_ffn(mp: dict, x: torch.Tensor, cfg: ArchConfig,
                    (0, 0, 0, 0, 0, 0, e0, ep - e0 - el))
     eo = eo.view(ep, b, cap, d).transpose(0, 1).reshape(spare, d)
     eo = torch.cat([eo, eo.new_zeros((1, d))])
-    y = reduce_over((eo[row].float() * gate).view(b, k, s, d).sum(1),
+    y = reduce_from((eo[row].float() * gate).view(b, k, s, d).sum(1),
                     "expert")
     counts = torch.zeros((b, ep), device=dev).scatter_add_(
         1, sel, keep.float())
@@ -728,13 +749,15 @@ def _ssm_decode(sp: dict, x: torch.Tensor, h: torch.Tensor,
 def _embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows of ``tokens``. With the table split over ``vocab`` (a
     mesh), each rank looks up the ids its rows hold, zeroes the others, and
-    the ranks sum: one nonzero term per entry, so the rows are exact."""
+    the ranks sum: one nonzero term per entry, so the rows are exact. The
+    sum is *g*: in training each rank's table takes the gradient of the
+    rows it looked up."""
     if axis_size("vocab") == 1:
         return embed_lookup(table, tokens)
     local = tokens - axis_rank("vocab") * table.shape[0]
     hit = ((local >= 0) & (local < table.shape[0]))[..., None]
     rows = embed_lookup(table, local.clamp(0, table.shape[0] - 1))
-    return reduce_over(torch.where(hit, rows, torch.zeros_like(rows)),
+    return reduce_from(torch.where(hit, rows, torch.zeros_like(rows)),
                        "vocab")
 
 
@@ -765,7 +788,7 @@ def _layer_train(lp: dict, x: torch.Tensor, cfg: ArchConfig):
     h = rmsnorm(x, lp["ln1"])
     y = ys = None
     if cfg.family in _ATTN:
-        y = _attention(lp["attn"], h, cfg)[0]
+        y = _attention(lp["attn"], copy_to(h, "heads"), cfg)[0]
     if cfg.family in _SSM:
         ys = _ssm_forward(lp["ssm"], h, cfg)[0]
     x = _mix(lp, x, y, ys, cfg)
@@ -778,7 +801,9 @@ def _layer_train(lp: dict, x: torch.Tensor, cfg: ArchConfig):
 
 
 # matrix products without a batch dim: what the "dots" policy saves, as the
-# reference's ``dots_with_no_batch_dims_saveable`` (bmm is left out)
+# reference's ``dots_with_no_batch_dims_saveable`` (bmm is left out). The
+# functional collectives of a sharded step (the FSDP gathers) are not
+# among them: their outputs are recomputed, so the backward gathers again
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -811,16 +836,61 @@ def _maybe_remat(fn, cfg: ArchConfig):
     raise ValueError(f"remat {cfg.remat!r} not in ('none', 'dots', 'full')")
 
 
-def _compute_layers(params: dict, cfg: ArchConfig) -> dict:
+def _compute_layers(params: dict, cfg: ArchConfig,
+                    cast: bool = True) -> dict:
     """The stacked layer weights cast to the compute dtype once and split
     into per-layer views (the reference casts them before its layer scan):
     {key: (layer 0, ..., layer L-1)}. Gradients flow back to the float32
     masters through one cast and one stack per leaf. Indexing the stacked
     masters per layer instead would make each layer's backward fill and add
     a gradient of the whole stack (a 3.9 GB MLP leaf of GPT-2 1.5B, 48
-    times per microbatch)."""
+    times per microbatch).
+
+    Under a mesh the masters are this rank's local shards and the split is
+    local. Where ``fsdp`` spans more than one rank, ``cast=False`` keeps
+    the float32 views: ``forward_hidden`` casts each layer's shards and
+    gathers its ``fsdp`` ones (``_fsdp_dims``, ``_gather_fsdp``) one layer
+    at a time inside the layer's remat body, so only one layer's weights
+    are whole at a time, in the compute dtype, remat gathers them again in
+    the backward (ZeRO-3), and the gradient is reduce-scattered in
+    float32."""
     dt = compute_dtype(cfg)
-    return tree_map(lambda x: x.to(dt).unbind(0), params["layers"])
+    return tree_map(lambda x: (x.to(dt) if cast else x).unbind(0),
+                    params["layers"])
+
+
+def _fsdp_dims(tmpl: dict, tree: dict, lead: int = 0) -> dict:
+    """Per leaf of ``tree`` (local shards of ``tmpl``'s leaves), the dim of
+    its ``fsdp`` axis where the shard is split (smaller than the
+    template's), else None; ``lead`` leading dims are dropped from the
+    index (the stacked layers')."""
+    def dim(p, t, _):
+        if "fsdp" not in p.axes:
+            return None
+        d = p.axes.index("fsdp")
+        return None if t.shape[d] == p.shape[d] else d - lead
+    return template_map(dim, tmpl, tree)
+
+
+def _gather_fsdp(tree: dict, dims: dict, dtype: torch.dtype) -> dict:
+    """``tree`` cast to ``dtype``, every leaf whose ``dims`` entry is set
+    gathered over ``fsdp`` along that dim (``fsdp_gather``: the gradient
+    reduce-scattered in the leaf's float32)."""
+    if isinstance(tree, dict):
+        return {k: _gather_fsdp(tree[k], dims[k], dtype) for k in tree}
+    return tree.to(dtype) if dims is None else fsdp_gather(tree, dims,
+                                                           dtype)
+
+
+def _whole_embed(params: dict, cfg: ArchConfig) -> dict:
+    """``params`` with the tied ``embed`` table gathered over ``fsdp``
+    where this rank holds a shard of its ``d_model`` columns (float32, as
+    the lookup reads it; ``loss_fn`` gathers it once for both uses)."""
+    p = lm_template(cfg)["embed"]
+    d = p.axes.index("fsdp")
+    if axis_size("fsdp") == 1 or params["embed"].shape[d] == p.shape[d]:
+        return params
+    return dict(params, embed=fsdp_gather(params["embed"], d))
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -828,13 +898,23 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """Embedding, the layers (each under ``cfg.remat``) and the final norm.
     Returns (hidden (B, F + S, D), aux summed over the layers). The float32
     master weights are cast to the compute dtype per call
-    (``_compute_layers``), so gradients flow back to the masters."""
+    (``_compute_layers``), so gradients flow back to the masters; under a
+    mesh each layer's ``fsdp`` shards are gathered inside its body, and the
+    ``embed`` table must be whole over ``fsdp`` (``_whole_embed``)."""
     _check_supported(cfg)
     x = _embed_in(params, tokens, frontend, cfg)
-    layers = _compute_layers(params, cfg)
+    dims = None
+    if axis_size("fsdp") > 1:
+        dims = _fsdp_dims(lm_template(cfg)["layers"], params["layers"],
+                          lead=1)
+    layers = _compute_layers(params, cfg, cast=dims is None)
+    dt = compute_dtype(cfg)
 
     def body(x, i):
-        return _layer_train(tree_map(lambda t: t[i], layers), x, cfg)
+        lp = tree_map(lambda t: t[i], layers)
+        if dims is not None:
+            lp = _gather_fsdp(lp, dims, dt)
+        return _layer_train(lp, x, cfg)
 
     body = _maybe_remat(body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -846,12 +926,18 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Next-token cross-entropy over the token region (the frontend rows
-    excluded) against ``batch["labels"]``, plus 0.01 x the MoE aux."""
+    excluded) against ``batch["labels"]``, plus 0.01 x the MoE aux. Under
+    a mesh splitting ``vocab``, the logits of this rank's vocab rows are
+    gathered over the ranks before the cross-entropy (``gather_from``:
+    every rank then computes the whole loss of its batch rows)."""
+    params = _whole_embed(params, cfg)
     frontend = batch.get("frontend")
     hid, aux = forward_hidden(params, batch["tokens"], cfg, frontend)
     if frontend is not None:
         hid = hid[:, frontend.shape[1]:]
-    logits = unembed_logits(hid, params["embed"].to(hid.dtype))
+    logits = gather_from(unembed_logits(copy_to(hid, "vocab"),
+                                        params["embed"].to(hid.dtype)),
+                         -1, "vocab")
     return cross_entropy_loss(logits, batch["labels"], cfg.vocab) \
         + 0.01 * aux
 
@@ -860,7 +946,7 @@ def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Tied unembedding; a ``vocab``-split table's logits are gathered over
     the ranks (the reference constrains them to ``vocab``)."""
     hid = rmsnorm(x, params["final_norm"])
-    return gather_over(unembed_logits(hid, params["embed"].to(hid.dtype)),
+    return gather_from(unembed_logits(hid, params["embed"].to(hid.dtype)),
                        -1, "vocab")
 
 
@@ -1015,7 +1101,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         paged = {"table": table, "phi": phi, "max_pages": max_pages}
         lens_all, act_all = lengths, active
         if axis_size("batch") > 1:       # this rank's slots of a whole pool
-            lens_all = gather_over(lengths, 0, "batch")
+            lens_all = gather_from(lengths, 0, "batch")
             act_all = lens_all > 0
             paged["table"] = table[local_range(table.shape[0], "batch")]
             paged["all_rows"] = (lens_all, table)

@@ -9,7 +9,8 @@ old ones to the jitted step.
 ``compress_grads=True`` rounds ``grad + residual`` to bf16 and keeps the
 float32 remainder as the next step's residual (``OptState.err``), so the
 long-run update is unbiased while a data-parallel reduction would move
-half the bytes.
+half the bytes. In sharded training every state is a local shard, and
+the rounding works on the shard.
 
 Weight decay applies to every parameter with ``ndim >= 2``, as in the
 reference. That includes the layer-stacked ``(L, D)`` norm scales and the
@@ -23,6 +24,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import tree_zip_map as _zip_map
 
 __all__ = ["AdamW", "OptState"]
 
@@ -36,13 +38,6 @@ class OptState:
     mu: dict
     nu: dict
     err: Optional[dict] = None
-
-
-def _zip_map(fn, *trees):
-    """``fn`` over matching leaves of nested dicts with one structure."""
-    if isinstance(trees[0], dict):
-        return {k: _zip_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,10 +61,18 @@ class AdamW:
                         err=zeros() if self.compress_grads else None)
 
     @torch.no_grad()
-    def update(self, grads: dict, state: OptState, params: dict):
+    def update(self, grads: dict, state: OptState, params: dict, *,
+               split_axes: Optional[dict] = None):
         """One step, in place. Returns (params, state, metrics) with
         metrics ``grad_norm`` (before clipping) and ``lr`` as 0-dim device
-        tensors: nothing is read back to the host."""
+        tensors: nothing is read back to the host.
+
+        ``split_axes`` (sharded training, under the ambient mesh): per
+        leaf, the mesh axes its local shard is split on. The squares of
+        the leaves split on the same axes are summed locally and then over
+        those axes only, so a leaf replicated over an axis counts once,
+        and the norm is the unsharded one. The moments and the residuals
+        stay local shards, as the reference's out-shardings pin them."""
         grads = tree_map(lambda g: g.float(), grads)
         if self.compress_grads:
             summed = _zip_map(torch.add, grads, state.err)
@@ -77,7 +80,16 @@ class AdamW:
             _zip_map(lambda e, s, c: torch.sub(s, c, out=e), state.err,
                      summed, grads)
             del summed
-        gnorm = torch.sqrt(sum(g.square().sum() for g in tree_leaves(grads)))
+        if split_axes is None:
+            gnorm = torch.sqrt(sum(g.square().sum()
+                                   for g in tree_leaves(grads)))
+        else:
+            from repro_torch.dist.collectives import reduce_mesh_axes
+            squares: dict = {}
+            for g, axes in zip(tree_leaves(grads), tree_leaves(split_axes)):
+                squares[axes] = squares.get(axes, 0) + g.square().sum()
+            gnorm = torch.sqrt(sum(reduce_mesh_axes(v, axes)
+                                   for axes, v in sorted(squares.items())))
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         lr = self.lr_fn(state.step)

@@ -64,12 +64,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.dist.collectives import gather_over, local_range
-from repro_torch.dist.sharding import (Rules, mesh_axis_sizes, shard_put,
-                                       spec_for, use_mesh_rules)
+from repro_torch.dist.collectives import gather_from, local_range
+from repro_torch.dist.sharding import (Rules, even_rules, shard_put,
+                                       use_mesh_rules)
 from repro_torch.models import pairformer
 from repro_torch.models.api import Model
-from repro_torch.models.common import (PDef, shard_params, tree_leaves,
+from repro_torch.models.common import (TP_AXES, PDef, shard_params,
+                                       train_template, tree_leaves,
                                        tree_map)
 from repro_torch.models.lm import cast_layers
 from repro_torch.serve.lifecycle import (AdmissionRejected, PoolError,
@@ -82,41 +83,24 @@ from repro_torch.serve.scheduler import ChunkPlan, Request
 __all__ = ["Backend", "TokenDecodeBackend", "PairBatchBackend",
            "serve_rules"]
 
-# the tensor-parallel logical axes a served weight keeps split
-_TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "expert")
 
-
-def _serve_template(tmpl: dict, in_ssm: bool = False) -> dict:
+def _serve_template(tmpl: dict) -> dict:
     """The template with the axes of the weights' serve layout: the
-    tensor-parallel axes kept, every other one (``fsdp``, ``layers``)
-    replicated, and the SSM branch replicated whole."""
-    if isinstance(tmpl, dict):
-        return {k: _serve_template(v, in_ssm or k == "ssm")
-                for k, v in tmpl.items()}
-    return PDef(tmpl.shape, tuple(None if in_ssm or a not in _TP_AXES
-                                  else a for a in tmpl.axes), tmpl.init)
+    training layout's (``train_template``: the SSM branch whole on every
+    ``model`` rank) with only its tensor-parallel axes kept, every other
+    one (``fsdp``, ``layers``) replicated."""
+    return tree_map(lambda p: PDef(p.shape, tuple(
+        a if a in TP_AXES else None for a in p.axes), p.init),
+        train_template(tmpl))
 
 
 def serve_rules(tmpl: dict, mesh, rules: Rules, n_slots: int) -> Rules:
     """``rules`` with every logical axis that some leaf of ``tmpl`` (or the
     ``n_slots`` slot batch, for ``batch``) cannot split evenly over its
     mesh axes replicated for all of them, and ``heads`` / ``kv_heads``
-    replicated together: a layer's local q heads must group over its local
-    kv heads. Placement and the model's collectives then agree leaf for
-    leaf, where ``shard_put`` alone would replicate leaf by leaf."""
-    sizes = mesh_axis_sizes(mesh)
-
-    def split(logical):
-        entry = spec_for((logical,), mesh, rules)[0]
-        return int(np.prod([sizes[a] for a in entry])) if entry else 1
-
-    drop = {a for p in tree_leaves(tmpl) for n, a in zip(p.shape, p.axes)
-            if a is not None and n % split(a)}
-    if n_slots % split("batch"):
-        drop.add("batch")
-    if drop & {"heads", "kv_heads"}:
-        drop |= {"heads", "kv_heads"}
-    return Rules.make({**rules.table, **{a: None for a in drop}})
+    replicated together (``dist.even_rules``)."""
+    return even_rules(((p.shape, p.axes) for p in tree_leaves(tmpl)), mesh,
+                      rules, batch=n_slots)
 
 
 class Backend:
@@ -782,7 +766,7 @@ class TokenDecodeBackend(Backend):
                 self.params, self._cache,
                 torch.as_tensor(toks, device=self.device), offs, clens,
                 flens, max_pages=self._chunk_page_cap())
-            logits = gather_over(logits[:, 0], 0, "batch")
+            logits = gather_from(logits[:, 0], 0, "batch")
         self.n_chunk_steps += 1
         for slot in finalized:
             plan = self._pending.pop(slot)
@@ -805,7 +789,7 @@ class TokenDecodeBackend(Backend):
             logits, self._cache = self.model.decode(
                 self.params, self._cache, self._last_tok,
                 max_pages=self.page_cap(live))
-            logits = gather_over(logits[:, 0], 0, "batch")
+            logits = gather_from(logits[:, 0], 0, "batch")
         self.n_steps += 1
         mask = np.zeros((self.n_slots,), bool)
         for s, st in live.items():

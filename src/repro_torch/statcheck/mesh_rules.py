@@ -17,6 +17,13 @@ and "every rank quietly computed everything":
   reports each (leaf, dim) that would, outside an allow-list, so the
   replication is a decision, never a surprise.
 - ``check_backend_mesh``: the three on a live backend.
+- ``check_train_step``: one step of a sharded train step counted, the
+  counterpart of the reference's ``test_mini_multipod_lowering`` "has real
+  collectives": all-gathers and reduce-scatters of the FSDP weights where
+  ``fsdp`` splits, all-reduces where a tensor-parallel axis splits, and the
+  FSDP gathers per step held to ``fsdp_gathers_per_step`` — a gather
+  hoisted out of the layer body, or a backward that does not gather again
+  under remat, shows as a count off the formula.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ from repro_torch.dist.sharding import Rules, mesh_axis_sizes, spec_for
 
 __all__ = ["COLLECTIVE_OPS", "Finding", "count_collectives",
            "check_collectives", "check_state_axes", "shard_degradations",
-           "check_shard_divisibility", "check_backend_mesh"]
+           "check_shard_divisibility", "check_backend_mesh",
+           "fsdp_gathers_per_step", "check_train_step"]
 
 # the functional collectives a TP/DP-sharded step can issue
 COLLECTIVE_OPS = ("all_reduce", "all_gather_into_tensor",
@@ -166,14 +174,14 @@ def check_backend_mesh(backend, *, program: str = "decode",
     findings += check_shard_divisibility(
         shapes, axes_map, backend.mesh, backend.rules, program=program,
         allow=("length", "ssm_h", "conv_x", "conv_bc"))
-    from repro_torch.dist.collectives import gather_over
+    from repro_torch.dist.collectives import gather_from
     cache = {k: v.clone() for k, v in backend._cache.items()}
 
     def step():                  # the backend's step: decode, gather rows
         logits, _ = backend.model.decode(backend.params, cache,
                                          backend._last_tok,
                                          max_pages=backend.page_cap({}))
-        return gather_over(logits[:, 0], 0, "batch")
+        return gather_from(logits[:, 0], 0, "batch")
 
     with torch.no_grad(), backend._sharded():
         _, counts = count_collectives(step)
@@ -181,3 +189,72 @@ def check_backend_mesh(backend, *, program: str = "decode",
                                   expect_any=expect_any,
                                   expect_all=expect_all, forbid=forbid)
     return findings
+
+
+def _fsdp_split_leaves(layout) -> Tuple[int, int]:
+    """(per-layer leaves, other leaves) whose ``fsdp`` dim ``layout`` splits
+    over more than one rank (a dim that does not divide is replicated)."""
+    from repro_torch.models.common import template_map, tree_leaves
+    sizes = mesh_axis_sizes(layout.mesh)
+
+    def split(p, spec, path):
+        if "fsdp" not in p.axes:
+            return 0
+        entry = spec[p.axes.index("fsdp")]
+        n = math.prod(sizes[a] for a in entry) if entry else 1
+        return (2 if path[0] == "layers" else 1) if n > 1 else 0
+    flags = tree_leaves(template_map(split, layout.template, layout.specs))
+    return flags.count(2), flags.count(1)
+
+
+def fsdp_gathers_per_step(layout, cfg) -> Tuple[int, int]:
+    """(all-gathers, reduce-scatters) of the FSDP weights in one step:
+    each layer leaf whose ``fsdp`` dim splits is gathered once per layer
+    and microbatch, and once more where remat recomputes the layer in the
+    backward; each other such leaf (the tied embedding) once per
+    microbatch. Each gather's backward reduce-scatters once."""
+    per_layer, other = _fsdp_split_leaves(layout)
+    remat = 1 if cfg.remat == "none" else 2
+    a = cfg.grad_accum
+    return (a * (per_layer * cfg.n_layers * remat + other),
+            a * (per_layer * cfg.n_layers + other))
+
+
+def check_train_step(step, params, opt_state, batch, cfg, *,
+                     program: str = "train"):
+    """Run ``step`` (a ``make_train_step(mesh=)`` step) once under
+    ``CommDebugMode`` on ``params`` / ``opt_state`` (updated in place) and
+    check its collectives: where ``fsdp`` splits, the all-gathers and
+    reduce-scatters of the FSDP weights, their counts equal to
+    ``fsdp_gathers_per_step`` (the all-gathers plus one logits gather per
+    microbatch where ``vocab`` splits); where a tensor-parallel axis
+    splits, an all-reduce. Returns (counts, findings)."""
+    from repro_torch.models.common import TP_AXES
+    layout = step.layout
+    if layout is None:
+        raise ValueError("the step has no mesh")
+    sizes = mesh_axis_sizes(layout.mesh)
+
+    def ranks(logical):
+        entry = spec_for((logical,), layout.mesh, layout.rules)[0]
+        return math.prod(sizes[a] for a in entry) if entry else 1
+    _, counts = count_collectives(step, params, opt_state, batch)
+    gathers, scatters = fsdp_gathers_per_step(layout, cfg)
+    expect = []
+    if gathers:
+        expect += ["all_gather_into_tensor", "reduce_scatter_tensor"]
+    if any(ranks(a) > 1 for a in TP_AXES):
+        expect.append("all_reduce")
+    findings = check_collectives(counts, program=program,
+                                 expect_any=tuple(expect),
+                                 expect_all=tuple(expect))
+    logits = cfg.grad_accum if ranks("vocab") > 1 else 0
+    for op, want in (("all_gather_into_tensor", gathers + logits),
+                     ("reduce_scatter_tensor", scatters)):
+        if counts.get(op, 0) != want:
+            findings.append(Finding(
+                "fsdp-gathers", program,
+                f"{counts.get(op, 0)} {op} in one step, expected {want} "
+                f"(FSDP weights x layers x microbatches x remat, "
+                f"fsdp_gathers_per_step; {logits} logits gathers)"))
+    return counts, findings

@@ -17,6 +17,14 @@
 
 A step's wall time ends on a host read of its loss, where the reference
 blocks until the loss is ready: the step's work on the card is then done.
+
+Sharded (``run(..., shardings=layout)``, a ``models.common.TrainLayout``
+of the local shards the step takes): checkpoints hold the global leaves
+(``layout.dtensors`` views; rank 0 writes) and a restore puts them onto
+this run's mesh, whatever mesh saved them. All ranks resume from the step
+rank 0 finds and stop on rank 0's preemption notice; only rank 0 writes
+the log. The watchdog reads each rank's
+own step time.
 """
 from __future__ import annotations
 
@@ -46,13 +54,27 @@ class TrainLoop:
     straggler_floor_s: float = 0.01
     on_straggler: Optional[Callable[[int, float], None]] = None
 
-    def run(self, params, opt_state, num_steps: int, *, start_step: int = 0):
+    def run(self, params, opt_state, num_steps: int, *, start_step: int = 0,
+            shardings=None):
         """Run up to ``num_steps`` total steps; resumes from checkpoints.
         Returns (params, opt_state, info)."""
         step = start_step
-        if self.ckpt_dir and latest_step(self.ckpt_dir) is not None:
+        lead = True                          # writes the log
+        latest = latest_step(self.ckpt_dir) if self.ckpt_dir else None
+        if shardings is not None:
+            import torch.distributed as dist
+            lead = dist.get_rank() == 0
+            agreed = [latest]
+            dist.broadcast_object_list(agreed, src=0)
+            latest = agreed[0]
+        if latest is not None:
+            tree = (params, opt_state)
+            if shardings is not None:
+                tree = shardings.dtensors(tree)
             (params, opt_state), extras = restore_checkpoint(
-                self.ckpt_dir, None, (params, opt_state))
+                self.ckpt_dir, latest, tree)
+            if shardings is not None:
+                params, opt_state = shardings.local((params, opt_state))
             step = int(extras["step"]) + 1
 
         preempted = {"flag": False}
@@ -65,7 +87,7 @@ class TrainLoop:
         window: list = []      # outlier-excluded (straggler median)
         stragglers = 0
         consec_outliers = 0
-        log_f = open(self.log_path, "a") if self.log_path else None
+        log_f = open(self.log_path, "a") if self.log_path and lead else None
         try:
             while step < num_steps:
                 t0 = time.monotonic()
@@ -97,12 +119,19 @@ class TrainLoop:
                     log_f.write(json.dumps(rec) + "\n")
                     log_f.flush()
 
+                if shardings is not None:    # rank 0's notice decides
+                    flag = [preempted["flag"]]
+                    dist.broadcast_object_list(flag, src=0)
+                    preempted["flag"] = flag[0]
                 must_save = (self.ckpt_dir and
                              ((step + 1) % self.ckpt_every == 0
                               or preempted["flag"]
                               or step + 1 == num_steps))
                 if must_save:
-                    save_checkpoint(self.ckpt_dir, step, (params, opt_state),
+                    tree = (params, opt_state)
+                    if shardings is not None:
+                        tree = shardings.dtensors(tree)
+                    save_checkpoint(self.ckpt_dir, step, tree,
                                     extras={"step": step},
                                     keep_n=self.keep_n)
                 if preempted["flag"]:
