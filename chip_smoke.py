@@ -316,7 +316,9 @@ as it runs, any failure ending the run:
               GB at full depth). The step's host time, device busy
               (a profile checked against the counters), idle share,
               tokens/s, the share of 989 TFLOP/s the model FLOPs reach
-              (``train_flops``), peak memory, and kernel 1's forward and
+              (``train_flops``: the roofline's ``model_flops``, 6 x active
+              parameters x tokens, plus ``attention_kernel_flops`` at the
+              step's ``ShapeSpec``), peak memory, and kernel 1's forward and
               the plain attention backward at the step's shape with the
               backward's share of the step. Then Mamba2-130M whole
               (remat "dots", grad_accum 4): step 0 against the plain path
@@ -396,14 +398,37 @@ as it runs, any failure ending the run:
               alternating) are logged beside the card's
               name and power limit. No collective runs on one rank: the
               CPU tests (``gloo``) carry the collectives.
+28. dryrun  — the cost model against the card (``launch.dryrun``: the
+              step run on the host on fake tensors with ``impl="io_stub"``
+              kernels, which validate and allocate but launch nothing):
+              GPT-2-ALiBi-1.5B at full width, bf16, weights from
+              ``--seed``, in three cells (``dryrun_cells``): phase 22's
+              train step (TRAIN_LAYERS, TRAIN_BATCH x TRAIN_SEQ, remat
+              "dots", grad_accum 4; kernel 1 2 x 12 x 4 = 96 times), a
+              prefill wave of DRYRUN_PREFILL at N_LAYERS (kernel 1, 24)
+              and a contiguous decode step of DRYRUN_DECODE at N_LAYERS
+              (kernel 3, 24). Each predicted on the host, then run on the
+              card after a warm-up step: the io_stub's kernel calls equal
+              to the launch counters' movement, ``FlopCounterMode``'s count
+              of the card's step equal to the dry run's (the differing ops
+              named otherwise), the card's memory in parts: arguments
+              and resident bytes (cuBLAS workspaces, arrival counters:
+              ``dryrun.resident_bytes``) exactly as predicted, the step's
+              temporaries in DRYRUN_TEMP_BAND (plus DRYRUN_TEMP_SLACK) and
+              its peak (``max_memory_allocated`` after
+              ``reset_peak_memory_stats``) in DRYRUN_PEAK_BAND of the
+              predicted ones; the roofline of the step's deployment
+              terms (compute, memory and collective ms, the dominant term)
+              beside the device busy time of one profiled step.
 
-Phases 13-14 and 17-27 each run in a process of their own (``run_child``):
+Phases 13-14 and 17-28 each run in a process of their own (``run_child``):
 late in a long process torch.profiler has lost device events (PERF.md
 section 7), and phase 13's library profile did so in PR 22's first full
-run. Kernel 1's ``launches`` in the record adds phases 13, 14 and 17-27
+run. Kernel 1's ``launches`` in the record adds phases 13, 14 and 17-28
 to the serve phase's (phases 23-24: their training steps; 25: the
 SVD-factor gradient run; 26: its sharded engines'; 27: its sharded train
-steps), kernels 3 and 4 add phases 18-21's and 26's, kernel 5's adds
+steps; 28: its measured steps), kernels 3 and 4 add phases 18-21's, 26's
+and (kernel 3) 28's, kernel 5's adds
 phases 17, 18, 22, 26 and 27's (27: the sharded steps and the
 launcher's); their
 times stay at the LM prefill, LM decode and SSM shapes (the other shapes'
@@ -431,8 +456,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
+# the card's data-sheet figures, from the port's one source of them
+from repro_torch.hw import H100_SXM  # noqa: E402
+
+HBM_BYTES_PER_S = H100_SXM.hbm_bandwidth       # 3.35e12 B/s
+BF16_FLOP_PER_S = H100_SXM.peak_flops_bf16     # 989e12, dense bf16
 # GPT-2's serve phases (3-6c, 15-16, 26) run N_LAYERS of its 48 layers
 # (cut when phase 27 was added, PERF.md section 4)
 N_LAYERS = 24
@@ -4587,17 +4615,27 @@ def train_setup(cfg, seed: int, steps: int):
     return fresh, step_fn, data_fn
 
 
-def train_flops(cfg, n_params: int) -> float:
-    """Model FLOPs of one training step: 6 x parameters x tokens (the
-    forward's 2 and the backward's 4 per parameter and token; the tied
-    embedding counts once, for the unembedding product) plus attention's
-    two products, causal (half the (N, N) work), forward and backward (3x
-    the forward's 2 x 2 x N^2 x D per head), at the padded heads the card
-    computes; recomputation not counted."""
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    attn = (3 * 4 * cfg.heads_padded * cfg.resolved_head_dim * TRAIN_SEQ
-            * TRAIN_SEQ / 2 * TRAIN_BATCH * cfg.n_layers)
-    return 6.0 * n_params * tokens + attn
+def train_shape():
+    """Phase 22's step as a dry-run shape: TRAIN_BATCH x TRAIN_SEQ."""
+    from repro_torch.configs import ShapeSpec
+    return ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ,
+                     TRAIN_BATCH, "train")
+
+
+def train_flops(cfg) -> float:
+    """Model FLOPs of one training step, by the roofline's definition
+    (``analysis.roofline``): ``model_flops`` (6 x the active, unpadded
+    parameters x tokens; the tied embedding once, as the unembedding)
+    plus ``attention_kernel_flops`` (causal: half the pairs, 2 x 2 x D + 4
+    (ALiBi) FLOPs a pair and head, at the padded heads the card computes,
+    forward and backward 3x) at the step's ``ShapeSpec`` on one card, with
+    kernel 1's 64-row tiles; recomputation not counted."""
+    from repro_torch.analysis.roofline import (attention_kernel_flops,
+                                               model_flops)
+    from repro_torch.kernels.io_stub import KERNEL1_TILE
+    shape = train_shape()
+    return model_flops(cfg, shape) + attention_kernel_flops(
+        cfg, shape, 1, 1, block=KERNEL1_TILE[0])
 
 
 def attention_train_ms(cfg, micro: int) -> dict:
@@ -4750,13 +4788,14 @@ def phase_train(seed: int, card: str) -> dict:
     busy, kernels = profile_steps(step, 1)
     host = float(np.median(walls[1:] + walls_more))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops(cfg, n_params)
+    flops = train_flops(cfg)
     log("train", f"step: {host * 1e3:.1f} ms on the host clock (median of "
                  f"steps 1-{TRAIN_STEPS - 1} and 2 more; step 0 "
                  f"{walls[0] * 1e3:.1f} ms), device busy {busy:.1f} ms, "
                  f"idle share {1 - busy / (host * 1e3):.3f}; "
                  f"{tokens / host:.0f} tokens/s; model FLOPs {flops:.4e} a "
-                 f"step: {flops / host / BF16_FLOP_PER_S:.4f} of 989 "
+                 f"step (roofline model_flops + attention_kernel_flops): "
+                 f"{flops / host / BF16_FLOP_PER_S:.4f} of 989 "
                  f"TFLOP/s on the host clock, {flops / (busy / 1e3) / BF16_FLOP_PER_S:.4f} "
                  f"of device busy; peak memory "
                  f"{peak / 2**30:.2f} GiB [{card}]")
@@ -5580,6 +5619,188 @@ def phase_sharded_train(seed: int, card: str) -> dict:
         "gpt2": gpt2, "ssm": ssm}
 
 
+# phase 28: the dry run's predictions against the card. The cells are
+# GPT-2-ALiBi-1.5B at full width: phase 22's train step (TRAIN_LAYERS,
+# TRAIN_BATCH x TRAIN_SEQ, its remat and grad_accum), a prefill wave of
+# DRYRUN_PREFILL (slots, tokens) and a contiguous decode step of
+# DRYRUN_DECODE (slots, cache positions) at N_LAYERS. The card's memory
+# (``torch.cuda.memory_allocated``, ``max_memory_allocated`` over the
+# step after a warm-up step and ``reset_peak_memory_stats``) is held to
+# the prediction in three parts: the arguments exactly; what the process
+# holds beside its steps exactly (``dryrun.resident_bytes``: the cuBLAS
+# workspaces, the arrival counters); the step's temporaries (peak minus
+# what was held before it) in DRYRUN_TEMP_BAND x the predicted ones plus
+# DRYRUN_TEMP_SLACK, the caching allocator's largest excess for one
+# cached block it hands out whole (aten kernels' own scratch, which the
+# dry run does not see, only adds); and the whole peak in
+# DRYRUN_PEAK_BAND x the predicted peak plus the resident bytes. The
+# bands were written into PERF.md before the first card run that held
+# them.
+DRYRUN_PREFILL, DRYRUN_DECODE = (4, 512), (4, 2048)
+DRYRUN_TEMP_BAND, DRYRUN_TEMP_SLACK = (1.00, 1.10), 1 << 20
+DRYRUN_PEAK_BAND = (1.00, 1.05)
+
+
+def dryrun_cells():
+    """(label, config, ShapeSpec, kernel, launches a step) of phase 28."""
+    from repro_torch.configs import ShapeSpec, get_config
+    full = get_config("gpt2_alibi_15b")
+    train = full.replace(n_layers=TRAIN_LAYERS)
+    serve = full.replace(n_layers=N_LAYERS)
+    remat = 2 if train.remat != "none" else 1
+    (pb, pn), (db, ds) = DRYRUN_PREFILL, DRYRUN_DECODE
+    return [("train", train, train_shape(), "flashbias_attention_fwd",
+             remat * train.n_layers * train.grad_accum),
+            ("prefill", serve, ShapeSpec(f"prefill_{pb}x{pn}", pn, pb,
+                                         "prefill"),
+             "flashbias_attention_fwd", serve.n_layers),
+            ("decode", serve, ShapeSpec(f"decode_{db}x{ds}", ds, db,
+                                        "decode"),
+             "flash_decode_fwd", serve.n_layers)]
+
+
+def phase_dryrun(seed: int, card: str) -> dict:
+    """The dry run (``launch.dryrun``: the step on fake tensors with the
+    ``io_stub`` kernels, on the host) against the same steps on the card,
+    per cell of ``dryrun_cells``: the stub's kernel calls equal to the
+    launch counters' movement, ``FlopCounterMode``'s count of the real
+    step equal to the dry run's count of the same aten ops, the card's
+    memory against the prediction (arguments and resident bytes exact,
+    temporaries in DRYRUN_TEMP_BAND, the peak in DRYRUN_PEAK_BAND), and
+    the roofline of the step's deployment terms beside its device busy
+    time (one profiled step, checked against the counters)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis.roofline import roofline_report
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.launch import dryrun
+    log("dryrun", f"torch {torch.__version__}: MemTracker, FlopCounterMode "
+                  f"and FakeTensorMode imported; card memory "
+                  f"{torch.cuda.get_device_properties(0).total_memory} "
+                  f"bytes (spec {H100_SXM.name}: {H100_SXM.hbm_bytes}) "
+                  f"[{card}]")
+    launches = {}
+    rows = {}
+    base = torch.cuda.memory_allocated()
+    gemm_threads, decode_rows = 1, 0
+    for label, cfg, shape, kernel, per_step in dryrun_cells():
+        check_width(cfg, (cfg.d_model, cfg.heads_padded,
+                          cfg.resolved_head_dim, cfg.vocab_padded),
+                    (1600, 64, 32, 50272))
+        t0 = time.monotonic()
+        pred = dryrun.run_step(cfg.replace(attn_impl="io_stub"), shape,
+                               None, Rules(), device="cuda", seed=seed)
+        t_pred = time.monotonic() - t0
+        calls = {k: v["calls"] for k, v in pred["kernels"].items()}
+        before = torch.cuda.memory_allocated()
+        fn, externals, _ = dryrun.prepare(cfg.replace(attn_impl="cuda"),
+                                          shape, None, Rules(), "cuda",
+                                          fake=False, seed=seed)
+        args_blocks = torch.cuda.memory_allocated() - before
+        args = dryrun.storage_bytes(dryrun.tensors(externals),
+                                    dryrun.CUDA_BLOCK)
+        fn()                                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        if shape.kind == "train":
+            gemm_threads = 2
+        if kernel == "flash_decode_fwd":
+            decode_rows = shape.global_batch * cfg.kv_heads_padded
+        resident = held - base - args_blocks
+        resident_pred = dryrun.resident_bytes(gemm_threads=gemm_threads,
+                                              decode_rows=decode_rows)
+        counters = reset_counters()
+        with FlopCounterMode(display=False) as fc:
+            out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        moved = {n: w.launches for n, w in counters.items() if w.launches}
+        flops = float(fc.get_total_flops())
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in dryrun.tensors(out) if t.is_floating_point())
+        busy, _ = profile_steps(fn, 1)
+        merge_launches(launches, moved)
+        kt = pred["kernels"][kernel]
+        dep_flops, dep_bytes = dryrun.deployment_terms(pred)
+        rep = roofline_report(flops_per_device=dep_flops,
+                              bytes_per_device=dep_bytes,
+                              coll_bytes_per_device=0.0, cfg=cfg,
+                              shape=shape, n_devices=1)
+        mem = pred["memory"]
+        temp = peak - held
+        temp_pred = mem["peak_bytes"] - mem["argument_bytes"]
+        temp_hi = DRYRUN_TEMP_BAND[1] * temp_pred + DRYRUN_TEMP_SLACK
+        ratio = (peak - base) / (mem["peak_bytes"] + resident_pred)
+        dominant_ms = rep[rep["dominant"]] * 1e3
+        log("dryrun", f"{label} ({shape.name}, {cfg.n_layers} layers): "
+                      f"predicted on the host in {t_pred:.1f}s; kernel "
+                      f"calls predicted {calls}, launched {moved} "
+                      f"(expected {kernel} x {per_step}); FLOPs (aten) "
+                      f"predicted {pred['flops']:.6e}, counted on the card "
+                      f"{flops:.6e} [{card}]")
+        log("dryrun", f"{label} memory, predicted -> card (bytes): "
+                      f"arguments {mem['argument_bytes']} -> {args} "
+                      f"({args_blocks} in the allocator's blocks); "
+                      f"resident {resident_pred} -> {resident} (cuBLAS "
+                      f"workspaces of {gemm_threads} threads, arrival "
+                      f"counters of {decode_rows} rows); temporaries "
+                      f"{temp_pred} -> {temp} ({temp / temp_pred:.4f} x, "
+                      f"band {DRYRUN_TEMP_BAND} + {DRYRUN_TEMP_SLACK}); "
+                      f"peak {mem['peak_bytes']} + {resident_pred} -> "
+                      f"{peak - base} ({ratio:.4f} x, band "
+                      f"{DRYRUN_PEAK_BAND}; {(peak - base) / 2**30:.3f} GiB) "
+                      f"[{card}]")
+        log("dryrun", f"{label} roofline ({H100_SXM.name} data sheet, the "
+                      f"io_stub's deployment terms; {kernel}: "
+                      f"{kt['flops']:.4e} FLOPs, "
+                      f"{kt['bytes'] + kt['reread_bytes']:.4e} bytes): "
+                      f"compute {rep['compute_s'] * 1e3:.4f} ms, memory "
+                      f"{rep['memory_s'] * 1e3:.4f} ms, collective "
+                      f"{rep['collective_s'] * 1e3:.4f} ms, dominant "
+                      f"{rep['dominant']}; device busy {busy:.3f} ms, "
+                      f"{busy / dominant_ms:.3f} x the dominant term "
+                      f"[{card}]")
+        rows[label] = {"pred_peak": mem["peak_bytes"],
+                       "peak": peak - base, "ratio": ratio,
+                       "args_pred": mem["argument_bytes"], "args": args,
+                       "args_blocks": args_blocks,
+                       "resident_pred": resident_pred, "resident": resident,
+                       "temp_pred": temp_pred, "temp": temp,
+                       "flops_pred": pred["flops"], "flops": flops,
+                       "calls": calls, "launched": moved, "busy_ms": busy,
+                       "compute_ms": rep["compute_s"] * 1e3,
+                       "memory_ms": rep["memory_s"] * 1e3,
+                       "dominant": rep["dominant"]}
+        bad = []
+        if calls != {kernel: per_step} or moved != calls:
+            bad.append(f"kernel calls {calls} / launched {moved} != "
+                       f"{{{kernel}: {per_step}}}")
+        if flops != pred["flops"]:
+            ops = {str(k): v for k, v in
+                   fc.get_flop_counts().get("Global", {}).items()}
+            bad.append(f"FLOPs {flops} != predicted {pred['flops']} "
+                       f"(card's per op: {ops})")
+        if args != mem["argument_bytes"]:
+            bad.append(f"argument bytes {args} != predicted "
+                       f"{mem['argument_bytes']}")
+        if resident != resident_pred:
+            bad.append(f"resident bytes {resident} != predicted "
+                       f"{resident_pred}")
+        if not DRYRUN_TEMP_BAND[0] * temp_pred <= temp <= temp_hi:
+            bad.append(f"temporaries {temp} outside [{temp_pred}, "
+                       f"{temp_hi:.0f}]")
+        if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+            bad.append(f"peak ratio {ratio:.4f} outside {DRYRUN_PEAK_BAND}")
+        if not finite:
+            bad.append("non-finite output")
+        if bad:
+            raise AssertionError(f"dryrun {label}: {'; '.join(bad)}")
+        del fn, externals, out
+        torch.cuda.empty_cache()
+    return {"launches": launches, "cells": rows}
+
+
 def bound(bytes_: int, flops: int) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -5618,7 +5839,8 @@ CHILD_PHASES = {"swin": lambda seed, card: {"launches": {
                 "frontends": phase_frontends, "train": phase_train,
                 "pair-train": phase_pair_train, "pde-train": phase_pde_train,
                 "swin-train": phase_swin_train, "sharded": phase_sharded,
-                "sharded-train": phase_sharded_train}
+                "sharded-train": phase_sharded_train,
+                "dryrun": phase_dryrun}
 
 
 def main(argv=None) -> int:
@@ -5626,7 +5848,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", choices=tuple(CHILD_PHASES), default=None,
                     help="run one phase alone (the full run starts phases "
-                         "13-14 and 17-27 this way, each in a process of "
+                         "13-14 and 17-28 this way, each in a process of "
                          "its own)")
     args = ap.parse_args(argv)
 
@@ -5734,7 +5956,7 @@ def main(argv=None) -> int:
         launches[name] += hybrid[name]
     for phase in ("paged-hybrid", "moe", "dense-configs", "frontends",
                   "train", "pair-train", "pde-train", "swin-train",
-                  "sharded", "sharded-train"):
+                  "sharded", "sharded-train", "dryrun"):
         merge_launches(launches, run_child(phase, args.seed)["launches"])
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"

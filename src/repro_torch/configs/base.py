@@ -11,7 +11,9 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-__all__ = ["ArchConfig", "ARCH_IDS", "get_config", "smoke_config"]
+__all__ = ["ArchConfig", "ARCH_IDS", "REFERENCE_ARCH_IDS", "PAPER_IDS",
+           "ShapeSpec", "SHAPES", "get_config", "smoke_config",
+           "list_archs", "cells"]
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -166,6 +168,23 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str      # "train" | "prefill" | "decode"
+
+
+# the dry run's shape registry, the reference's field for field
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
 # The architectures the port runs: the dense (the two frontend configs
 # among them), MoE, SSM and hybrid families and the Pairformer (served),
 # and the paper's vision and PDE models (forward): all 14 of the
@@ -190,3 +209,42 @@ def get_config(arch_id: str) -> ArchConfig:
 def smoke_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).SMOKE
 
+
+
+# The reference's catalogue of the dry run (its ``ARCH_IDS``, in its
+# order) and the paper's four models. The port's own ``ARCH_IDS`` above
+# names everything ``get_config`` loads.
+REFERENCE_ARCH_IDS = [
+    "musicgen_medium",
+    "command_r_plus_104b",
+    "minicpm_2b",
+    "stablelm_12b",
+    "codeqwen15_7b",
+    "phi3_vision_42b",
+    "llama4_scout_17b_a16e",
+    "granite_moe_3b_a800m",
+    "hymba_15b",
+    "mamba2_130m",
+]
+
+PAPER_IDS = ["gpt2_alibi_15b", "swinv2_b", "pde_solver", "pairformer_lite"]
+
+
+def list_archs(include_paper: bool = False):
+    return list(REFERENCE_ARCH_IDS) + (list(PAPER_IDS) if include_paper
+                                       else [])
+
+
+def cells():
+    """All (arch_id, shape_name) dry-run cells, with the reference's skips:
+    ``long_500k`` needs sub-quadratic attention, so it runs only for the
+    SSM (mamba2) and hybrid (hymba: sliding window + constant state)
+    archs."""
+    out = []
+    for a in REFERENCE_ARCH_IDS:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            if s.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+                continue
+            out.append((a, s.name))
+    return out

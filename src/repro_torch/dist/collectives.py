@@ -59,6 +59,7 @@ import math
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from repro_torch.dist.sharding import get_active_mesh, spec_for
 
@@ -85,8 +86,10 @@ def _mesh_group(mesh, entry) -> Optional[tuple]:
                 rank = 0
                 for d in dims:                       # major to minor
                     rank = rank * mesh.size(d) + mesh.get_local_rank(d)
-                group = ((mesh, dims[0]) if len(dims) == 1
-                         else mesh[tuple(entry)]._flatten())
+                # a flattened mesh holds real tensors, under a fake mode too
+                with unset_fake_temporarily():
+                    group = ((mesh, dims[0]) if len(dims) == 1
+                             else mesh[tuple(entry)]._flatten())
                 found = (group, size, rank)
         _MESH_GROUPS[key] = (mesh, found)             # keep the id alive
     return _MESH_GROUPS[key][1]

@@ -234,6 +234,7 @@ def _kernel():
 
 
 _ARRIVALS: dict = {}
+MIN_ARRIVALS = 1024
 
 
 def _arrivals(device: torch.device, n: int) -> torch.Tensor:
@@ -241,7 +242,8 @@ def _arrivals(device: torch.device, n: int) -> torch.Tensor:
     here, left at zero by every launch."""
     buf = _ARRIVALS.get(device)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        buf = torch.zeros(max(n, MIN_ARRIVALS), dtype=torch.int32,
+                          device=device)
         _ARRIVALS[device] = buf
     return buf
 
@@ -303,19 +305,72 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_buffers(q, s_len, dv, r, smem):
-    """Output, split partials and arrival counters of one launch, and the
-    split span; raises where the shapes exceed the kernel's shared memory."""
+def _buffers(q, s_len, dv, r):
+    """Output and split partials of one launch over ``s_len`` keys, and the
+    split span."""
     b, kvh, g, d = q.shape
     span = split_span(d, dv, r, q.dtype)
-    if smem(g, d, dv, r, span, _DTYPES[q.dtype]) > _SMEM_LIMIT:
-        raise ValueError(f"group {g}, head dims {d}/{dv}, rank {r} exceed "
-                         f"the kernel's shared memory")
     splits = -(-s_len // span)
     out = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
     part = torch.empty((b * kvh * splits * g * (dv + 2) if splits > 1 else 0,),
                        dtype=torch.float32, device=q.device)
+    return out, part, span
+
+
+def _launch_buffers(q, s_len, dv, r, smem):
+    """Output, split partials and arrival counters of one launch, and the
+    split span; raises where the shapes exceed the kernel's shared memory."""
+    out, part, span = _buffers(q, s_len, dv, r)
+    b, kvh, g, d = q.shape
+    if smem(g, d, dv, r, span, _DTYPES[q.dtype]) > _SMEM_LIMIT:
+        raise ValueError(f"group {g}, head dims {d}/{dv}, rank {r} exceed "
+                         f"the kernel's shared memory")
     return out, part, _arrivals(q.device, b * kvh), span
+
+
+def _check_contiguous(q, k_cache, v_cache, lengths, phi_q, phi_k, slopes,
+                      k_new, v_new):
+    """``flash_decode_fwd``'s checks; returns (S, phi_q, phi_k, slopes, r)
+    as ``_check`` does."""
+    b, kvh, g, d = q.shape
+    s_len = k_cache.shape[2]
+    if k_cache.shape != (b, kvh, s_len, d) or v_cache.shape[:3] != (b, kvh,
+                                                                    s_len):
+        raise ValueError(f"cache shapes {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if phi_k is not None and phi_k.shape[:3] != (b, kvh, s_len):
+        raise ValueError(f"phi_k shape {tuple(phi_k.shape)}; want "
+                         f"(B,KVH,S,R)")
+    return (s_len, *_check("flash_decode_fwd", q, k_cache, v_cache, lengths,
+                           phi_q, phi_k, slopes, k_new, v_new))
+
+
+def _check_paged(q, k_pages, v_pages, lengths, page_table, phi_q, phi_pages,
+                 slopes, k_new, v_new):
+    """``flash_decode_paged_fwd``'s checks; returns (phi heads, phi_q,
+    phi_pages, slopes, r) as ``_check`` does."""
+    b, kvh, g, d = q.shape
+    n_pages, ps = k_pages.shape[1], k_pages.shape[2]
+    if (k_pages.shape != (kvh, n_pages, ps, d)
+            or v_pages.shape[:3] != (kvh, n_pages, ps)):
+        raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}; want (KVH, n_pages, ps, D)")
+    if (page_table.dim() != 2 or page_table.shape[0] != b
+            or page_table.shape[1] < 1 or page_table.dtype != torch.int32):
+        raise ValueError(f"page_table must be ({b}, P) int32, got "
+                         f"{tuple(page_table.shape)} {page_table.dtype}")
+    phi_heads = 0
+    if phi_pages is not None:
+        phi_heads = phi_pages.shape[0]
+        if phi_pages.dim() != 4 or phi_heads not in (1, kvh) or \
+                phi_pages.shape[1:3] != (n_pages, ps):
+            raise ValueError(f"phi slab shape {tuple(phi_pages.shape)}; "
+                             f"want (1|KVH, n_pages, ps, R)")
+    return (phi_heads, *_check("flash_decode_paged_fwd", q, k_pages, v_pages,
+                               lengths, phi_q, phi_pages, slopes, k_new,
+                               v_new, extra=(page_table,)))
 
 
 def flash_decode_fwd(
@@ -338,19 +393,10 @@ def flash_decode_fwd(
                                   v_new=v_new)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_fwd: no kernel for device {q.device}")
+    s_len, phi_q, phi_k, slopes, r = _check_contiguous(
+        q, k_cache, v_cache, lengths, phi_q, phi_k, slopes, k_new, v_new)
     b, kvh, g, d = q.shape
-    s_len, dv = k_cache.shape[2], v_cache.shape[-1]
-    if k_cache.shape != (b, kvh, s_len, d) or v_cache.shape[:3] != (b, kvh,
-                                                                    s_len):
-        raise ValueError(f"cache shapes {tuple(k_cache.shape)} / "
-                         f"{tuple(v_cache.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    if phi_k is not None and phi_k.shape[:3] != (b, kvh, s_len):
-        raise ValueError(f"phi_k shape {tuple(phi_k.shape)}; want "
-                         f"(B,KVH,S,R)")
-    phi_q, phi_k, slopes, r = _check("flash_decode_fwd", q, k_cache, v_cache,
-                                     lengths, phi_q, phi_k, slopes, k_new,
-                                     v_new)
+    dv = v_cache.shape[-1]
     fn, _, smem = _kernel()
     out, part, arrivals, span = _launch_buffers(q, s_len, dv, r, smem)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -391,27 +437,11 @@ def flash_decode_paged_fwd(
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_paged_fwd: no kernel for device "
                          f"{q.device}")
+    phi_heads, phi_q, phi_pages, slopes, r = _check_paged(
+        q, k_pages, v_pages, lengths, page_table, phi_q, phi_pages, slopes,
+        k_new, v_new)
     b, kvh, g, d = q.shape
     n_pages, ps, dv = k_pages.shape[1], k_pages.shape[2], v_pages.shape[-1]
-    if (k_pages.shape != (kvh, n_pages, ps, d)
-            or v_pages.shape[:3] != (kvh, n_pages, ps)):
-        raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not match q "
-                         f"{tuple(q.shape)}; want (KVH, n_pages, ps, D)")
-    if (page_table.dim() != 2 or page_table.shape[0] != b
-            or page_table.shape[1] < 1 or page_table.dtype != torch.int32):
-        raise ValueError(f"page_table must be ({b}, P) int32, got "
-                         f"{tuple(page_table.shape)} {page_table.dtype}")
-    phi_heads = 0
-    if phi_pages is not None:
-        phi_heads = phi_pages.shape[0]
-        if phi_pages.dim() != 4 or phi_heads not in (1, kvh) or \
-                phi_pages.shape[1:3] != (n_pages, ps):
-            raise ValueError(f"phi slab shape {tuple(phi_pages.shape)}; "
-                             f"want (1|KVH, n_pages, ps, R)")
-    phi_q, phi_pages, slopes, r = _check(
-        "flash_decode_paged_fwd", q, k_pages, v_pages, lengths, phi_q,
-        phi_pages, slopes, k_new, v_new, extra=(page_table,))
     _, fn, smem = _kernel()
     width = page_table.shape[1]
     out, part, arrivals, span = _launch_buffers(q, width * ps, dv, r, smem)

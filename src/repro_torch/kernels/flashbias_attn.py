@@ -150,12 +150,10 @@ def _aligned(t: Optional[torch.Tensor]):
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _checked(q, k, v, phi_q, phi_k, slopes, mask_kind, window, name):
-    """Validate a CUDA launch's inputs; returns the dims, the (padded) q, k,
-    v, the float32 contiguous factors and slopes, the output tensor and the
+def _validated(q, k, v, phi_q, phi_k, slopes, mask_kind, window, name):
+    """Validate a launch's inputs on any device; returns the dims, the
+    (padded) q, k, v, the float32 contiguous factors and slopes and the
     output's true head dim."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {q.device}")
     b, h, n, d = q.shape
     if k.ndim != 4 or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k shape {tuple(k.shape)} does not match q "
@@ -197,16 +195,34 @@ def _checked(q, k, v, phi_q, phi_k, slopes, mask_kind, window, name):
         if r > _MAX_RANK_TC:
             raise ValueError(f"rank {r} > {_MAX_RANK_TC}: the bf16 kernel "
                              f"loads a factor row in one box")
-        q, k, v = (_aligned(_pad_last(t, 8)) for t in (q, k, v))
-        phi_q, phi_k = _pad_last(phi_q, 4), _aligned(_pad_last(phi_k, 4))
+        q, k, v = (_pad_last(t, 8) for t in (q, k, v))
+        phi_q, phi_k = _pad_last(phi_q, 4), _pad_last(phi_k, 4)
         d, dv = q.shape[-1], v.shape[-1]
         r = 0 if phi_q is None else phi_q.shape[-1]
+    return (b, h, kvh, n, m, d, dv, r), (q, k, v), phi_q, phi_k, slopes, \
+        dv_out
+
+
+def _output(dims, q: torch.Tensor) -> torch.Tensor:
+    b, h, _, n, _, _, dv, _ = dims
+    return torch.empty((b, h, n, dv), dtype=q.dtype, device=q.device)
+
+
+def _checked(q, k, v, phi_q, phi_k, slopes, mask_kind, window, name):
+    """Validate a CUDA launch's inputs; returns the dims, the (padded) q, k,
+    v, the float32 contiguous factors and slopes, the output tensor and the
+    output's true head dim."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    dims, (q, k, v), phi_q, phi_k, slopes, dv_out = _validated(
+        q, k, v, phi_q, phi_k, slopes, mask_kind, window, name)
+    if q.dtype == torch.bfloat16:
+        q, k, v, phi_k = (_aligned(t) for t in (q, k, v, phi_k))
+    d, dv, r = dims[5:]
     if _kernel()[2](d, dv, r, _DTYPES[q.dtype]) > _SMEM_LIMIT:
         raise ValueError(f"head dims {d}/{dv} with rank {r} exceed the "
                          f"kernel's shared memory")
-    out = torch.empty((b, h, n, dv), dtype=q.dtype, device=q.device)
-    return (b, h, kvh, n, m, d, dv, r), (q, k, v), phi_q, phi_k, slopes, out, \
-        dv_out
+    return dims, (q, k, v), phi_q, phi_k, slopes, _output(dims, q), dv_out
 
 
 def _count(wrapper, dtype) -> None:

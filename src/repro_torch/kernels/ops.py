@@ -11,6 +11,12 @@ Port of ``repro.kernels.ops``. Implementations:
 - ``"torch"`` (the reference's ``"xla"``): the plain PyTorch versions, on
   any device. On a CUDA tensor this is taken only when asked for by name.
 - ``"auto"``: ``"cuda"`` for a CUDA tensor, ``"torch"`` for a CPU tensor.
+- ``"io_stub"`` (the dry run's only, as in the reference): the ``"cuda"``
+  route on any device, each kernel wrapper replaced by its stub in
+  ``kernels.io_stub``, which validates and allocates as the wrapper does
+  and records the kernel's calls, bytes and FLOPs in place of the launch;
+  the outputs are left unwritten. ``flash_attention``'s backward stays
+  the plain recompute.
 
 ``ssd_scan`` is stricter: ``"cuda"`` on a tensor that is not on the card
 raises, as the kernel has no CPU form.
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.attention import DEFAULT_MASK_VALUE
+from repro_torch.kernels import io_stub
 from repro_torch.kernels.flash_decode import (
     expand_groups,
     flash_decode_fwd,
@@ -65,7 +72,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_torch
 __all__ = ["flash_attention", "flash_decode", "flash_chunk_attention",
            "ssd_scan", "resolve_impl", "IMPLS"]
 
-IMPLS = ("torch", "cuda")
+IMPLS = ("torch", "cuda", "io_stub")
 
 # float32 scores of one query block of ``_FlashAttention.backward``'s
 # recompute, (B, H, rows, M) x 4 bytes, stay at or under this
@@ -91,8 +98,9 @@ class _FlashAttention(torch.autograd.Function):
                 impl):
         ctx.save_for_backward(q, k, v, phi_q, phi_k, slopes)
         ctx.opts = {"mask_kind": mask_kind, "window": window, "scale": scale}
-        fn = (flashbias_attention_torch if impl == "torch"
-              else flashbias_attention_fwd)
+        fn = {"torch": flashbias_attention_torch,
+              "io_stub": io_stub.flashbias_attention_fwd}.get(
+                  impl, flashbias_attention_fwd)
         return fn(q, k, v, phi_q, phi_k, slopes, **ctx.opts)
 
     @staticmethod
@@ -224,9 +232,10 @@ def _flash_attention_ragged(q, k, v, phi_q, phi_k, slopes, lengths,
             for t in (q, k, v, phi_q, phi_k, slopes)):
         raise RuntimeError("the ragged attention kernel is forward only: "
                            "use impl='torch' to differentiate")
-    return flashbias_attention_ragged_fwd(q.contiguous(), k.contiguous(),
-                                          v.contiguous(), phi_q, phi_k,
-                                          slopes, lengths, **kw)
+    fn = (io_stub.flashbias_attention_ragged_fwd if impl == "io_stub"
+          else flashbias_attention_ragged_fwd)
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(), phi_q, phi_k,
+              slopes, lengths, **kw)
 
 
 def _static_page_cap(lengths: torch.Tensor, ps: int, width: int,
@@ -346,7 +355,7 @@ def flash_decode(
         sl = slopes.reshape(kvh, g)
     per_q_head = phi_k is not None and g > 1 and \
         phi_k.shape[0 if paged else 1] == h
-    copied = per_q_head or (impl == "cuda" and kv_layout == "bshd")
+    copied = per_q_head or (impl != "torch" and kv_layout == "bshd")
     if k_new is not None and copied:
         # the row lands in the caller's cache before the copy is made
         write = write_paged_row if paged else write_row
@@ -362,12 +371,13 @@ def flash_decode(
     new = {}
     if k_new is not None:
         new = {"k_new": k_new.contiguous(), "v_new": v_new.contiguous()}
-    if impl == "cuda":
+    if impl != "torch":
         k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     qg = qg.contiguous()
     dv = v_cache.shape[-1]
     if not paged:
-        fn = flash_decode_torch if impl == "torch" else flash_decode_fwd
+        fn = {"torch": flash_decode_torch,
+              "io_stub": io_stub.flash_decode_fwd}.get(impl, flash_decode_fwd)
         o = fn(qg, k_cache, v_cache, lengths, pq, phi_k, sl, scale=scale,
                **new)
         return o.reshape(b, 1, h, dv)
@@ -378,8 +388,10 @@ def flash_decode(
                                      page_table, pq, phi_k, sl, scale=scale,
                                      max_pages=cap, **new)
     else:
-        o = flash_decode_paged_fwd(qg, k_cache, v_cache, lengths, page_table,
-                                   pq, phi_k, sl, scale=scale, **new)
+        fn = (io_stub.flash_decode_paged_fwd if impl == "io_stub"
+              else flash_decode_paged_fwd)
+        o = fn(qg, k_cache, v_cache, lengths, page_table, pq, phi_k, sl,
+               scale=scale, **new)
     return o.reshape(b, 1, h, dv)
 
 
@@ -466,11 +478,12 @@ class _SSDScan(torch.autograd.Function):
     forward, as ``_FlashAttention`` does for attention."""
 
     @staticmethod
-    def forward(ctx, x, dt, a, b, c, h0, chunk):
+    def forward(ctx, x, dt, a, b, c, h0, chunk, impl="cuda"):
         ctx.save_for_backward(x, dt, a, b, c, h0)
         ctx.chunk = chunk
-        y, h_fin = ssd_scan_fwd(x.transpose(1, 2), dt.transpose(1, 2), a,
-                                b[:, None], c[:, None], chunk=chunk, h0=h0)
+        fn = io_stub.ssd_scan_fwd if impl == "io_stub" else ssd_scan_fwd
+        y, h_fin = fn(x.transpose(1, 2), dt.transpose(1, 2), a, b[:, None],
+                      c[:, None], chunk=chunk, h0=h0)
         return y.transpose(1, 2), h_fin
 
     @staticmethod
@@ -490,7 +503,7 @@ class _SSDScan(torch.autograd.Function):
                 allow_unused=True))
         res = [next(grads) if t is not None and need else None
                for t, need in zip(leaves, needs)]
-        return (*res, None)
+        return (*res, None, None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -512,7 +525,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         # imported here: the models package imports this module
         from repro_torch.models import ssd
         return ssd.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
-    if x.device.type != "cuda":
+    if impl == "cuda" and x.device.type != "cuda":
         raise ValueError(f"ssd_scan impl='cuda' needs a CUDA tensor, got "
                          f"{x.device}")
-    return _SSDScan.apply(x, dt, a, b, c, h0, chunk)
+    return _SSDScan.apply(x, dt, a, b, c, h0, chunk, impl)

@@ -103,18 +103,10 @@ def _pairs_aligned(t: torch.Tensor) -> bool:
             and t.data_ptr() % (2 * t.element_size()) == 0)
 
 
-def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                 b: torch.Tensor, c: torch.Tensor, *, chunk: int = 256,
-                 h0: Optional[torch.Tensor] = None):
-    """Kernel 5's wrapper: launches ``ssd_scan.cu`` on CUDA tensors, runs the
-    plain version on CPU tensors. x and y may be strided views whose last
-    (P) axis has unit stride; b and c may be strided or broadcast over the
-    head axis with a unit-stride last (N) axis."""
-    build.refuse_dtensors("ssd_scan_fwd", x, dt, a, b, c, h0)
-    if x.device.type == "cpu":
-        return ssd_scan_torch(x, dt, a, b, c, chunk=chunk, h0=h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan_fwd: no kernel for device {x.device}")
+def _validated(x, dt, a, b, c, h0, chunk):
+    """Validate a launch's inputs on any device; returns (B, H, S, P, N,
+    groups) and dt, a, b, c, h0 as the kernel reads them (dt and a
+    flattened, b, c and h0 in float32)."""
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"x {tuple(x.shape)} {x.dtype}: the kernel takes a "
                          f"(B, H, S, P) float32 or bfloat16 tensor")
@@ -135,16 +127,33 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"P {p} and N {n} must be multiples of 4")
     if chunk < 1:
         raise ValueError(f"chunk {chunk} < 1")
-    x, b, c = (t if _pairs_aligned(t) else t.contiguous() for t in (x, b, c))
     if h0 is not None:
         if h0.shape != (bsz, h, p, n):
             raise ValueError(f"h0 {tuple(h0.shape)} != {(bsz, h, p, n)}")
         h0 = h0.float().contiguous()
-        if h0.data_ptr() % 16:        # read four floats at a time
-            h0 = h0.clone()
     a = a.contiguous()
     if any(t.device != x.device for t in (dt, a, b, c)):
         raise ValueError("ssd_scan_fwd: inputs on several devices")
+    return (bsz, h, s, p, n, g), dt, a, b, c, h0
+
+
+def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, *, chunk: int = 256,
+                 h0: Optional[torch.Tensor] = None):
+    """Kernel 5's wrapper: launches ``ssd_scan.cu`` on CUDA tensors, runs the
+    plain version on CPU tensors. x and y may be strided views whose last
+    (P) axis has unit stride; b and c may be strided or broadcast over the
+    head axis with a unit-stride last (N) axis."""
+    build.refuse_dtensors("ssd_scan_fwd", x, dt, a, b, c, h0)
+    if x.device.type == "cpu":
+        return ssd_scan_torch(x, dt, a, b, c, chunk=chunk, h0=h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_fwd: no kernel for device {x.device}")
+    (bsz, h, s, p, n, g), dt, a, b, c, h0 = _validated(x, dt, a, b, c, h0,
+                                                       chunk)
+    x, b, c = (t if _pairs_aligned(t) else t.contiguous() for t in (x, b, c))
+    if h0 is not None and h0.data_ptr() % 16:   # read four floats at a time
+        h0 = h0.clone()
     fn, plan = _kernel()
     y = torch.empty_like(x)           # x's memory layout, unit P stride
     h_fin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)

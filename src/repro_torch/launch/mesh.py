@@ -10,7 +10,8 @@ __all__ = ["make_production_mesh", "init_mesh", "GPUS_PER_NODE"]
 GPUS_PER_NODE = 8          # an H100 node: 8 cards joined all to all by NVLink
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
     """The serving / training mesh over every rank of the initialised
     process group, for H100 nodes of ``GPUS_PER_NODE`` cards.
 
@@ -20,7 +21,8 @@ def make_production_mesh(*, multi_pod: bool = False):
     crosses nodes. Multi-pod: ``(2, world // 16, 8)`` as ``(pod, data,
     model)``; the ``pod`` axis folds into the DP product (``batch`` ->
     ``("pod", "data")``). The shape is the port's own choice for H100
-    nodes, not the reference's TPU pod shape."""
+    nodes, not the reference's TPU pod shape. ``device_type`` is the
+    mesh's (``"cpu"`` for the dry run's fake process group)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     world = dist.get_world_size()
@@ -30,9 +32,9 @@ def make_production_mesh(*, multi_pod: bool = False):
                          f"whole {GPUS_PER_NODE}-card nodes")
     data = world // (pods * GPUS_PER_NODE)
     if multi_pod:
-        return init_device_mesh("cuda", (pods, data, GPUS_PER_NODE),
+        return init_device_mesh(device_type, (pods, data, GPUS_PER_NODE),
                                 mesh_dim_names=("pod", "data", "model"))
-    return init_device_mesh("cuda", (data, GPUS_PER_NODE),
+    return init_device_mesh(device_type, (data, GPUS_PER_NODE),
                             mesh_dim_names=("data", "model"))
 
 

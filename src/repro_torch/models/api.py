@@ -28,7 +28,12 @@ Pairformer, and the paper's vision (SwinV2) and PDE models).
 - ``prefill_chunk(params, cache, tokens, offsets, chunk_lens, final_lens,
   max_pages)`` — one chunked-prefill step (cache updated in place),
 - ``copy_pages(dst, src_ids, dst_ids)``     — copy whole pages (prefix
-  caching's copy-on-write).
+  caching's copy-on-write),
+- ``input_specs(shape, device)``            — the inputs of one dry-run
+  cell (``configs.SHAPES``) as zero tensors: the batch of a train or
+  prefill cell, the cache (``init_cache`` at ``seq_len`` with every row
+  one short of full) and the tokens of a decode cell. Call it under
+  ``FakeTensorMode`` at full size: command-r's 32k cache is terabytes.
 
 The paged entries belong to the families with attention (dense, MoE,
 hybrid); the SSM family's ``Model`` leaves them None (constant-size
@@ -50,7 +55,9 @@ import dataclasses
 import functools
 from typing import Callable, Optional
 
-from repro_torch.configs.base import ArchConfig
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import lm, pairformer, pde, swin
 
 __all__ = ["Model", "get_model"]
@@ -70,6 +77,47 @@ class Model:
     grow_page_table: Optional[Callable] = None
     prefill_chunk: Optional[Callable] = None
     copy_pages: Optional[Callable] = None
+    input_specs: Optional[Callable] = None
+
+
+def _lm_input_specs(cfg: ArchConfig, shape: ShapeSpec,
+                    device="cuda") -> dict:
+    """One LM cell's inputs (the reference's ``input_specs``): tokens and
+    labels ``(B, S - F)`` with the frontend rows ``(B, F, D)`` in the
+    compute dtype for train, tokens (and rows) for prefill, and for decode
+    a cache of ``seq_len`` positions whose rows hold ``seq_len - 1`` with
+    one token ``(B, 1)`` each."""
+    b, s = shape.global_batch, shape.seq_len
+    front = cfg.frontend_len
+    tok = lambda n: torch.zeros((b, n), dtype=torch.long, device=device)
+    specs: dict = {}
+    if shape.kind in ("train", "prefill"):
+        specs["tokens"] = tok(s - front)
+        if shape.kind == "train":
+            specs["labels"] = tok(s - front)
+        if front:
+            specs["frontend"] = torch.zeros(
+                (b, front, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+                device=device)
+    elif shape.kind == "decode":
+        specs["cache"] = lm.init_cache(cfg, b, s, device=device,
+                                       length=s - 1)
+        specs["tokens"] = tok(1)
+    else:
+        raise ValueError(f"shape kind {shape.kind!r}")
+    return specs
+
+
+def _float_specs(**shapes):
+    """``input_specs`` of a paper model: float32 zeros of ``shapes[name]
+    (shape)`` (int64 for ``labels``)."""
+    def specs(shape: ShapeSpec, device="cuda") -> dict:
+        b, n = shape.global_batch, shape.seq_len
+        return {k: torch.zeros(f(b, n), device=device,
+                               dtype=torch.long if k == "labels"
+                               else torch.float32)
+                for k, f in shapes.items()}
+    return specs
 
 
 def _pairformer_model(cfg: ArchConfig) -> Model:
@@ -86,6 +134,8 @@ def _pairformer_model(cfg: ArchConfig) -> Model:
             pairformer.init_serve_cache(cfg, b, max_len, factors,
                                         device=device),
         insert_cache=pairformer.insert_serve_cache_at_slots,
+        input_specs=_float_specs(feats=lambda b, n: (b, n, 64),
+                                 coords=lambda b, n: (b, n, 3)),
     )
 
 
@@ -94,11 +144,17 @@ def get_model(cfg: ArchConfig) -> Model:
         return _pairformer_model(cfg)
     if cfg.family == "swin":
         return Model(cfg=cfg, template=lambda: swin.swin_template(cfg),
-                     loss=lambda p, batch: swin.classify_loss(p, batch, cfg))
+                     loss=lambda p, batch: swin.classify_loss(p, batch, cfg),
+                     input_specs=_float_specs(
+                         patches=lambda b, n: (b, 4, cfg.window, 48),
+                         labels=lambda b, n: (b,)))
     if cfg.family == "pde":
         return Model(cfg=cfg, template=lambda: pde.pde_template(cfg),
                      loss=lambda p, batch: pde.regression_loss(p, batch,
-                                                               cfg))
+                                                               cfg),
+                     input_specs=_float_specs(
+                         coords=lambda b, n: (b, n, cfg.coord_dim),
+                         targets=lambda b, n: (b, n, 4)))
     if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.family} family is not ported yet (ROADMAP.md Queue A "
@@ -125,4 +181,5 @@ def get_model(cfg: ArchConfig) -> Model:
             p, cache, tokens, cfg, offsets=offsets, chunk_lens=chunk_lens,
             final_lens=final_lens, max_pages=max_pages),
         copy_pages=lm.copy_paged_pages if shares_pages else None,
+        input_specs=functools.partial(_lm_input_specs, cfg),
     )

@@ -1,6 +1,6 @@
 """repro_torch.statcheck — checks of the port's serve stack (port of the
 mesh layer of ``repro.statcheck``; the jaxpr, contract and host-lint
-layers wait for ROADMAP Queue A item 10c).
+layers wait for ROADMAP Queue A item 10e).
 
 :mod:`repro_torch.statcheck.mesh_rules` counts the collectives of a
 sharded decode step under ``CommDebugMode``, holds the logical axes of the

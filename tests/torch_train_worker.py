@@ -17,7 +17,8 @@ parameters after the last step, gathered to global arrays. Jobs:
   summing all-reduce of the functional collectives' own autograd (the
   gradients must then miss the unsharded ones);
 - ``statcheck:<case>``: one step under ``CommDebugMode``, its counts and
-  ``check_train_step``'s findings;
+  ``check_train_step``'s findings, and the bytes of this rank's local
+  masters and optimizer state before the step;
 - ``save:<case>``: ``TrainLoop`` with a checkpoint after step 1, then step 2
   without one (the uninterrupted run);
 - ``restore:<case>``: wait for ``save``'s checkpoint (``--ckpt``), restore
@@ -191,9 +192,14 @@ def job_control(case: str, mesh, params_dir: str) -> dict:
 def job_statcheck(case: str, mesh, params_dir: str) -> dict:
     from repro_torch.statcheck import check_train_step
     cfg, step, opt, params = setup(case, mesh, params_dir)
-    counts, findings = check_train_step(step, params, opt.init(params),
+    state = opt.init(params)
+    leaves = [*_flat(params).values(), *_flat(state.mu).values(),
+              *_flat(state.nu).values(), state.step]
+    tree_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    counts, findings = check_train_step(step, params, state,
                                         batch(cfg, 0), cfg)
-    return {"counts": counts, "findings": [str(f) for f in findings]}
+    return {"counts": counts, "findings": [str(f) for f in findings],
+            "tree_bytes": tree_bytes}
 
 
 def job_save(case: str, mesh, params_dir: str, ckpt: str) -> dict:
