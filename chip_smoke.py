@@ -420,16 +420,32 @@ as it runs, any failure ending the run:
               predicted ones; the roofline of the step's deployment
               terms (compute, memory and collective ms, the dominant term)
               beside the device busy time of one profiled step.
+29. statcheck — the port's static contracts (``repro_torch.statcheck``)
+              on one full-width decode step, in the main process on the
+              serve phase's weights: a contiguous and a paged backend
+              (STATCHECK_PROMPTS admitted), one decode step of each logged
+              op by op on the card, with zero findings (no pool relayout,
+              no host sync — device-to-host copies are visible here —, the
+              static-shape key bound) and kernels 3 and 4 each launched
+              N_LAYERS times by the logged step; then the tripwire (the
+              decode op wrapped in a per-layer pool transpose) must fire.
+30. examples — the four ported examples (``quickstart_torch``,
+              ``serve_lm_torch``, ``serve_pairformer_torch``,
+              ``pde_solver_torch``) through their ``main`` with ``--device
+              cuda``: each raises where its exactness check fails; their
+              kernel launches (kernels 1, 3 and 5 in serve_lm, 2 in
+              serve_pairformer, 1 in pde_solver) join the record.
 
-Phases 13-14 and 17-28 each run in a process of their own (``run_child``):
+Phases 13-14, 17-28 and 30 each run in a process of their own (``run_child``):
 late in a long process torch.profiler has lost device events (PERF.md
 section 7), and phase 13's library profile did so in PR 22's first full
-run. Kernel 1's ``launches`` in the record adds phases 13, 14 and 17-28
+run. Kernel 1's ``launches`` in the record adds phases 13, 14 and 17-30
 to the serve phase's (phases 23-24: their training steps; 25: the
 SVD-factor gradient run; 26: its sharded engines'; 27: its sharded train
-steps; 28: its measured steps), kernels 3 and 4 add phases 18-21's, 26's
-and (kernel 3) 28's, kernel 5's adds
-phases 17, 18, 22, 26 and 27's (27: the sharded steps and the
+steps; 28: its measured steps; 29: its two prefill waves; 30: the
+examples'), kernels 3 and 4 add phases 18-21's, 26's, 29's, (kernel 3)
+28's and 30's, kernel 2's adds phase 30's, kernel 5's adds
+phases 17, 18, 22, 26, 27 and 30's (27: the sharded steps and the
 launcher's); their
 times stay at the LM prefill, LM decode and SSM shapes (the other shapes'
 are logged above the record).
@@ -5801,6 +5817,127 @@ def phase_dryrun(seed: int, card: str) -> dict:
     return {"launches": launches, "cells": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the static contracts of one full-width decode step on the card
+# prompt lengths of the wave admitted before the logged decode step
+STATCHECK_PROMPTS = (512, 333, 100, 64)
+
+
+def phase_statcheck(model, params, seed: int, card: str) -> dict:
+    """One decode step of a contiguous and of a paged backend on the serve
+    phase's weights, logged op by op (``statcheck.contracts
+    .check_token_backend``) with every launch counter set to 0 before and
+    read after: zero findings, kernel 3 and kernel 4 each launched
+    N_LAYERS times by its logged step; then the tripwire on fresh
+    backends. Returns the phase's launches (the two prefill waves' kernel
+    1 and the logged steps'; the tripwire's are not counted)."""
+    import torch
+    from repro_torch.serve.backend import TokenDecodeBackend
+    from repro_torch.statcheck import contracts
+    t0 = time.monotonic()
+
+    def backends():
+        return [(f"{model.cfg.name}/decode[{kind}]", TokenDecodeBackend(
+            model, params, max_len=MAX_LEN, n_slots=SLOTS, device="cuda",
+            **kw)) for kind, kw in (("contiguous", {}),
+                                    ("paged", {"page_size": PAGE}))]
+    counters = reset_counters()
+    findings, steps = [], {}
+    for program, be in backends():
+        found, steps[program] = contracts.check_token_backend(
+            be, program, prompts=STATCHECK_PROMPTS, seed=seed)
+        findings += found
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for program, got in steps.items():
+        log("statcheck", f"{program}: the logged decode step launched "
+                         f"{got}")
+    for f in findings:
+        log("statcheck", f"FINDING {f}")
+    want = {"flash_decode_fwd": N_LAYERS, "flash_decode_paged_fwd": N_LAYERS}
+    step_total = merge_launches({}, *steps.values())
+    if findings or step_total != want:
+        raise AssertionError(f"statcheck: {len(findings)} findings; the "
+                             f"logged steps launched {step_total}, want "
+                             f"{want}")
+    torch.cuda.empty_cache()
+    tripwire = contracts.verify_tripwire(backends=backends())
+    torch.cuda.empty_cache()
+    if tripwire:
+        raise AssertionError(f"statcheck tripwire: {tripwire[0]}")
+    log("statcheck", f"{model.cfg.name} ({model.cfg.n_layers} layers, "
+                     f"{model.cfg.dtype}): 0 findings on the contiguous and "
+                     f"the paged decode step; the pool-transpose tripwire "
+                     f"fired on both; launches {launches}; "
+                     f"{time.monotonic() - t0:.1f}s [{card}]")
+    return {"launches": launches}
+
+
+def phase_statcheck_alone(seed: int, card: str) -> dict:
+    """Phase 29 on the serve phase's weights made again from ``seed``
+    (``--phase statcheck``)."""
+    model, params = serve_weights(seed)
+    return phase_statcheck(model, params, seed, card)
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the four ported examples on the card
+# example -> the kernels it must launch
+EXAMPLE_KERNELS = {
+    "quickstart_torch": (),
+    "serve_lm_torch": ("flashbias_attention_fwd", "flash_decode_fwd",
+                       "ssd_scan_fwd"),
+    "serve_pairformer_torch": ("flashbias_attention_ragged_fwd",),
+    "pde_solver_torch": ("flashbias_attention_fwd",),
+}
+EXAMPLE_PDE_STEPS = 80           # the example's default
+
+
+def load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(seed: int, card: str) -> dict:
+    """Each example's ``main`` with ``--device cuda`` (the PDE solver at
+    its default 80 steps), every launch counter set to 0 just before it
+    and read just after: each launches its kernels (EXAMPLE_KERNELS), the
+    PDE solver kernel 1 once per layer in the factored forward it checks
+    and in each training step's forward (4 layers). An example whose
+    exactness check fails raises."""
+    import torch
+    total: dict = {}
+    for name, kernels in EXAMPLE_KERNELS.items():
+        t0 = time.monotonic()
+        mod = load_example(name)
+        counters = reset_counters()
+        args = ["--device", "cuda"]
+        if name == "pde_solver_torch":
+            args += ["--steps", str(EXAMPLE_PDE_STEPS)]
+        mod.main(args)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()
+                    if fn.launches}
+        missing = [k for k in kernels if not launches.get(k)]
+        if missing or set(launches) - set(kernels):
+            raise AssertionError(f"{name}: launches {launches}, want "
+                                 f"each of {kernels} and no other")
+        if name == "pde_solver_torch" and launches[
+                "flashbias_attention_fwd"] != 4 * (1 + EXAMPLE_PDE_STEPS):
+            raise AssertionError(f"{name}: kernel 1 launched "
+                                 f"{launches['flashbias_attention_fwd']} "
+                                 f"times, want {4 * (1 + EXAMPLE_PDE_STEPS)}")
+        merge_launches(total, launches)
+        log("examples", f"{name}: OK, launches {launches}, "
+                        f"{time.monotonic() - t0:.1f}s [{card}]")
+        torch.cuda.empty_cache()
+    return {"launches": total}
+
+
 def bound(bytes_: int, flops: int) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -5840,7 +5977,8 @@ CHILD_PHASES = {"swin": lambda seed, card: {"launches": {
                 "pair-train": phase_pair_train, "pde-train": phase_pde_train,
                 "swin-train": phase_swin_train, "sharded": phase_sharded,
                 "sharded-train": phase_sharded_train,
-                "dryrun": phase_dryrun}
+                "dryrun": phase_dryrun, "statcheck": phase_statcheck_alone,
+                "examples": phase_examples}
 
 
 def main(argv=None) -> int:
@@ -5848,8 +5986,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", choices=tuple(CHILD_PHASES), default=None,
                     help="run one phase alone (the full run starts phases "
-                         "13-14 and 17-28 this way, each in a process of "
-                         "its own)")
+                         "13-14, 17-28 and 30 this way, each in a process "
+                         "of its own; 29 runs in the main process)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5906,9 +6044,12 @@ def main(argv=None) -> int:
     phase_chunked(engine, requests, whole_first, args.seed, card)
     phase_prefix(engine, args.seed, card)
     phase_lm_dense(engine, requests, card)
+    clock("phases 3-6c")
+    merge_launches(launches, phase_statcheck(
+        engine.model, engine.backend.params, args.seed, card)["launches"])
     del engine, whole_first
     torch.cuda.empty_cache()
-    clock("phases 3-6c")
+    clock("phase 29")
 
     pair, complexes, rids, pair_launches = phase_pair_serve(args.seed)
     launches["flashbias_attention_ragged_fwd"] = \
@@ -5956,8 +6097,9 @@ def main(argv=None) -> int:
         launches[name] += hybrid[name]
     for phase in ("paged-hybrid", "moe", "dense-configs", "frontends",
                   "train", "pair-train", "pde-train", "swin-train",
-                  "sharded", "sharded-train", "dryrun"):
+                  "sharded", "sharded-train", "dryrun", "examples"):
         merge_launches(launches, run_child(phase, args.seed)["launches"])
+    clock("phases 17-30")
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"
                                            "flashbias_attn.py:149",

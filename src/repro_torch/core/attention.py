@@ -20,7 +20,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["MaskSpec", "attention", "flashbias_concat_qk",
+__all__ = ["MaskSpec", "attention", "flashbias_concat_qk", "eq3_folds",
            "multiplicative_flashbias_attention", "DEFAULT_MASK_VALUE"]
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -68,6 +68,18 @@ def _q_positions(n: int, q_offset, batch: int, device) -> torch.Tensor:
     return torch.arange(n, device=device)[None, :] + off[:, None]  # (B, N)
 
 
+def eq3_folds(q: torch.Tensor, phi_q: torch.Tensor, phi_k: torch.Tensor,
+              phi_heads: int, kv_heads: int) -> bool:
+    """Whether the Eq. 3 concat fold costs no precision, the reference's
+    condition: the key factor lives per kv head (``phi_heads``, its head
+    count, is 1 or ``kv_heads``) and promoting the factors to q's dtype
+    loses nothing (float32 factors against a bf16 q, mixed-precision ALiBi,
+    would quantize positions to bf16: that path keeps two products)."""
+    dt = torch.promote_types(torch.promote_types(phi_q.dtype, phi_k.dtype),
+                             q.dtype)
+    return phi_heads in (1, kv_heads) and dt == q.dtype
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -89,12 +101,20 @@ def attention(
     q_offset: absolute position of ``q[:, 0]`` (scalar or (B,)).
     kv_length: valid cache entries (scalar or (B,)); keys at positions
     ``>= kv_length`` are masked. Logits and softmax run in float32.
+
+    Factors fold into q and k (Eq. 3, ``flashbias_concat_qk``: one product
+    of depth D + R) where ``eq3_folds`` says it is exact, as the
+    reference's plain attention does; elsewhere the factor product is a
+    second einsum.
     """
     if impl not in ("dense", "chunked"):
         raise ValueError(f"attention impl {impl!r}")
     b, n, h, d = q.shape
     m, kvh = k.shape[1], k.shape[2]
     scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
+    if phi_q is not None and eq3_folds(q, phi_q, phi_k, phi_k.shape[2], kvh):
+        q, k = flashbias_concat_qk(q, k, phi_q, phi_k, scale)
+        phi_q = phi_k = None
     q5 = _split_gqa(q, kvh).float()                          # (B,N,K,G,D)
     g = q5.shape[3]
     phi_q5 = phi_k5 = None

@@ -258,12 +258,14 @@ __global__ void __launch_bounds__(kThreads, MG == 1 && DK ? 8 : 1)
   const int h = blockIdx.x, b = blockIdx.y;
   const size_t bh = (size_t)b * a.KVH + h;
   // paged: the first split's page ids, loaded beside the length (for a live
-  // key j, min(j / ps, last) is j / ps: no length needed)
+  // key j, min(j / ps, last) is j / ps: no length needed). Both reads of
+  // the span's ids take a key below S = P * ps, so key / ps < P, and the
+  // page is clamped into the pool where sRow takes it.
   int page0 = 0;
   if (PAGED) {
     const int key = blockIdx.z * span + tid;
     if (tid < span && key < a.S)
-      page0 = a.page_table[(size_t)b * a.P + key / a.ps];
+      page0 = a.page_table[(size_t)b * a.P + key / a.ps];  // statcheck: allow(page-table-clamp)
   }
   const int len_raw = a.lengths[b];
   const int len = min(max(len_raw, 0), a.S);
@@ -313,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, MG == 1 && DK ? 8 : 1)
       for (int j = tid; j < nk; j += kThreads) {
         const int key = j0 + j;
         int page = split == (int)blockIdx.z && j < kThreads
-                       ? page0 : a.page_table[(size_t)b * a.P + key / a.ps];
+                       ? page0 : a.page_table[(size_t)b * a.P + key / a.ps];  // statcheck: allow(page-table-clamp)
         page = min(max(page, 0), a.n_pages - 1);
         sRow[j] = page * a.ps + key % a.ps;
       }

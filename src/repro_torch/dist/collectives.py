@@ -63,8 +63,8 @@ from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from repro_torch.dist.sharding import get_active_mesh, spec_for
 
-__all__ = ["axis_size", "axis_rank", "local_part", "local_range",
-           "reduce_from", "copy_to",
+__all__ = ["axis_size", "axis_rank", "even_range", "local_part",
+           "local_range", "reduce_from", "copy_to",
            "gather_from", "fsdp_gather", "reduce_mesh_axes"]
 
 _GROUPS: dict = {}     # (id(mesh), id(rules), logical) -> (group, size, rank)
@@ -138,6 +138,20 @@ def local_range(n: int, logical: str) -> slice:
                          f"of '{logical}'")
     step = n // size
     return slice(rank * step, (rank + 1) * step)
+
+
+def even_range(n: int, logical: str) -> slice:
+    """This rank's rows of a length-``n`` dim split over ``logical`` as
+    evenly as possible: the first ``n % size`` ranks take one row more, and
+    a rank past ``n`` gets an empty slice (where ``local_range`` would
+    raise)."""
+    ax = _axis(logical)
+    if ax is None:
+        return slice(0, n)
+    size, rank = ax[1], ax[2]
+    step, extra = divmod(n, size)
+    lo = rank * step + min(rank, extra)
+    return slice(lo, lo + step + (rank < extra))
 
 
 def local_part(x: torch.Tensor, dim: int, logical: str) -> torch.Tensor:

@@ -204,7 +204,9 @@ def flash_decode_paged_torch(
     pages = pages.clamp(0, n_pages - 1)
 
     def view(pool):           # (H', n_pages, ps, E) -> (B, H', cap*ps, E)
-        rows = pool[:, pages].transpose(0, 1)
+        # one gather straight into the row-major view: no relayout
+        heads = torch.arange(pool.shape[0], device=pool.device)
+        rows = pool[heads[None, :, None], pages[:, None, :]]
         return rows.reshape(b, pool.shape[0], cap * ps, pool.shape[-1])
 
     phi_k = None

@@ -36,7 +36,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.attention import DEFAULT_MASK_VALUE
+from repro_torch.core.attention import (DEFAULT_MASK_VALUE, eq3_folds,
+                                        flashbias_concat_qk)
 from repro_torch.kernels import build
 
 __all__ = ["flashbias_attention_torch", "flashbias_attention_fwd",
@@ -79,13 +80,21 @@ def flashbias_attention_torch(
     ``q_offset ..`` of a longer query, whose causal / local mask and ALiBi
     distances are built for these rows alone (the ``ops`` backward
     recomputes by such blocks). Differentiable. A row with no allowed key
-    outputs 0, as the kernels' ``l == 0`` rows do."""
+    outputs 0, as the kernels' ``l == 0`` rows do.
+
+    Factors fold into q and k (Eq. 3) where ``core.attention.eq3_folds``
+    says it is exact, as the reference's plain path does (the kernels fold
+    in the kernel)."""
     b, h, n, _ = q.shape
     kvh, m = k.shape[1], k.shape[2]
     if lengths is not None and kv_len is not None:
         raise ValueError("pass kv_len or lengths, not both")
     kv_len = m if kv_len is None else kv_len
     g = h // kvh
+    if phi_q is not None and eq3_folds(q, phi_q, phi_k, phi_k.shape[1], kvh):
+        q, k = (t.transpose(1, 2) for t in flashbias_concat_qk(
+            *(t.transpose(1, 2) for t in (q, k, phi_q, phi_k)), scale))
+        phi_q = phi_k = None
     kf = k.float().repeat_interleave(g, dim=1) if g > 1 else k.float()
     vf = v.float().repeat_interleave(g, dim=1) if g > 1 else v.float()
     s = torch.einsum("bhnd,bhmd->bhnm", q.float(), kf) * scale

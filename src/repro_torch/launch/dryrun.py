@@ -33,10 +33,12 @@ io_stub. ``roofline_report`` takes both, on ``hw.H100_SXM``. The layers
 are a Python loop (``models/lm.py``), so every layer is counted: there is
 no extrapolation from one and two layers and no twin of the reference's
 ``flags.py``. The multi-pod pass runs the deployment path only, for its
-memory; ``--mesh node`` runs one node's ``(1, 8)``. A train cell whose
-microbatches do not split into whole rows per rank runs at the largest
-``grad_accum`` that does (``fit_grad_accum``; the report keeps both). A
-cell that fails is listed and the run exits 1.
+memory; ``--mesh node`` runs one node's ``(1, 8)``. Every train cell runs
+at its config's ``grad_accum``: where a microbatch's rows do not divide
+the ``batch`` ranks, rank 0 takes one of the rows a rank takes at most
+(``make_train_step``), and a rank with none runs a padding row, as
+GSPMD's padded step does. A cell that fails is listed and the run exits
+1.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch all --shape all --mesh single multi --out results/dryrun_torch
@@ -66,7 +68,7 @@ from repro_torch.kernels.io_stub import KERNEL1_TILE
 
 __all__ = ["run_cell", "run_step", "prepare", "measure", "tensors",
            "deployment_terms", "resident_bytes", "storage_bytes", "CUDA_BLOCK",
-           "fit_grad_accum", "fake_world", "release_world",
+           "fake_world", "release_world",
            "production_mesh", "fake_mesh", "main"]
 
 # functional collective op -> the reference's HLO name
@@ -367,25 +369,6 @@ def run_step(cfg, shape: ShapeSpec, mesh, rules: Rules, *,
     return res
 
 
-def fit_grad_accum(cfg, shape: ShapeSpec, mesh, rules: Rules):
-    """``cfg`` with the largest ``grad_accum`` up to its own whose
-    microbatch rows split evenly over the mesh's ``batch`` ranks: the
-    port's train step gives each rank whole rows of every microbatch
-    (``make_train_step``), where GSPMD would pad a microbatch of 16 rows
-    over 32 ranks. The step's tokens stay the cell's."""
-    if shape.kind != "train" or mesh is None:
-        return cfg
-    from repro_torch.dist.sharding import spec_for
-    n = 1
-    for a in spec_for(("batch",), mesh, rules)[0] or ():
-        n *= _mesh_size(mesh, a)
-    b = shape.global_batch
-    for a in range(cfg.grad_accum, 0, -1):
-        if b % a == 0 and (b // a) % n == 0:
-            return cfg.replace(grad_accum=a)
-    raise ValueError(f"a batch of {b} rows does not split over {n} ranks")
-
-
 def deployment_terms(step: dict) -> tuple:
     """(FLOPs, bytes) of an ``io_stub`` step (``run_step``): its aten ops'
     plus its kernels' (each input read once, the output written once, the
@@ -406,8 +389,6 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
     mesh = mesh_override or production_mesh(multi_pod)
     n_dev = mesh.size()
     mesh_tag = mesh_name or ("multi" if multi_pod else "single")
-    accum = cfg.grad_accum
-    cfg = fit_grad_accum(cfg, shape, mesh, rules)
     t0 = time.monotonic()
     adj = run_step(cfg.replace(attn_impl="io_stub"), shape, mesh, rules)
     kernels = adj["kernels"]
@@ -418,11 +399,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
             "io_stub_aten_flops": adj["flops"],
             "io_stub_aten_bytes": adj["bytes"],
             "hbm_bytes": H100_SXM.hbm_bytes, "ok": True,
-            "grad_accum": cfg.grad_accum, "grad_accum_config": accum}
-    if verbose and cfg.grad_accum != accum:
-        print(f"[dryrun] {arch_id} x {shape.name} x {mesh_tag}: grad_accum "
-              f"{cfg.grad_accum} for the config's {accum} (microbatch rows "
-              f"over the batch ranks)")
+            "grad_accum": cfg.grad_accum}
     if not with_cost:
         base["run_s"] = time.monotonic() - t0
         if verbose:

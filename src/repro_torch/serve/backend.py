@@ -81,7 +81,19 @@ from repro_torch.serve.sampling import sample_tokens, sample_tokens_guarded
 from repro_torch.serve.scheduler import ChunkPlan, Request
 
 __all__ = ["Backend", "TokenDecodeBackend", "PairBatchBackend",
-           "serve_rules"]
+           "serve_rules", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    CUDA device — and an error when there is none (never a quiet CPU
+    fallback)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU by "
+                           "default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 def _serve_template(tmpl: dict) -> dict:
@@ -780,16 +792,23 @@ class TokenDecodeBackend(Backend):
         mask[finalized] = True
         return self._sample(logits, mask), mask
 
+    def decode_logits(self, live) -> torch.Tensor:
+        """The decode step's device work: ``model.decode`` over the full
+        slot batch at ``page_cap(live)``, its logits ``(n_slots, V)``
+        gathered over ``batch``. No host read-back: ``step`` samples them
+        (``statcheck.contracts`` logs this call alone)."""
+        with torch.no_grad(), self._sharded():
+            logits, self._cache = self.model.decode(
+                self.params, self._cache, self._last_tok,
+                max_pages=self.page_cap(live))
+            return gather_from(logits[:, 0], 0, "batch")
+
     def step(self, live):
         """One decode step over the full slot batch. Slots mid-chunked-
         prefill ride it frozen (device length 0) and stay out of the mask:
         committing their sampling state here would spend a draw the
         whole-prompt path never spends."""
-        with torch.no_grad(), self._sharded():
-            logits, self._cache = self.model.decode(
-                self.params, self._cache, self._last_tok,
-                max_pages=self.page_cap(live))
-            logits = gather_from(logits[:, 0], 0, "batch")
+        logits = self.decode_logits(live)
         self.n_steps += 1
         mask = np.zeros((self.n_slots,), bool)
         for s, st in live.items():

@@ -75,10 +75,10 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.models.api import Model
-from repro_torch.serve.backend import PairBatchBackend, TokenDecodeBackend
+from repro_torch.serve.backend import (PairBatchBackend, TokenDecodeBackend,
+                                      resolve_device)
 from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.lifecycle import (
     CANCELLED, FAILED, OK, QUEUED, REJECTED, RUNNING, TERMINAL_STATUSES,
@@ -94,18 +94,6 @@ __all__ = ["ServeEngine", "resolve_device", "SNAPSHOT_FORMAT"]
 # one package cannot resume in the other
 SNAPSHOT_FORMAT = "repro_torch.serve"
 _SNAPSHOT_VERSION = 1
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device`` when given, else the
-    CUDA device — and an error when there is none (never a quiet CPU
-    fallback)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port runs on the GPU by "
-                           "default; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
 
 
 @dataclasses.dataclass

@@ -27,11 +27,11 @@ and "every rank quietly computed everything":
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from repro_torch.dist.sharding import Rules, mesh_axis_sizes, spec_for
+from repro_torch.statcheck.oplog_rules import Finding
 
 __all__ = ["COLLECTIVE_OPS", "Finding", "count_collectives",
            "check_collectives", "check_state_axes", "shard_degradations",
@@ -41,18 +41,6 @@ __all__ = ["COLLECTIVE_OPS", "Finding", "count_collectives",
 # the functional collectives a TP/DP-sharded step can issue
 COLLECTIVE_OPS = ("all_reduce", "all_gather_into_tensor",
                   "reduce_scatter_tensor", "all_to_all_single", "broadcast")
-
-
-@dataclasses.dataclass(frozen=True)
-class Finding:
-    """One rule violation: which rule, where, and what."""
-
-    rule: str            # rule id, e.g. "mesh-collectives"
-    program: str         # checked program, e.g. "decode"
-    message: str
-
-    def __str__(self) -> str:
-        return f"[{self.rule}] {self.program}: {self.message}"
 
 
 def count_collectives(fn: Callable, *args, **kwargs):

@@ -15,15 +15,24 @@ metrics)``.
   ``grad_shardings``: ``params`` and the optimizer state are this rank's
   local shards (``step.layout.shard``, a ``models.common.TrainLayout``),
   every rank is given the same GLOBAL batch, and each microbatch's rows
-  are cut to this rank's ``local_range(B/A, "batch")``, so microbatch
-  ``a`` covers the reference's global rows. The loss runs under the
+  are split over the ``batch`` ranks as evenly as possible
+  (``even_range(B/A, "batch")``), so microbatch ``a`` covers the
+  reference's global rows. Each rank's microbatch loss is weighted by its
+  share of the microbatch's rows times the ranks holding different rows
+  (1 at an even split); a rank that gets no row (``B/A`` below
+  the ``batch`` ranks) runs its forward and backward on the microbatch's
+  first row at weight 0, so every rank issues the same collectives, as
+  the reference's GSPMD step pads such a batch. The loss runs under the
   ambient mesh, its ``fsdp`` gathers reduce-scatter each microbatch's
   gradient into the local shard (ZeRO-2: no full-size gradient exists),
   and after the last microbatch each gradient is summed over its
   remaining ``batch`` mesh axes (``TrainLayout.sum_axes``) and divided by
-  the ranks holding different rows: the global-batch mean the reference
-  computes. The loss metric is averaged the same way; ``grad_norm`` sums
-  each shard's squares over the mesh axes it is split on.
+  those ranks and the microbatches: the global-batch mean the reference
+  computes. It is exact for both terms of the loss: the cross-entropy
+  is a mean over rows of equal length, and the MoE load-balance term a
+  mean over rows of each row's own value. The loss metric is averaged the
+  same way; ``grad_norm`` sums each shard's squares over the mesh axes it
+  is split on.
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, *,
     is required, ``rules`` defaults to ``dist.Rules()``, and
     ``step.layout`` is the ``TrainLayout`` the step expects its masters
     in (None without a mesh)."""
-    from repro_torch.dist.collectives import (local_range, reduce_from,
+    from repro_torch.dist.collectives import (even_range, reduce_from,
                                               reduce_mesh_axes)
     from repro_torch.dist.sharding import Rules, use_mesh_rules
     layout = None
@@ -60,6 +69,9 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, *,
         layout = TrainLayout(template, mesh, rules or Rules())
 
     def microbatches(batch: dict):
+        """``[(microbatch, weight)]``: this rank's rows of each microbatch
+        and the weight of its loss, its rows' share of the microbatch
+        times the ``batch`` ranks (1 at an even split)."""
         if grad_accum == 1:
             mbs = [batch]
         else:
@@ -69,10 +81,14 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, *,
             mbs = [{k: v[i] for k, v in split.items()}
                    for i in range(grad_accum)]
         if layout is None:
-            return mbs
-        rows = local_range(next(iter(batch.values())).shape[0]
-                           // grad_accum, "batch")
-        return [{k: v[rows] for k, v in mb.items()} for mb in mbs]
+            return [(mb, 1.0) for mb in mbs]
+        n = next(iter(batch.values())).shape[0] // grad_accum
+        rows = even_range(n, "batch")
+        weight = (rows.stop - rows.start) * layout.n_batch / n
+        if rows.stop == rows.start:          # a padding row, weight 0
+            rows = slice(0, 1)
+        return [({k: v[rows] for k, v in mb.items()}, weight)
+                for mb in mbs]
 
     def step(params: dict, opt_state, batch: dict):
         leaves = tree_leaves(params)
@@ -83,8 +99,10 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, *,
                else use_mesh_rules(mesh, layout.rules))
         with ctx:
             loss_sum = None
-            for mb in microbatches(batch):
+            for mb, weight in microbatches(batch):
                 loss = loss_fn(params, mb)
+                if weight != 1.0:
+                    loss = loss * weight
                 loss.backward()
                 loss = loss.detach().float()
                 loss_sum = loss if loss_sum is None else loss_sum + loss

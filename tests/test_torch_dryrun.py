@@ -331,3 +331,24 @@ def test_hillclimb_change_moves_its_cell(change):
         _BASELINES[arch] = _hillclimb_report(arch, "baseline")
     rep = _hillclimb_report(arch, change)
     assert [k for k in rep if rep[k] != _BASELINES[arch][k]]
+
+
+def test_command_r_train_cell_runs_at_its_own_grad_accum():
+    """command-r's ``train_4k`` on ``(32, 8)``: 16 rows a microbatch over
+    32 ``data`` ranks, which the train step now splits (rank 0 takes one
+    row, ranks 16-31 a padding row each), so the cell runs at its
+    config's ``grad_accum`` 16, where the dry run used to lower it to 8.
+    Full width at one layer, the shape's 256 rows at 32 tokens."""
+    from repro_torch.configs import base, get_config
+    cfg = get_config("command_r_plus_104b")
+    assert cfg.grad_accum == 16 and cfg.remat == "full"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(base.SHAPES, "train_4k",
+                   ShapeSpec("train_4k", 32, 256, "train"))
+        rep = dryrun.run_cell("command_r_plus_104b", "train_4k",
+                              multi_pod=False,
+                              cfg_override=cfg.replace(n_layers=1),
+                              with_cost=False, verbose=False)
+    assert rep["mesh_shape"] == [32, 8] and rep["grad_accum"] == 16
+    # kernel 1 once a microbatch, again in the full remat's backward
+    assert rep["kernels"][K1]["calls"] == 16 * 2

@@ -5,11 +5,16 @@ enforces) and its loop, the neural decomposition's Eq. 5 fits of the
 gravity and haversine biases, whose losses must fall, and the sharded
 serve engine on a (2, 2) mesh of four ``gloo`` processes (the script
 asserts the decode step's collectives and streams equal to the unsharded
-engine's)."""
+engine's); the quickstart's three exactness checks (the ALiBi
+factorization, FlashBias == dense-bias attention, the Eq. 3 concat
+identity, each within the script's bound, which it enforces), the LM serve
+engine over its three cache kinds, batched Pairformer serving, and the PDE
+solver's factored-against-dense forward and 3 training steps."""
 import importlib.util
 import math
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -51,3 +56,45 @@ def test_neural_decomposition_example(capsys):
 
 def test_serve_sharded_example():
     assert _load("serve_sharded_torch").main([]) == 0
+
+
+def test_quickstart_example(capsys):
+    mod = _load("quickstart_torch")
+    res = mod.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    for line in ("1. ALiBi factorization error", "2. FlashBias vs dense-bias",
+                 "3. Eq.3 concat identity error", "4. Example 3.9"):
+        assert line in out, out
+    for key in ("factorization", "flashbias_vs_dense", "concat"):
+        assert res[key] <= mod.TOL
+    assert "(channels 64 -> 66)" in out and res["io_ratio"] > 1
+
+
+def test_serve_lm_example(capsys):
+    mod = _load("serve_lm_torch")
+    res = mod.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert set(res) == set(mod.ARCHS)
+    for arch, results in res.items():
+        assert len(results) == 5 and all(r.size == 12 for r in results)
+    for name in ("stablelm-12b", "hymba-1.5b", "mamba2-130m"):
+        assert f"{name}" in out and "(5 reqs / 2 slots)" in out
+    assert "ssm_h:" in out and "k:(2, 2, 2, 32, 32)" in out  # hymba's ring
+
+
+def test_serve_pairformer_example(capsys):
+    mod = _load("serve_pairformer_torch")
+    res = mod.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert [s.shape for s in res.values()] == [(n, 64) for n in mod.SIZES]
+    assert all(np.isfinite(s).all() for s in res.values())
+    assert "22 refinement steps" in out and "phi_q:" in out
+
+
+def test_pde_solver_example(capsys):
+    mod = _load("pde_solver_torch")
+    losses = mod.main(["--device", "cpu", "--steps", "3"])
+    out = capsys.readouterr().out
+    gap = float(out.split("max |fb - dense| = ")[1].split()[0])
+    assert gap <= mod.TOL
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``src/repro_torch`` (and not
-``chip_smoke.py`` or the port's examples) imports JAX or the JAX package, importing the port
+``chip_smoke.py``, the port's examples or its statcheck script) imports JAX or the JAX package, importing the port
 builds no kernel, and its entry points default to the CUDA device —
 raising, never falling back to the CPU, where there is none."""
 import ast
@@ -16,7 +16,8 @@ from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py")) \
+    + [ROOT / "scripts" / "run_statcheck_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

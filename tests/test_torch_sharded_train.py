@@ -43,7 +43,14 @@ CPU tensor) on the local heads and rows; the
 dense (CodeQwen), MoE (Granite: 5 experts do not split over 2 ranks, so
 ``expert`` replicates and the heads split), SSM (Mamba2: the branch whole
 on every ``model`` rank) and hybrid (Hymba) families on ``(2, 2, 2)``, the
-counterpart of the reference's ``test_mini_multipod_lowering``.
+counterpart of the reference's ``test_mini_multipod_lowering``. Three
+cases have microbatches whose rows do not split evenly over the 2
+``batch`` ranks (``grad_accum`` 2): GPT-2 with 1 row (global batch 2, on
+``(2, 1)``: one rank runs a padding row at weight 0) and with 3 rows
+(global batch 6, on ``(2, 2)``: 2 + 1), and Granite with 3 rows on ``(2,
+1)``, whose loss adds the MoE load-balance term (a mean over rows of each
+row's value, so the rows' shares weigh it exactly as they weigh the
+cross-entropy), held to the same bounds.
 """
 import json
 import os
@@ -76,10 +83,11 @@ WORLDS = {
     "2x2x2": ("train:codeqwen", "train:granite", "train:mamba2",
               "train:hymba"),
     "2x2": ("train:gpt2", "train:stablelm", "train:gpt2bf16",
-            "statcheck:gpt2",
+            "train:rows3", "statcheck:gpt2",
             "statcheck:stablelm", "control:gpt2", "save:gpt2"),
     "1x2": ("train:gpt2", "train:stablelm", "restore:gpt2"),
-    "2x1": ("train:gpt2", "train:stablelm"),
+    "2x1": ("train:gpt2", "train:stablelm", "train:rows1",
+            "train:moerows3"),
 }
 TRAINED = [(m, job.split(":")[1]) for m, jobs in WORLDS.items()
            for job in jobs if job.startswith("train:")]
@@ -161,7 +169,7 @@ def _reference_step0(root: Path, case: str) -> dict:
     step = jmake_train_step(jmodel.loss, opt, grad_accum=jcfg.grad_accum,
                             donate=False)
     batch = {k: jnp.asarray(v.numpy())
-             for k, v in W.batch(W.case_config(case), 0).items()}
+             for k, v in W.case_batch(case, 0).items()}
     _, _, metrics = step(jparams, opt.init(jparams), batch)
     return {"loss": float(metrics["loss"]),
             "grads": _flat(jax.tree.map(np.asarray, metrics["grads"]))}
@@ -178,7 +186,7 @@ def _unsharded(root: Path, case: str, steps: int = W.STEPS) -> dict:
     state = opt.init(params)
     losses, norms = [], []
     for i in range(steps):
-        params, state, m = step(params, state, W.batch(cfg, i))
+        params, state, m = step(params, state, W.case_batch(case, i))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     return {"losses": losses, "norms": norms,

@@ -60,7 +60,15 @@ CASES = {
     "granite": ("granite_moe_3b_a800m", {}),
     "mamba2": ("mamba2_130m", {}),
     "hymba": ("hymba_15b", {}),
+    # microbatches whose rows do not split evenly over 2 batch ranks
+    "rows1": ("gpt2_alibi_15b", {"grad_accum": 2, "attn_impl": "cuda"}),
+    "rows3": ("gpt2_alibi_15b", {"grad_accum": 2, "attn_impl": "cuda"}),
+    # the same with the MoE load-balance term in the loss
+    "moerows3": ("granite_moe_3b_a800m", {"grad_accum": 2}),
 }
+# case -> its global batch rows where not BATCH: with grad_accum 2, one row
+# a microbatch (one rank runs a padding row) and three (2 + 1)
+ROWS = {"rows1": 2, "rows3": 6, "moerows3": 6}
 
 
 def case_config(case: str):
@@ -69,13 +77,18 @@ def case_config(case: str):
     return smoke_config(arch).replace(**kw)
 
 
-def batch(cfg, step: int) -> dict:
+def batch(cfg, step: int, rows: int = BATCH) -> dict:
     """The global batch of ``step`` (every rank builds the same)."""
     import torch
     from repro_torch.data import LMBatches
-    data = LMBatches(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH,
+    data = LMBatches(vocab=cfg.vocab, seq_len=SEQ, global_batch=rows,
                      seed=0)
     return {k: torch.from_numpy(v) for k, v in data.batch(step).items()}
+
+
+def case_batch(case: str, step: int) -> dict:
+    """``batch`` of ``case``'s config at its global batch rows."""
+    return batch(case_config(case), step, ROWS.get(case, BATCH))
 
 
 def load_params(params_dir: str, case: str):
@@ -146,7 +159,7 @@ def job_train(case: str, mesh, params_dir: str, steps: int = STEPS) -> dict:
     state = opt.init(params)
     losses, norms = [], []
     for i in range(steps):
-        params, state, m = step(params, state, batch(cfg, i))
+        params, state, m = step(params, state, case_batch(case, i))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     arrays = {f"grad:{k}": v for k, v in gathered(
