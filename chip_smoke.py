@@ -714,11 +714,14 @@ def device_rows(prof) -> list:
 
 
 def device_kernels(prof) -> list:
-    """The device rows of the profiled calls: all but the profiler's own
-    step annotation (``ProfilerStep#n``, which spans the step on the device
-    timeline) and the spin kernels that open the kept step."""
+    """The device rows of the profiled calls: all but the annotations of
+    the device timeline, whose rows span the kernels launched inside them
+    (the profiler's step, ``ProfilerStep#n``, and the program's spans,
+    ``repro_torch.*`` of ``repro_torch.spans``), and the spin kernels that
+    open the kept step."""
     return [e for e in device_rows(prof)
-            if not e.key.startswith("ProfilerStep")
+            if not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("ProfilerStep", "repro_torch."))
             and SPIN_KERNEL not in e.key]
 
 

@@ -68,6 +68,7 @@ from repro_torch.kernels.flashbias_attn import (
     flashbias_attention_torch,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_torch
+from repro_torch.spans import span
 
 __all__ = ["flash_attention", "flash_decode", "flash_chunk_attention",
            "ssd_scan", "resolve_impl", "IMPLS"]
@@ -105,13 +106,14 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        saved = ctx.saved_tensors     # unpacked once: remat allows no more
-        q, k = saved[:2]
-        rows = backward_block_rows(q.shape[0], q.shape[1], q.shape[2],
-                                   k.shape[2])
-        return (*_recompute_grads(saved, ctx.needs_input_grad[:6], ctx.opts,
-                                  grad_out, rows),
-                None, None, None, None)
+        with span("repro_torch.attn.bwd"):
+            saved = ctx.saved_tensors  # unpacked once: remat allows no more
+            q, k = saved[:2]
+            rows = backward_block_rows(q.shape[0], q.shape[1], q.shape[2],
+                                       k.shape[2])
+            return (*_recompute_grads(saved, ctx.needs_input_grad[:6],
+                                      ctx.opts, grad_out, rows),
+                    None, None, None, None)
 
 
 def backward_block_rows(b: int, h: int, n: int, m: int) -> int:
@@ -190,32 +192,35 @@ def flash_attention(
     ``"cuda"`` impl is then forward only and raises if an input requires
     grad; ``lengths`` is never read back to the host.
     """
-    if layout not in ("bshd", "bhsd"):
-        raise ValueError(f"layout {layout!r}")
-    if phi_q is not None and slopes is not None:
-        raise ValueError("pass factors or slopes, not both")
-    scale = (1.0 / float(np.sqrt(q.shape[-1]))) if scale is None else scale
-    impl = resolve_impl(impl, q.device)
-    if layout == "bshd":
-        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    with span("repro_torch.attn.fwd"):
+        if layout not in ("bshd", "bhsd"):
+            raise ValueError(f"layout {layout!r}")
+        if phi_q is not None and slopes is not None:
+            raise ValueError("pass factors or slopes, not both")
+        scale = (1.0 / float(np.sqrt(q.shape[-1]))) if scale is None \
+            else scale
+        impl = resolve_impl(impl, q.device)
+        if layout == "bshd":
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+            if phi_q is not None:
+                phi_q, phi_k = phi_q.transpose(1, 2), phi_k.transpose(1, 2)
+        b, h, n, _ = q.shape
         if phi_q is not None:
-            phi_q, phi_k = phi_q.transpose(1, 2), phi_k.transpose(1, 2)
-    b, h, n, _ = q.shape
-    if phi_q is not None:
-        m, r = k.shape[2], phi_k.shape[-1]
-        if phi_k.shape[1] not in (1, h):       # per-kv-head: expand per group
-            if h % phi_k.shape[1]:
-                raise ValueError(f"phi_k heads {phi_k.shape[1]} vs {h}")
-            phi_k = phi_k.repeat_interleave(h // phi_k.shape[1], dim=1)
-        phi_k = phi_k.expand(b, h, m, r)
-    if lengths is not None:
-        o = _flash_attention_ragged(q, k, v, phi_q, phi_k, slopes, lengths,
-                                    mask_kind, window, scale, impl)
+            m, r = k.shape[2], phi_k.shape[-1]
+            if phi_k.shape[1] not in (1, h):   # per-kv-head: expand per group
+                if h % phi_k.shape[1]:
+                    raise ValueError(f"phi_k heads {phi_k.shape[1]} vs {h}")
+                phi_k = phi_k.repeat_interleave(h // phi_k.shape[1], dim=1)
+            phi_k = phi_k.expand(b, h, m, r)
+        if lengths is not None:
+            o = _flash_attention_ragged(q, k, v, phi_q, phi_k, slopes,
+                                        lengths, mask_kind, window, scale,
+                                        impl)
+            return o.transpose(1, 2) if layout == "bshd" else o
+        o = _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), phi_q, phi_k, slopes,
+                                  mask_kind, window, scale, impl)
         return o.transpose(1, 2) if layout == "bshd" else o
-    o = _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                              phi_q, phi_k, slopes, mask_kind, window, scale,
-                              impl)
-    return o.transpose(1, 2) if layout == "bshd" else o
 
 
 def _flash_attention_ragged(q, k, v, phi_q, phi_k, slopes, lengths,

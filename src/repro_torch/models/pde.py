@@ -24,6 +24,7 @@ from repro_torch.core.bias import scaled_sqdist_dense, sqdist_factors
 from repro_torch.kernels import ops
 from repro_torch.models.common import (PDef, compute_dtype, gelu_mlp,
                                        rmsnorm, stack_layers)
+from repro_torch.spans import span
 
 __all__ = ["pde_template", "forward", "regression_loss"]
 
@@ -75,19 +76,20 @@ def forward(params: dict, coords: torch.Tensor,
             cfg: ArchConfig) -> torch.Tensor:
     """coords ``(B, N, coord_dim)`` mesh points -> ``(B, N, 4)`` physics
     fields in the compute dtype."""
-    dt = compute_dtype(cfg)
-    x = coords.to(dt) @ params["in_proj"].to(dt)
-    # one unbind per stacked leaf: its backward stacks the layers'
-    # gradients once, where indexing per layer would fill and add a
-    # gradient of the whole stack in every layer
-    layers = {key: val.unbind(0) for key, val in params["layers"].items()}
-    for i in range(cfg.n_layers):
-        lp = {key: val[i] for key, val in layers.items()}
-        x = x + _pde_attention(lp, rmsnorm(x, lp["ln1"]), coords, cfg)
-        x = x + gelu_mlp(rmsnorm(x, lp["ln2"]), lp["wi"].to(dt),
-                         lp["wo_mlp"].to(dt))
-    x = rmsnorm(x, params["final_norm"])
-    return x @ params["out_head"].to(dt)
+    with span("repro_torch.pde.forward"):
+        dt = compute_dtype(cfg)
+        x = coords.to(dt) @ params["in_proj"].to(dt)
+        # one unbind per stacked leaf: its backward stacks the layers'
+        # gradients once, where indexing per layer would fill and add a
+        # gradient of the whole stack in every layer
+        layers = {key: val.unbind(0) for key, val in params["layers"].items()}
+        for i in range(cfg.n_layers):
+            lp = {key: val[i] for key, val in layers.items()}
+            x = x + _pde_attention(lp, rmsnorm(x, lp["ln1"]), coords, cfg)
+            x = x + gelu_mlp(rmsnorm(x, lp["ln2"]), lp["wi"].to(dt),
+                             lp["wo_mlp"].to(dt))
+        x = rmsnorm(x, params["final_norm"])
+        return x @ params["out_head"].to(dt)
 
 
 def regression_loss(params: dict, batch: dict,
