@@ -320,7 +320,12 @@ as it runs, any failure ending the run:
               parameters x tokens, plus ``attention_kernel_flops`` at the
               step's ``ShapeSpec``), peak memory, and kernel 1's forward and
               the plain attention backward at the step's shape with the
-              backward's share of the step. Then Mamba2-130M whole
+              backward's share of the step (the model's trainable ALiBi
+              slopes keep its backward on the plain recompute), and the
+              backward kernel at that shape without the slopes' gradient
+              against the plain recompute (each gradient under BWD_TOL, two
+              calls bit-equal), its bound and the plain recompute's time.
+              Then Mamba2-130M whole
               (remat "dots", grad_accum 4): step 0 against the plain path
               as above, SSM_TRAIN_STEPS = 2 steps, kernel 5 launched 2 x
               24 x 4 times a step on the tensor-core body.
@@ -332,27 +337,34 @@ as it runs, any failure ending the run:
               the fitted factors, kernel 1 launched once per layer on the
               tensor-core body (phi mode, float32 factors) and held in situ;
               the loss and every leaf's gradient norm (trunk and factor
-              MLPs) on the kernel path against the plain path within
+              MLPs) on the kernel path (kernel 1 and the backward kernel once
+              per layer) against the plain path within
               TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL; the output drift of the
               fitted factors against the dense bias logged; then
               MODEL_TRAIN_STEPS AdamW steps training trunk and MLPs
-              together on one complex (the loss must fall, kernel 1 once
-              per layer and step); step time, device busy, idle share and
-              peak memory;
+              together on one complex (the loss must fall, kernel 1 and the
+              backward kernel once per layer and step); step time, device
+              busy, idle share and peak memory;
 24. pde-train — the PDE solver whole (8 layers, d_model 128, 8 heads x
               16, bf16) on PDEBatches of PDE_POINTS = 32186 points: the
               loss and gradient norms of the kernel path against the plain
               path at PDE_PARITY_POINTS and of FlashBias against the dense
               bias at PDE_TABLE5_POINTS (Table 5's claim), as in phase 23;
               MODEL_TRAIN_STEPS AdamW steps through ``Model.loss`` at 32186
-              points (the loss must fall; kernel 1 once per layer and step;
-              the backward recomputes the plain attention by query blocks,
-              ``ops.BWD_SCORE_BYTES``); step time, device busy, idle share,
-              peak memory, and the plain attention backward at the step's
-              shape with its share of the step's device busy;
+              points (the loss must fall; kernel 1 and the backward kernel
+              once per layer and step); step time, device busy, idle share,
+              peak memory, and the backward kernel at the step's attention
+              shape (the model's scaled squared-distance factors) against
+              the plain recompute (query blocks under
+              ``ops.BWD_SCORE_BYTES``): every gradient, the factors' too,
+              under BWD_TOL, two calls bit-equal; then timed against its
+              bound (1.374 ms) and the plain recompute, with its share of
+              the step's device busy (the record's line for the backward
+              kernel);
 25. swin-train — SwinV2-B whole (24 layers, d_model 512, 16 heads x 32,
               window 576, bf16): the loss and gradient norms with the
-              tables' rank-16 SVD factors (kernel 1, once per layer) against
+              tables' rank-16 SVD factors (kernel 1 and the backward kernel,
+              once per layer each) against
               the plain path, as in phase 23; then MODEL_TRAIN_STEPS AdamW
               steps with the dense tables (how the reference trains) on a
               PatchBatches batch of SWIN_TRAIN_IMAGES x SWIN_TRAIN_WINDOWS
@@ -448,7 +460,9 @@ examples'), kernels 3 and 4 add phases 18-21's, 26's, 29's, (kernel 3)
 phases 17, 18, 22, 26, 27 and 30's (27: the sharded steps and the
 launcher's); their
 times stay at the LM prefill, LM decode and SSM shapes (the other shapes'
-are logged above the record).
+are logged above the record). The backward kernel's launches are phases
+23-25's training steps and gradient runs; its error and times are phase
+24's, at the PDE training shape.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -496,7 +510,18 @@ LOGIT_ULPS = 2
 SPLIT_LENGTHS = [0, 1, 63, 64, 65, 127, 128, 129, 777, 2048]
 KERNELS = ("flashbias_attention_fwd", "flash_decode_fwd",
            "flash_decode_paged_fwd", "flashbias_attention_ragged_fwd",
-           "ssd_scan_fwd")
+           "ssd_scan_fwd", "flashbias_attention_bwd")
+# The backward kernel against the plain recompute (float32 autograd) at the
+# training shapes (``attention_bwd_times``), each gradient's max error over
+# its scale (largest magnitude). q, k, v: 2^-6 (P and dS rounded to bf16 as
+# mma operands, each gradient to bf16 once). The factors: 2^-10, with dS
+# and the factors split into bf16 hi + lo; the kernel read at most 4.3e-4
+# and one bf16 pass of the two products 2.0e-3 to 5.6e-3 at the PDE shape
+# (the readings in tests/test_torch_attention_backward_cuda.py, which holds
+# the kernel to the same limits).
+BWD_PHI_TOL = 2.0 ** -10
+BWD_TOL = {"dq": 2.0 ** -6, "dk": 2.0 ** -6, "dv": 2.0 ** -6,
+           "dphi_q": BWD_PHI_TOL, "dphi_k": BWD_PHI_TOL}
 # phases 7-9 run the Pairformer at 8 of its 16 layers, full width: the
 # whole script must stay well inside its time limit with phases 21-22
 PAIR_LAYERS, PAIR_SLOTS, PAIR_MAX_LEN = 8, 4, 384
@@ -741,7 +766,7 @@ SPIN_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
 # and the four SSD_STAGES on the tensor cores)
 SSD_STAGES = ("ssd_states", "ssd_cb", "ssd_state_pass", "ssd_chunk_scan")
 PORT_KERNEL = re.compile(
-    r"(?<![A-Za-z0-9_])(attn_fwd|attn_fwd_tc|decode_split|ssd_fwd|"
+    r"(?<![A-Za-z0-9_])(attn_fwd|attn_fwd_tc|attn_bwd|decode_split|ssd_fwd|"
     + "|".join(SSD_STAGES) + r")[<(]")
 # the wrappers that also count their tensor-core launches: the two attention
 # wrappers and the SSD scan's
@@ -766,8 +791,8 @@ def window(prof) -> str:
 
 def device_launches(wrapper) -> int:
     """The device kernels a counted wrapper has launched: its launch count,
-    or, for the SSD wrapper, one of whose calls launches up to four, its
-    count of device kernels."""
+    or, for the SSD wrapper (a call launches up to four) and the attention
+    backward's (up to three), its count of device kernels."""
     return getattr(wrapper, "device_kernels", wrapper.launches)
 
 
@@ -1335,9 +1360,11 @@ def launch_counters() -> dict:
     from repro_torch.kernels.flash_decode import (flash_decode_fwd,
                                                   flash_decode_paged_fwd)
     from repro_torch.kernels.flashbias_attn import (
-        flashbias_attention_fwd, flashbias_attention_ragged_fwd)
+        flashbias_attention_bwd, flashbias_attention_fwd,
+        flashbias_attention_ragged_fwd)
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd
     return {"flashbias_attention_fwd": flashbias_attention_fwd,
+            "flashbias_attention_bwd": flashbias_attention_bwd,
             "flash_decode_fwd": flash_decode_fwd,
             "flash_decode_paged_fwd": flash_decode_paged_fwd,
             "flashbias_attention_ragged_fwd": flashbias_attention_ragged_fwd,
@@ -1389,6 +1416,7 @@ def phase_serve(seed: int):
     first = {i: obs.first[rid] for i, rid in enumerate(rids)}
     stats = engine.stats()
     want = {"flashbias_attention_fwd": N_LAYERS * stats["prefill_waves"],
+            "flashbias_attention_bwd": 0,
             "flash_decode_fwd": N_LAYERS * stats["decode_steps"],
             "flash_decode_paged_fwd": 0,
             "flashbias_attention_ragged_fwd": 0, "ssd_scan_fwd": 0}
@@ -1416,7 +1444,7 @@ def phase_paged(engine, requests):
     rids, launches, tok_s, wall = drive_counted(paged, requests)
     stats, pages = paged.stats(), paged.page_stats()
     want = {"flashbias_attention_fwd": N_LAYERS * stats["prefill_waves"],
-            "flash_decode_fwd": 0,
+            "flashbias_attention_bwd": 0, "flash_decode_fwd": 0,
             "flash_decode_paged_fwd": N_LAYERS * stats["decode_steps"],
             "flashbias_attention_ragged_fwd": 0, "ssd_scan_fwd": 0}
     log("paged", f"{len(rids)} requests OK x {NEW_TOKENS} tokens in "
@@ -3341,8 +3369,13 @@ def in_situ_attention(calls: list, rows=None):
     from repro_torch.kernels.flashbias_attn import (flashbias_attention_fwd,
                                                     flashbias_attention_torch)
 
-    def call(q, k, v, phi_q=None, phi_k=None, slopes=None, **kw):
-        got = flashbias_attention_fwd(q, k, v, phi_q, phi_k, slopes, **kw)
+    def call(q, k, v, phi_q=None, phi_k=None, slopes=None, return_lse=False,
+             **kw):
+        got = flashbias_attention_fwd(q, k, v, phi_q, phi_k, slopes,
+                                      return_lse=return_lse, **kw)
+        full = got
+        if return_lse:     # the training route's forward: (o, lse)
+            got = got[0]
         n = q.shape[2]
         spans = [(0, n)] if rows is None else rows(n)
         if rows is not None and kw.get("mask_kind", "none") != "none":
@@ -3354,7 +3387,7 @@ def in_situ_attention(calls: list, rows=None):
                 slopes, **kw)
             err = float((got[:, :, lo:hi].float() - want.float()).abs().max())
             calls.append(((lo, hi), err, tolerance(q.dtype, want)))
-        return got
+        return full
     return call
 
 
@@ -4657,10 +4690,13 @@ def train_flops(cfg) -> float:
         cfg, shape, 1, 1, block=KERNEL1_TILE[0])
 
 
-def attention_train_ms(cfg, micro: int) -> dict:
-    """Device time per call of kernel 1's forward and of the plain backward
-    (``_FlashAttention.backward``: the plain forward recomputed and
-    differentiated) at one training microbatch's attention shape."""
+def attention_train_ms(cfg, micro: int, card: str) -> dict:
+    """Device time per call of kernel 1's forward, of the plain backward
+    (``_FlashAttention.backward`` with the slopes' gradient, the route the
+    model's trainable slopes take: the plain forward recomputed and
+    differentiated) at one training microbatch's attention shape, and of
+    the backward kernel and the plain recompute without the slopes'
+    gradient (``attention_bwd_times``)."""
     import torch
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -4681,7 +4717,12 @@ def attention_train_ms(cfg, micro: int) -> dict:
         fwd_ms = device_ms(fwd)
     bwd_ms = device_ms(lambda: torch.autograd.grad(
         out, (q, k, v, slopes), grad, retain_graph=True), iters=5)
-    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+    kernel = attention_bwd_times(
+        "train", f"B {micro} H {h} N {TRAIN_SEQ} D {d} bf16, ALiBi causal",
+        *(t.detach() for t in (q, k, v)), None, None, slopes.detach(),
+        "causal", card)
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "kernel_bwd_ms": kernel["ms"],
+            "kernel_bwd_plain_ms": kernel["plain_ms"]}
 
 
 def phase_train(seed: int, card: str) -> dict:
@@ -4821,18 +4862,21 @@ def phase_train(seed: int, card: str) -> dict:
     top_kernels("train", kernels, top=8)
     del state, params, opt_state, batch
     torch.cuda.empty_cache()
-    attn = attention_train_ms(cfg, TRAIN_BATCH // cfg.grad_accum)
+    attn = attention_train_ms(cfg, TRAIN_BATCH // cfg.grad_accum, card)
     calls = cfg.n_layers * cfg.grad_accum
     log("train", f"attention at the step's shape (B "
                  f"{TRAIN_BATCH // cfg.grad_accum} H {cfg.heads_padded} N "
                  f"{TRAIN_SEQ} D {cfg.resolved_head_dim} bf16, ALiBi "
                  f"causal), device time per call: kernel 1 forward "
                  f"{attn['fwd_ms']:.4f} ms, the plain backward (recompute "
-                 f"and gradients of q, k, v and the slopes) "
-                 f"{attn['bwd_ms']:.4f} ms; {calls} backward calls a step "
-                 f"take {attn['bwd_ms'] * calls:.1f} ms, "
-                 f"{attn['bwd_ms'] * calls / busy:.3f} of the step's device "
-                 f"busy [{card}]")
+                 f"and gradients of q, k, v and the slopes: the route of the "
+                 f"model's trainable slopes, which the backward kernel does "
+                 f"not differentiate) {attn['bwd_ms']:.4f} ms; {calls} "
+                 f"backward calls a step take {attn['bwd_ms'] * calls:.1f} "
+                 f"ms, {attn['bwd_ms'] * calls / busy:.3f} of the step's "
+                 f"device busy; without the slopes' gradient the backward "
+                 f"kernel would take {attn['kernel_bwd_ms']:.4f} ms a call "
+                 f"[{card}]")
     gpt2 = {"launches": launched, "losses": losses, "step_ms": host * 1e3,
             "busy_ms": busy, "tok_s": tokens / host, "peak_gib":
             peak / 2**30, "mfu_host": flops / host / BF16_FLOP_PER_S,
@@ -4979,7 +5023,7 @@ def train_model(phase: str, loss_fn, params, batch: dict, launches: dict,
                f"{peak / 2**30:.2f} GiB [{card}]")
     if launched != want:
         raise AssertionError(f"{phase}: launches {launched} != {want}")
-    check_tensor_core(phase, tuple(launches))
+    check_tensor_core(phase, tuple(n for n in launches if n in TENSOR_CORE))
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
 
@@ -5067,7 +5111,9 @@ def phase_pair_train(seed: int, card: str) -> dict:
             pairformer.denoise_loss(p, batch, c, f), params, factors)
         for impl in ("cuda", "torch")}
     grad_peak = torch.cuda.max_memory_allocated()
-    if paths["cuda"][2] != {"flashbias_attention_fwd": layers} or \
+    # the backward kernel once per layer: bf16, the factors' gradients
+    if paths["cuda"][2] != {"flashbias_attention_fwd": layers,
+                            "flashbias_attention_bwd": layers} or \
             paths["torch"][2]:
         raise AssertionError(f"pair-train: launches {paths['cuda'][2]} / "
                              f"{paths['torch'][2]}")
@@ -5110,7 +5156,8 @@ def phase_pair_train(seed: int, card: str) -> dict:
         "pair-train", lambda p, b: pairformer.denoise_loss(
             p["trunk"], b, cfg, p["factors"]),
         {"trunk": params, "factors": factors}, batch,
-        {"flashbias_attention_fwd": layers}, card, lr=PAIR_TRAIN_LR)
+        {"flashbias_attention_fwd": layers, "flashbias_attention_bwd": layers},
+        card, lr=PAIR_TRAIN_LR)
     del params, factors, feats, batch
     torch.cuda.empty_cache()
     return {"launches": trained["launches"],
@@ -5120,25 +5167,81 @@ def phase_pair_train(seed: int, card: str) -> dict:
                                         "peak_gib")}}
 
 
-def attention_bwd_ms(q, k, v, phi_q, phi_k) -> float:
-    """Device time per call of ``_FlashAttention``'s plain backward (the
-    plain forward recomputed, by query blocks where it must be, and
-    differentiated) on head-major inputs."""
+def attention_bwd_times(phase: str, label: str, q, k, v, phi_q, phi_k,
+                        slopes, mask_kind: str, card: str) -> dict:
+    """The attention backward at one training shape (head-major bf16 q, k,
+    v; ``phi_k`` of phi_q's shape). Checked: the backward kernel
+    (``flashbias_attention_bwd``, from kernel 1's row log-sum-exp) against
+    the plain recompute (``ops._recompute_grads``, by query blocks where it
+    must be), every gradient (q, k, v and, with factors, both factors'),
+    each under ``BWD_TOL``, and two kernel calls bit-equal. Timed, device
+    time per call, both giving the gradients a training step asks for (q,
+    k, v and phi_q); the bound is twice kernel 1's bytes and FLOPs at the
+    shape (its two products, PERF.md section 3)."""
     import torch
     from repro_torch.kernels import ops
-    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, phi_q,
-                                                         phi_k)]
-    out = ops.flash_attention(*leaves[:4], leaves[4].expand_as(leaves[3])
-                              if leaves[4].shape[1] == 1 else leaves[4],
-                              impl="cuda", layout="bhsd")
-    grad = torch.randn_like(out)
-    return device_ms(lambda: torch.autograd.grad(
-        out, leaves, grad, retain_graph=True), iters=2, warmup=1)
+    from repro_torch.kernels.flashbias_attn import (flashbias_attention_bwd,
+                                                    flashbias_attention_fwd)
+    b, h, n, d = q.shape
+    m, r = k.shape[2], 0 if phi_q is None else phi_q.shape[-1]
+    opts = {"mask_kind": mask_kind, "window": 0, "scale": d ** -0.5}
+    o, lse = flashbias_attention_fwd(q, k, v, phi_q, phi_k, slopes,
+                                     return_lse=True, **opts)
+    grad = torch.randn_like(o)
+    rows = ops.backward_block_rows(b, h, n, m)
+    every = (True,) * 3 + (phi_q is not None,) * 2
+    got = flashbias_attention_bwd(q, k, v, grad, lse, phi_q, phi_k, slopes,
+                                  needs=every, **opts)
+    again = flashbias_attention_bwd(q, k, v, grad, lse, phi_q, phi_k,
+                                    slopes, needs=every, **opts)
+    want = ops._recompute_grads((q, k, v, phi_q, phi_k, slopes),
+                                every + (False,), opts, grad, rows)
+    torch.cuda.synchronize()
+    errs, worst = {}, 0.0
+    for name, a, a2, w in zip(BWD_TOL, got, again, want):
+        if w is None:
+            continue
+        if not torch.equal(a, a2):
+            raise AssertionError(f"{phase}: flashbias_attention_bwd {name}: "
+                                 f"two calls on the same inputs differ")
+        err = float((a.float() - w.float()).abs().max())
+        errs[name] = err / float(w.float().abs().max())
+        worst = max(worst, err)
+        if not (bool(torch.isfinite(a).all()) and errs[name] <= BWD_TOL[name]):
+            raise AssertionError(f"{phase}: flashbias_attention_bwd {name}: "
+                                 f"max error {errs[name]:.3e} of its scale "
+                                 f"> {BWD_TOL[name]:.1e}")
+    each = ", ".join(f"{k} {e:.3e} (tol {BWD_TOL[k]:.1e})"
+                     for k, e in errs.items())
+    log(phase, f"flashbias_attention_bwd ({label}) against the plain "
+               f"recompute, max error over each gradient's scale: {each}; "
+               f"two calls bit-equal ok")
+    del got, again, want
+    needs = (True, True, True, phi_q is not None, False)
+    out = {"max_abs_err": worst, "errors": errs,
+           "ms": device_ms(lambda: flashbias_attention_bwd(
+               q, k, v, grad, lse, phi_q, phi_k, slopes, needs=needs,
+               **opts), iters=5, warmup=1)}
+    out["plain_ms"] = device_ms(lambda: ops._recompute_grads(
+        (q, k, v, phi_q, phi_k, slopes), needs + (False,), opts, grad, rows),
+        iters=2, warmup=1)
+    pairs = n * (n + 1) // 2 if mask_kind == "causal" and n == m else n * m
+    bytes_ = 2 * (2 * b * h * n * d + 2 * b * h * m * d) + 4 * b * h * (
+        n + m) * r
+    once = bound(bytes_, 2 * b * h * pairs * (2 * d + r))
+    out.update(bound_ms=2 * once["bound_ms"], bound_by=once["bound_by"])
+    log(phase, f"the attention backward at the step's shape ({label}), "
+               f"device time per call: the backward kernel {out['ms']:.4f} "
+               f"ms against its bound {out['bound_ms']:.4f} ms "
+               f"({out['bound_by']}; {out['bound_ms'] / out['ms']:.4f} of "
+               f"it), the plain recompute {out['plain_ms']:.4f} ms "
+               f"({out['plain_ms'] / out['ms']:.1f}x the kernel) [{card}]")
+    return out
 
 
 def phase_pde_train(seed: int, card: str) -> dict:
     """The PDE solver whole trained at 32186 points through kernel 1 and the
-    query-blocked plain backward (see the module docstring, phase 24)."""
+    backward kernel (see the module docstring, phase 24)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -5163,17 +5266,18 @@ def phase_pde_train(seed: int, card: str) -> dict:
     rows = ops.backward_block_rows(1, heads, PDE_POINTS, PDE_POINTS)
     log("pde-train", f"{cfg.name}: {layers} layers, d_model {cfg.d_model}, "
                      f"{heads} heads x {hd}, {cfg.dtype}; PDEBatches of "
-                     f"{PDE_POINTS} points; the backward recomputes "
-                     f"{-(-PDE_POINTS // rows)} query blocks of {rows} rows "
-                     f"a layer (scores under {ops.BWD_SCORE_BYTES / 2**30:.1f}"
-                     f" GiB)")
+                     f"{PDE_POINTS} points; the backward kernel once a layer "
+                     f"(the plain recompute, timed beside it, would take "
+                     f"{-(-PDE_POINTS // rows)} query blocks of {rows} rows, "
+                     f"scores under {ops.BWD_SCORE_BYTES / 2**30:.1f} GiB)")
     # the kernel path against the plain path, and FlashBias against the
     # dense bias (Table 5), on the same weights
     small = points(PDE_PARITY_POINTS)
     paths = {impl: loss_and_norms(
         lambda p, c=cfg.replace(attn_impl=impl): get_model(c).loss(p, small),
         params) for impl in ("cuda", "torch")}
-    if paths["cuda"][2] != {"flashbias_attention_fwd": layers} or \
+    if paths["cuda"][2] != {"flashbias_attention_fwd": layers,
+                            "flashbias_attention_bwd": layers} or \
             paths["torch"][2]:
         raise AssertionError(f"pde-train: launches {paths['cuda'][2]} / "
                              f"{paths['torch'][2]}")
@@ -5192,8 +5296,10 @@ def phase_pde_train(seed: int, card: str) -> dict:
 
     batch = points(PDE_POINTS)
     trained = train_model("pde-train", model.loss, params, batch,
-                          {"flashbias_attention_fwd": layers}, card)
-    # the plain backward at the step's attention shape, per layer
+                          {"flashbias_attention_fwd": layers,
+                           "flashbias_attention_bwd": layers}, card)
+    # the backward kernel and the plain recompute at the step's attention
+    # shape, per layer
     lp0 = {key: val[0].detach() for key, val in params["layers"].items()}
     pts = batch["coords"]
     q, k, v = (torch.randn((1, heads, PDE_POINTS, hd), generator=gen,
@@ -5202,18 +5308,18 @@ def phase_pde_train(seed: int, card: str) -> dict:
     alpha = F.softplus(pts @ lp0["alpha_w"] + lp0["alpha_b"])
     pq0, pk0 = sqdist_factors(pts, pts, negate=True)
     phi_q = (alpha[..., None] * pq0[:, :, None]).transpose(1, 2).contiguous()
-    bwd = attention_bwd_ms(q, k, v, phi_q, pk0[:, None])
-    share = bwd * layers / trained["busy_ms"]
-    log("pde-train", f"the plain attention backward at the step's shape (B 1 "
-                     f"H {heads} N=M {PDE_POINTS} D {hd} bf16, R "
-                     f"{pq0.shape[-1]} float32 factors, phi_k shared by the "
-                     f"heads): {bwd:.2f} ms a call; {layers} calls a step "
-                     f"take {bwd * layers:.1f} ms, {share:.3f} of the step's "
+    bwd = attention_bwd_times(
+        "pde-train", f"B 1 H {heads} N=M {PDE_POINTS} D {hd} bf16, R "
+        f"{pq0.shape[-1]} float32 factors, phi_k shared by the heads", q, k,
+        v, phi_q, pk0[:, None].expand_as(phi_q), None, "none", card)
+    share = bwd["ms"] * layers / trained["busy_ms"]
+    log("pde-train", f"{layers} backward calls a step take "
+                     f"{bwd['ms'] * layers:.1f} ms, {share:.3f} of the step's "
                      f"device busy [{card}]")
     del params, batch, small, tiny, q, k, v, phi_q
     torch.cuda.empty_cache()
-    return {"launches": trained["launches"],
-            "bwd_ms": bwd, "bwd_share": share, "block_rows": rows, **{
+    return {"launches": trained["launches"], "bwd": bwd,
+            "bwd_share": share, "block_rows": rows, **{
                 k: trained[k] for k in ("losses", "step_ms", "busy_ms",
                                         "peak_gib")}}
 
@@ -5255,7 +5361,8 @@ def phase_swin_train(seed: int, card: str) -> dict:
         lambda p, f, c=cfg.replace(attn_impl=impl):
             swin.classify_loss(p, batch, c, f), params, factors)
         for impl in ("cuda", "torch")}
-    if paths["cuda"][2] != {"flashbias_attention_fwd": layers} or \
+    if paths["cuda"][2] != {"flashbias_attention_fwd": layers,
+                            "flashbias_attention_bwd": layers} or \
             paths["torch"][2]:
         raise AssertionError(f"swin-train: launches {paths['cuda'][2]} / "
                              f"{paths['torch'][2]}")
@@ -6101,7 +6208,14 @@ def main(argv=None) -> int:
     for phase in ("paged-hybrid", "moe", "dense-configs", "frontends",
                   "train", "pair-train", "pde-train", "swin-train",
                   "sharded", "sharded-train", "dryrun", "examples"):
-        merge_launches(launches, run_child(phase, args.seed)["launches"])
+        result = run_child(phase, args.seed)
+        merge_launches(launches, result["launches"])
+        if phase == "pde-train":    # the backward kernel at the cell's shape
+            bwd = result["bwd"]
+            errors["flashbias_attention_bwd"] = bwd["max_abs_err"]
+            times["flashbias_attention_bwd"] = {
+                k: bwd[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")}
     clock("phases 17-30")
 
     replaces = {"flashbias_attention_fwd": "src/repro/kernels/"
@@ -6111,7 +6225,8 @@ def main(argv=None) -> int:
                                           "flash_decode.py:195",
                 "flashbias_attention_ragged_fwd": "src/repro/kernels/"
                                                   "flashbias_attn.py:139",
-                "ssd_scan_fwd": "src/repro/kernels/ssd_scan.py:78"}
+                "ssd_scan_fwd": "src/repro/kernels/ssd_scan.py:78",
+                "flashbias_attention_bwd": "none: XLA recompute"}
     sources = {"flashbias_attention_fwd": "src/repro_torch/csrc/"
                                           "flashbias_attn.cu",
                "flash_decode_fwd": "src/repro_torch/csrc/flash_decode.cu",
@@ -6119,7 +6234,9 @@ def main(argv=None) -> int:
                                          "flash_decode.cu",
                "flashbias_attention_ragged_fwd": "src/repro_torch/csrc/"
                                                  "flashbias_attn.cu",
-               "ssd_scan_fwd": "src/repro_torch/csrc/ssd_scan.cu"}
+               "ssd_scan_fwd": "src/repro_torch/csrc/ssd_scan.cu",
+               "flashbias_attention_bwd": "src/repro_torch/csrc/"
+                                          "flashbias_attn_bwd.cu"}
     kernels = [{"name": name, "route": "cuda", "source": sources[name],
                 "replaces": replaces[name], "launches": launches[name],
                 "max_abs_err": errors[name], **times[name]}

@@ -68,6 +68,11 @@
 //    operand. Rounding P costs at most 2^-9 relative per weight (l sums the
 //    unrounded p), inside the bf16 output tolerance of 2^-6 x the output's
 //    scale.
+// Both bodies write each row's log-sum-exp where the caller passes an lse
+// pointer (the training route of ops.flash_attention, for the backward
+// kernel of flashbias_attn_bwd.cu): m + log(l) in the natural log, converted
+// from the bf16 body's log2 domain, +inf for a row with no allowed key.
+// Where the pointer is null (inference) the store is predicated off.
 // float32 (the parity tools: 1e-4 against the plain version): attn_fwd, the
 // CUDA-core body. One block of 8 warps per (b, h, 64-row q tile); q, one
 // 64-key k/v tile and the phi tiles staged as float32 in shared memory; a
@@ -79,11 +84,16 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "flashbias_common.cuh"
 #include "sm90_wgmma.cuh"
 
 namespace {
 
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
+using fb::ex2;
+using fb::kLog2e;
+using fb::kMaskValue;
+using fb::pack_bf16;
+
 constexpr int kBQ = 64;                      // q rows per block
 constexpr int kBK = 64;                      // keys per kv tile
 constexpr int kWarps = 8;
@@ -105,6 +115,7 @@ struct AttnArgs {
   int window;
   int kv_len;           // static key bound, when lengths is null
   const int* lengths;   // (B,) per-row key bound (ragged), or null
+  float* lse;           // (B, H, N) row log-sum-exp, natural log, or null
 };
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -260,6 +271,11 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(AttnArgs a) {
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int r = warp * kRowsPerWarp + rr;
     if (r < q_rows) {
+      // no allowed key (l = 0 or every logit masked): +inf, so that
+      // exp(s - lse) is 0 for every key of the row
+      if (a.lse && lane == 0)
+        a.lse[bh * N + q0 + r] = (l[rr] == 0.f || m[rr] == kMaskValue)
+                                     ? CUDART_INF_F : m[rr] + logf(l[rr]);
       const float inv = 1.f / (l[rr] == 0.f ? 1.f : l[rr]);
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
@@ -275,7 +291,6 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(AttnArgs a) {
 // ---------------------------------------------------------------------------
 
 constexpr int kTcThreads = 128;              // one warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory layout of attn_fwd_tc, computed once on the host. Offsets
 // are bytes from a 1024-aligned base; every tile starts on 1024. A ring of
@@ -362,17 +377,6 @@ __device__ __forceinline__ void store_split(uint8_t* hi, uint8_t* lo, unsigned o
       __floats2bfloat162_rn(x.x - hf.x, x.y - hf.y);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Barrier of the 128 threads of warpgroup w (ids 1 and 2; 0 is the block's).
 __device__ __forceinline__ void wg_sync(int w) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(w + 1) : "memory");
@@ -396,10 +400,7 @@ __device__ __forceinline__ void logits(float (&s)[32], const float (&sb)[32], fl
     if (MODE == 2) x += fmaf(sl2, (float)off, base[hi]);
     if (EDGE) {
       const int row = row0 + 8 * hi, col = col0 + off;
-      bool ok = col < kv_len;
-      if (a.mask_kind != 0) ok = ok && row >= col;
-      if (a.mask_kind == 2) ok = ok && (row - col) < a.window;
-      x = ok ? x : kMaskValue;
+      x = fb::mask_ok(row, col, kv_len, a.mask_kind, a.window) ? x : kMaskValue;
     }
     s[i] = x;
     mx[hi] = fmaxf(mx[hi], x);
@@ -683,7 +684,13 @@ __global__ void __launch_bounds__(2 * kTcThreads, !PHI && DVP <= 64 ? 2 : 1)
     scale1[hi] = empty ? 0.f : ex2(m1 - m);
     const float l = l_r[hi] * scale0[hi] + l1 * scale1[hi];
     // no allowed key: no tile visited (l = 0) or every logit masked
-    inv[hi] = (l == 0.f || m == kMaskValue) ? 0.f : 1.f / l;
+    const bool none = l == 0.f || m == kMaskValue;
+    inv[hi] = none ? 0.f : 1.f / l;
+    // the row's log-sum-exp for the backward, converted from the log2
+    // domain to the natural log; +inf where no key is allowed
+    const int row = row0 + 8 * hi;
+    if (a.lse && (lane & 3) == 0 && row < a.N)
+      a.lse[(size_t)bh * a.N + row] = none ? CUDART_INF_F : (m + log2f(l)) * fb::kLn2;
   }
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) + (size_t)bh * a.N * a.Dv;
 #pragma unroll
@@ -844,17 +851,20 @@ int run(const AttnArgs& a, int dtype, void* stream) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 float32, 1 bfloat16. `lse` (null, or (B, H, N) float32) takes each
+// row's log-sum-exp of the logits, natural log, +inf for a row with no
+// allowed key: what the backward (flashbias_attn_bwd.cu) recomputes from.
+// Returns the cudaError_t of the launch.
 extern "C" int flashbias_attn_fwd(const void* q, const void* k, const void* v,
                                   const void* phi_q, const void* phi_k,
-                                  const void* slopes, void* out, int dtype, int B,
+                                  const void* slopes, void* out, void* lse, int dtype, int B,
                                   int H, int KVH, int N, int M, int D, int Dv, int R,
                                   float scale, int mask_kind, int window, int kv_len,
                                   void* stream) {
   AttnArgs a{q, k, v, static_cast<const float*>(phi_q),
              static_cast<const float*>(phi_k), static_cast<const float*>(slopes),
              out, B, H, KVH, N, M, D, Dv, R, scale, mask_kind, window, kv_len,
-             nullptr};
+             nullptr, static_cast<float*>(lse)};
   return run(a, dtype, stream);
 }
 
@@ -868,7 +878,7 @@ extern "C" int flashbias_attn_ragged_fwd(const void* q, const void* k, const voi
   AttnArgs a{q, k, v, static_cast<const float*>(phi_q),
              static_cast<const float*>(phi_k), static_cast<const float*>(slopes),
              out, B, H, KVH, N, M, D, Dv, R, scale, mask_kind, window, M,
-             static_cast<const int*>(lengths)};
+             static_cast<const int*>(lengths), nullptr};
   return run(a, dtype, stream);
 }
 

@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["KERNELS", "build", "load", "library_path", "refuse_dtensors"]
 
-KERNELS = ("flashbias_attn", "flash_decode", "ssd_scan")
+KERNELS = ("flashbias_attn", "flashbias_attn_bwd", "flash_decode", "ssd_scan")
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"

@@ -26,11 +26,19 @@ and the output's padded columns are cut off.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs ``flashbias_attention_torch``.
+
+Kernel 1 can also write each row's log-sum-exp (``return_lse``), from which
+the backward kernel (``csrc/flashbias_attn_bwd.cu``, its own library)
+recomputes the probabilities: ``flashbias_attention_bwd`` and its plain
+version ``flashbias_attention_bwd_torch`` take q, k, v, the output's
+cotangent dO and that lse, and give the gradients of q, k, v and the
+factors. The kernel takes bf16 q / k / v at widths ``bwd_width`` admits.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -41,12 +49,18 @@ from repro_torch.core.attention import (DEFAULT_MASK_VALUE, eq3_folds,
 from repro_torch.kernels import build
 
 __all__ = ["flashbias_attention_torch", "flashbias_attention_fwd",
-           "flashbias_attention_ragged_fwd", "MASK_KINDS"]
+           "flashbias_attention_ragged_fwd", "flashbias_attention_bwd_torch",
+           "flashbias_attention_bwd", "bwd_width", "MASK_KINDS"]
 
 MASK_KINDS = {"none": 0, "causal": 1, "local": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232_448          # dynamic shared memory a block may use (H100)
 _MAX_RANK_TC = 256             # a TMA box holds at most 256 factor columns
+# widths the backward kernel is built for: D, Dv and R zero-padded to one of
+# them; with factors at most 96 (three accumulators of a warp's 16 rows at
+# width 128 would not stay in registers)
+_BWD_WIDTHS = (16, 32, 64, 96, 128)
+_BWD_MAX_WIDTH_PHI = 96
 
 
 def _allowed(n: int, m: int, mask_kind: str, window: int, kv_len: int,
@@ -70,7 +84,8 @@ def flashbias_attention_torch(
     kv_len: Optional[int] = None,
     lengths: Optional[torch.Tensor] = None,
     q_offset: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain version of the kernels: dense float32 logits and softmax.
 
     ``lengths (B,)`` (the ragged kernel's bound) masks row ``b``'s keys at
@@ -84,7 +99,11 @@ def flashbias_attention_torch(
 
     Factors fold into q and k (Eq. 3) where ``core.attention.eq3_folds``
     says it is exact, as the reference's plain path does (the kernels fold
-    in the kernel)."""
+    in the kernel).
+
+    ``return_lse``: also each row's log-sum-exp of the masked logits,
+    ``(B, H, N)`` float32 (natural log), +inf for a row with no allowed key,
+    as kernel 1 writes it for the backward."""
     b, h, n, _ = q.shape
     kvh, m = k.shape[1], k.shape[2]
     if lengths is not None and kv_len is not None:
@@ -114,8 +133,70 @@ def flashbias_attention_torch(
         allowed = (allowed[None] & in_range[:, None, :])[:, None]  # B1NM
     s = torch.where(allowed, s, torch.full_like(s, DEFAULT_MASK_VALUE))
     o = torch.einsum("bhnm,bhmd->bhnd", torch.softmax(s, dim=-1), vf)
-    o = o * allowed.any(dim=-1, keepdim=True)
-    return o.to(q.dtype)
+    seen = allowed.any(dim=-1, keepdim=True)
+    o = (o * seen).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1).masked_fill(~seen[..., 0], float("inf"))
+    return o, lse
+
+
+def _factor_needs(needs, phi_q) -> tuple:
+    """``needs`` as five bools, the factors' two False without factors."""
+    needs = tuple(bool(x) for x in needs)
+    return needs if phi_q is not None else needs[:3] + (False, False)
+
+
+def flashbias_attention_bwd_torch(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor,
+    phi_q: Optional[torch.Tensor] = None,
+    phi_k: Optional[torch.Tensor] = None,
+    slopes: Optional[torch.Tensor] = None,
+    *, scale: float, mask_kind: str = "none", window: int = 0,
+    kv_len: Optional[int] = None, needs=(True,) * 5,
+) -> tuple:
+    """Plain version of the backward kernel, in float32, on the kernels'
+    head-major layout: from the output's cotangent ``do`` and the forward's
+    ``lse`` (``return_lse``), ``P = exp(s - lse)`` (0 where masked), ``dP =
+    dO.v^T``, ``Delta = rowsum(P * dP)`` (rowsum(dO * o) for the exact
+    output), ``dS = P * (dP - Delta)``; returns ``(dq, dk, dv, dphi_q,
+    dphi_k)`` in the inputs' dtypes,
+    None where ``needs`` (q, k, v, phi_q, phi_k) asks for none. dk and dv
+    sum each kv head's group; ``dphi_k`` has ``phi_k``'s shape ``(B, H, M,
+    R)``. Dense ``(B, H, N, M)`` scores: the reference at small shapes (at
+    large ones ``ops._recompute_grads`` is the blocked float32 backward)."""
+    b, h, n, _ = q.shape
+    kvh, m = k.shape[1], k.shape[2]
+    g = h // kvh
+    kv_len = m if kv_len is None else kv_len
+    needs = _factor_needs(needs, phi_q)
+    kf = k.float().repeat_interleave(g, dim=1) if g > 1 else k.float()
+    vf = v.float().repeat_interleave(g, dim=1) if g > 1 else v.float()
+    qf, dof = q.float(), do.float()
+    s = torch.einsum("bhnd,bhmd->bhnm", qf, kf) * scale
+    if phi_q is not None:
+        pqf, pkf = phi_q.float(), phi_k.float().expand(b, h, m, -1)
+        s = s + torch.einsum("bhnr,bhmr->bhnm", pqf, pkf)
+    if slopes is not None:
+        rel = (torch.arange(m, device=q.device)[None, :]
+               - torch.arange(n, device=q.device)[:, None]).float()
+        s = s + slopes.float()[:, None, None] * rel
+    allowed = _allowed(n, m, mask_kind, window, kv_len, q.device)
+    p = torch.where(allowed, torch.exp(s - lse[..., None].float()), 0.0)
+    dp = torch.einsum("bhne,bhme->bhnm", dof, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("bhnm,bhmd->bhnd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bhnd->bhmd", ds, qf) * scale
+    dv = torch.einsum("bhnm,bhne->bhme", p, dof)
+    group = lambda t: t.reshape(b, kvh, g, m, -1).sum(2) if g > 1 else t
+    return (dq.to(q.dtype) if needs[0] else None,
+            group(dk).to(k.dtype) if needs[1] else None,
+            group(dv).to(v.dtype) if needs[2] else None,
+            torch.einsum("bhnm,bhmr->bhnr", ds, pkf).to(phi_q.dtype)
+            if needs[3] else None,
+            torch.einsum("bhnm,bhnr->bhmr", ds, pqf).to(phi_k.dtype)
+            if needs[4] else None)
 
 
 @functools.cache
@@ -125,7 +206,7 @@ def _kernel():
     and the dtypes its dispatch sends to the tensor-core body."""
     lib = build.load("flashbias_attn")
     fn = lib.flashbias_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ragged = lib.flashbias_attn_ragged_fwd
@@ -246,16 +327,18 @@ def flashbias_attention_fwd(
     phi_k: Optional[torch.Tensor] = None,
     slopes: Optional[torch.Tensor] = None,
     *, scale: float, mask_kind: str = "none", window: int = 0,
-    kv_len: Optional[int] = None,
-) -> torch.Tensor:
+    kv_len: Optional[int] = None, return_lse: bool = False,
+):
     """Kernel 1's wrapper: launches ``flashbias_attn.cu`` on CUDA tensors,
-    runs the plain version on CPU tensors. Forward only."""
+    runs the plain version on CPU tensors. Forward only; ``return_lse``
+    returns ``(o, lse)``, the rows' log-sum-exp as
+    ``flashbias_attention_torch`` gives it (the backward's input)."""
     build.refuse_dtensors("flashbias_attention_fwd", q, k, v, phi_q, phi_k,
                           slopes)
     if q.device.type == "cpu":
         return flashbias_attention_torch(
             q, k, v, phi_q, phi_k, slopes, scale=scale, mask_kind=mask_kind,
-            window=window, kv_len=kv_len)
+            window=window, kv_len=kv_len, return_lse=return_lse)
     dims, (q, k, v), phi_q, phi_k, slopes, out, dv = _checked(
         q, k, v, phi_q, phi_k, slopes, mask_kind, window,
         "flashbias_attention_fwd")
@@ -263,16 +346,19 @@ def flashbias_attention_fwd(
     kv_len = m if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= m:
         raise ValueError(f"kv_len {kv_len} outside [0, {m}]")
+    lse = (torch.empty(dims[:2] + dims[3:4], dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(phi_q),
-                       _ptr(phi_k), _ptr(slopes), out.data_ptr(),
+                       _ptr(phi_k), _ptr(slopes), out.data_ptr(), _ptr(lse),
                        _DTYPES[q.dtype], *dims, float(scale),
                        MASK_KINDS[mask_kind], int(window), kv_len, stream)
     if err != 0:
         raise RuntimeError(f"flashbias_attn.cu launch failed: CUDA error "
                            f"{err}")
     _count(flashbias_attention_fwd, q.dtype)
-    return out[..., :dv].contiguous() if out.shape[-1] != dv else out
+    out = out[..., :dv].contiguous() if out.shape[-1] != dv else out
+    return (out, lse) if return_lse else out
 
 
 flashbias_attention_fwd.launches = 0
@@ -318,3 +404,135 @@ def flashbias_attention_ragged_fwd(
 
 flashbias_attention_ragged_fwd.launches = 0
 flashbias_attention_ragged_fwd.tensor_core_launches = 0
+
+
+def bwd_width(d: int, dv: int, r: int) -> Optional[int]:
+    """The width P the backward kernel runs at (D, Dv and R zero-padded to
+    it, which changes no gradient), or None where its tiles and accumulators
+    would not fit: a width over 128, or over 96 with factors (r > 0). Such a
+    shape takes ``ops``' plain recompute."""
+    need = max(d, dv, r)
+    limit = _BWD_MAX_WIDTH_PHI if r else _BWD_WIDTHS[-1]
+    return next((p for p in _BWD_WIDTHS if need <= p <= limit), None)
+
+
+@functools.cache
+def _bwd_kernel():
+    """The backward kernel's launch function, bound once (building its
+    library on first use), and its row block, to which lse2 and delta are
+    padded."""
+    lib = build.load("flashbias_attn_bwd")
+    fn = lib.flashbias_attn_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flashbias_attn_bwd_rows.restype = ctypes.c_int
+    return fn, lib.flashbias_attn_bwd_rows()
+
+
+def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` zero-padded to ``width`` columns, contiguous, 16-byte aligned."""
+    t = t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+    return _aligned(t.contiguous())
+
+
+def _split(phi: Optional[torch.Tensor], width: int):
+    """Float32 factors as bf16 hi = bf16(x) and lo = bf16(x - hi), padded to
+    ``width``: the two parts of the three-product split (hi.hi + hi.lo +
+    lo.hi), rounded as kernel 1 rounds them."""
+    if phi is None:
+        return None, None
+    x = _padded(phi.float(), width)
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def flashbias_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor,
+    phi_q: Optional[torch.Tensor] = None,
+    phi_k: Optional[torch.Tensor] = None,
+    slopes: Optional[torch.Tensor] = None,
+    *, scale: float, mask_kind: str = "none", window: int = 0,
+    kv_len: Optional[int] = None, needs=(True,) * 5,
+) -> tuple:
+    """The backward kernel's wrapper: on CUDA tensors launches
+    ``flashbias_attn_bwd.cu`` (its delta pass, then its key-major pass where
+    ``needs`` asks for k, v or phi_k and its query-major pass for q or
+    phi_q; ``.device_kernels`` counts them), on CPU tensors runs
+    ``flashbias_attention_bwd_torch``; the arguments and the result as
+    there. The factors' hi / lo split is a small elementwise pass here; lse
+    goes in as lse * log2(e) (the kernel's exponentials are base 2),
+    padded with +inf to a multiple of the kernel's row block (which the
+    library reports). Takes bf16 q, k, v (and dO) at widths ``bwd_width``
+    admits and raises on anything else."""
+    build.refuse_dtensors("flashbias_attention_bwd", q, k, v, do, lse,
+                          phi_q, phi_k, slopes)
+    kw = dict(scale=scale, mask_kind=mask_kind, window=window, kv_len=kv_len,
+              needs=_factor_needs(needs, phi_q))
+    if q.device.type == "cpu":
+        return flashbias_attention_bwd_torch(q, k, v, do, lse, phi_q, phi_k,
+                                             slopes, **kw)
+    b, h, n, d = q.shape
+    kvh, m, dv = k.shape[1], k.shape[2], v.shape[-1]
+    r = 0 if phi_q is None else phi_q.shape[-1]
+    width = bwd_width(d, dv, r)
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flashbias_attention_bwd takes bf16 q, k, v, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if width is None:
+        raise ValueError(f"widths D {d}, Dv {dv}, R {r}: over the backward "
+                         f"kernel's limit")
+    if mask_kind not in MASK_KINDS or (mask_kind == "local" and window < 1):
+        raise ValueError(f"mask {mask_kind!r} window {window}")
+    if h % kvh or do.shape != (b, h, n, dv) or lse.shape != (b, h, n):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, dO {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)}")
+    kv_len = m if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= m:
+        raise ValueError(f"kv_len {kv_len} outside [0, {m}]")
+    dev = q.device
+    launch, block = _bwd_kernel()
+    n_pad = -(-n // block) * block
+    lse2 = F.pad(lse.float() * math.log2(math.e), (0, n_pad - n),
+                 value=float("inf")).contiguous()
+    delta = torch.zeros((b, h, n_pad), dtype=torch.float32, device=dev)
+    qp, kp, vp, dop = (_padded(t.to(torch.bfloat16), width)
+                       for t in (q, k, v, do))
+    pq_hi, pq_lo = _split(phi_q, width)
+    pk_hi, pk_lo = _split(phi_k, width)
+    if slopes is not None:
+        slopes = slopes.detach().float().contiguous()
+    needs = kw["needs"]
+    keys = needs[1] or needs[2] or needs[4]
+    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
+    dq = empty((b, h, n, width), torch.bfloat16) \
+        if needs[0] or needs[3] else None
+    dk = empty((b, kvh, m, width), torch.bfloat16) if keys else None
+    dvo = empty((b, kvh, m, width), torch.bfloat16) if keys else None
+    dpq = empty((b, h, n, width), torch.float32) if needs[3] else None
+    dpk = empty((b, h, m, width), torch.float32) if needs[4] else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = launch(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
+        *(_ptr(t) for t in (pq_hi, pq_lo, pk_hi, pk_lo)), lse2.data_ptr(),
+        delta.data_ptr(), _ptr(slopes),
+        *(_ptr(t) for t in (dq, dk, dvo, dpq, dpk)),
+        b, h, kvh, n, m, n_pad, width, float(scale), MASK_KINDS[mask_kind],
+        int(window), kv_len, stream)
+    if err != 0:
+        raise RuntimeError(f"flashbias_attn_bwd.cu launch failed: CUDA error "
+                           f"{err}")
+    flashbias_attention_bwd.launches += 1
+    flashbias_attention_bwd.device_kernels += 1 + keys + (dq is not None)
+    cut = lambda t, c, dt: None if t is None else t[..., :c].to(dt)
+    return (cut(dq, d, q.dtype) if needs[0] else None,
+            cut(dk, d, k.dtype) if needs[1] else None,
+            cut(dvo, dv, v.dtype) if needs[2] else None,
+            cut(dpq, r, phi_q.dtype) if needs[3] else None,
+            cut(dpk, r, phi_k.dtype) if needs[4] else None)
+
+
+flashbias_attention_bwd.launches = 0
+flashbias_attention_bwd.device_kernels = 0

@@ -16,7 +16,7 @@ Port of ``repro.kernels.ops``. Implementations:
   ``kernels.io_stub``, which validates and allocates as the wrapper does
   and records the kernel's calls, bytes and FLOPs in place of the launch;
   the outputs are left unwritten. ``flash_attention``'s backward stays
-  the plain recompute.
+  the plain recompute (the backward kernel has no stub yet).
 
 ``ssd_scan`` is stricter: ``"cuda"`` on a tensor that is not on the card
 raises, as the kernel has no CPU form.
@@ -32,17 +32,31 @@ hd)``) of a direct caller, adapted per call. The port stores ``hd`` and
 constraints.
 
 ``flash_attention`` and ``ssd_scan`` are differentiable: each is a
-``torch.autograd.Function`` whose backward recomputes the forward through
-the plain path and differentiates that (flash-style recompute, as the
-reference's ``_bwd`` does with its XLA path). There is no backward
-kernel, as there is none on the TPU. ``flash_attention``'s backward
-recomputes by blocks of query rows, each block's float32 scores under
-``BWD_SCORE_BYTES`` (one block wherever the whole scores fit): the plain
-path's ``(B, H, N, M)`` scores of the PDE solver's 32186 points would be
-33 GB a tensor. With ``lengths`` (the ragged batch of
-the Pairformer serve path) ``flash_attention`` runs outside that Function,
-as the reference's ``_flash_attention_ragged`` does: the plain path is
-differentiable by itself, the ragged kernel forward only.
+``torch.autograd.Function``. ``flash_attention``'s backward takes one of
+two routes (``backward_route``, chosen from the impl, q's dtype, which
+inputs need a gradient and the widths, when the forward runs):
+
+- ``"kernel"``: bf16 inputs on the ``"cuda"`` impl, no gradient asked of
+  the slopes, widths the kernel fits. The forward (kernel 1) also writes
+  each row's log-sum-exp, saved with the inputs, and the backward kernel
+  (``flashbias_attention_bwd``, ``csrc/flashbias_attn_bwd.cu``) recomputes
+  the probabilities from it and writes the gradients: the one backward
+  kernel of the port, where the TPU recomputes through XLA.
+- ``"recompute"`` (everything else: float32 inputs, the ``"torch"`` and
+  ``"io_stub"`` impls, slopes that need a gradient, wider shapes): the
+  forward recomputed through the plain path and differentiated
+  (flash-style recompute, as the reference's ``_bwd`` does with its XLA
+  path), by blocks of query rows, each block's float32 scores under
+  ``BWD_SCORE_BYTES`` (one block wherever the whole scores fit): the plain
+  path's ``(B, H, N, M)`` scores of the PDE solver's 32186 points would be
+  33 GB a tensor.
+
+``ssd_scan``'s backward recomputes the scan through its plain version
+(there is no backward kernel for it, as there is none on the TPU). With
+``lengths`` (the ragged batch of the Pairformer serve path)
+``flash_attention`` runs outside that Function, as the reference's
+``_flash_attention_ragged`` does: the plain path is differentiable by
+itself, the ragged kernel forward only.
 """
 from __future__ import annotations
 
@@ -63,6 +77,8 @@ from repro_torch.kernels.flash_decode import (
     write_row,
 )
 from repro_torch.kernels.flashbias_attn import (
+    bwd_width,
+    flashbias_attention_bwd,
     flashbias_attention_fwd,
     flashbias_attention_ragged_fwd,
     flashbias_attention_torch,
@@ -71,7 +87,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_torch
 from repro_torch.spans import span
 
 __all__ = ["flash_attention", "flash_decode", "flash_chunk_attention",
-           "ssd_scan", "resolve_impl", "IMPLS"]
+           "ssd_scan", "resolve_impl", "backward_route", "IMPLS"]
 
 IMPLS = ("torch", "cuda", "io_stub")
 
@@ -89,16 +105,40 @@ def resolve_impl(impl: str, device: torch.device) -> str:
     return impl
 
 
+def backward_route(impl: str, dtype: torch.dtype, needs, d: int, dv: int,
+                   r: int) -> str:
+    """The route of ``_FlashAttention``'s backward for a resolved ``impl``,
+    q's ``dtype``, ``needs`` (whether q, k, v, phi_q, phi_k and the slopes
+    need a gradient) and the widths D, Dv and R (0 without factors):
+    ``"kernel"`` for bf16 on ``"cuda"`` with a gradient asked of q, k, v or
+    the factors and none of the slopes, at widths the backward kernel fits
+    (``bwd_width``); ``"recompute"`` otherwise."""
+    if impl != "cuda" or dtype != torch.bfloat16 or needs[5] \
+            or not any(needs[:5]):
+        return "recompute"
+    return "recompute" if bwd_width(d, dv, r) is None else "kernel"
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward through the kernel (or the plain version); backward through
-    the plain version's autograd, recomputing the forward by query blocks
+    """Forward through the kernel (or the plain version); backward on the
+    route ``backward_route`` picks: the backward kernel, from the rows'
+    log-sum-exp the forward saved, or the plain version's
+    autograd, recomputing the forward by query blocks
     (``backward_block_rows``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, phi_q, phi_k, slopes, mask_kind, window, scale,
                 impl):
-        ctx.save_for_backward(q, k, v, phi_q, phi_k, slopes)
         ctx.opts = {"mask_kind": mask_kind, "window": window, "scale": scale}
+        ctx.route = backward_route(
+            impl, q.dtype, ctx.needs_input_grad[:6], q.shape[-1],
+            v.shape[-1], 0 if phi_q is None else phi_q.shape[-1])
+        if ctx.route == "kernel":
+            o, lse = flashbias_attention_fwd(q, k, v, phi_q, phi_k, slopes,
+                                             return_lse=True, **ctx.opts)
+            ctx.save_for_backward(q, k, v, phi_q, phi_k, slopes, lse)
+            return o
+        ctx.save_for_backward(q, k, v, phi_q, phi_k, slopes)
         fn = {"torch": flashbias_attention_torch,
               "io_stub": io_stub.flashbias_attention_fwd}.get(
                   impl, flashbias_attention_fwd)
@@ -108,11 +148,17 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, grad_out):
         with span("repro_torch.attn.bwd"):
             saved = ctx.saved_tensors  # unpacked once: remat allows no more
+            needs = ctx.needs_input_grad[:6]
+            if ctx.route == "kernel":
+                q, k, v, phi_q, phi_k, slopes, lse = saved
+                grads = flashbias_attention_bwd(
+                    q, k, v, grad_out, lse, phi_q, phi_k, slopes,
+                    needs=needs[:5], **ctx.opts)
+                return (*grads, None, None, None, None, None)
             q, k = saved[:2]
             rows = backward_block_rows(q.shape[0], q.shape[1], q.shape[2],
                                        k.shape[2])
-            return (*_recompute_grads(saved, ctx.needs_input_grad[:6],
-                                      ctx.opts, grad_out, rows),
+            return (*_recompute_grads(saved, needs, ctx.opts, grad_out, rows),
                     None, None, None, None)
 
 
