@@ -16,11 +16,11 @@ import time
 
 import torch
 
-from portbench import inputs, port, tracing, weights, yardstick
+from portbench import inputs, tracing, weights, yardstick
 from portbench.reference.arith import Arith, exact_float32
 
 def faults(ctx) -> tuple:
-    """The faults of ``portbench/faults.py`` this driver's cells can have."""
+    """The faults of the cell's family file this driver's cells can have."""
     return ("answer_altered",)
 
 
@@ -37,7 +37,7 @@ def setup(ctx) -> dict:
         raise ValueError("forward_closed drives one client")
     params = weights.make(ctx.layout, ctx.seed_for("weights"), ctx.device,
                           torch.float32)
-    fwd = port.forward(ctx.cfg)
+    fwd = ctx.family().forward(ctx.cfg)
     pool = _pool(ctx)
     for x in pool[:2]:
         fwd(params, x).cpu()

@@ -23,7 +23,7 @@ from portbench.reference.adamw import AdamW as RefAdamW
 from portbench.reference.arith import Arith, exact_float32
 
 def faults(ctx) -> tuple:
-    """The faults of ``portbench/faults.py`` this driver's cells can have
+    """The faults of the cell's family file this driver's cells can have
     (a batch of one mesh loses half of its points)."""
     return ("state_unchanged", "half_batch")
 

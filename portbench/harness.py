@@ -3,14 +3,18 @@ check of what the window produced against the plain reference, and the
 result line.
 
 Everything of a cell is found by name: the cell's entry in
-``BENCHMARK.json``, its configuration ``configs/<config>.json``, its
-traffic ``traffic/<traffic>.json`` (whose ``driver`` names the module in
-``drivers/`` that runs it), its limits ``limits/<cell>.json``, and each of
-its metrics ``metrics/<metric>.py``. Adding a cell, a mix or a metric
-adds files and edits none.
+``BENCHMARK.json``, its configuration ``configs/<config>.json`` (whose
+``family`` names the file in ``families/`` that reaches the program and
+plants its faults, and whose ``reference`` names the plain reference in
+``reference/``), its traffic ``traffic/<traffic>.json`` (whose ``driver``
+names the module in ``drivers/`` that runs it), its limits
+``limits/<cell>.json``, and each of its metrics ``metrics/<metric>.py``.
+Adding a model family, a configuration, a cell, a mix or a metric adds
+files and edits none but ``BENCHMARK.json``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import importlib
@@ -102,6 +106,10 @@ class Context:
         return importlib.import_module(
             f"portbench.reference.{self.spec['reference']}")
 
+    def family(self):
+        from portbench import port
+        return port.family(self.spec)
+
 
 @dataclasses.dataclass
 class Run:
@@ -173,19 +181,20 @@ def driver_of(ctx: Context):
 
 def run(ctx: Context, t_start: float, fault: str = None) -> dict:
     """Set-up, window, check; returns the result object. ``fault`` plants
-    one of ``faults.FAULTS`` in the program (to show the check fails it)."""
+    one of the cell's family's ``FAULTS`` in the program (to show the check
+    fails it)."""
     import torch
-    from portbench import faults, port
+    from portbench import faults
     driver = driver_of(ctx)
     cuda = ctx.device.type == "cuda"
     tracer = tracing.Tracer(ctx.trace, cuda)
-    with faults.plant(fault):
+    with faults.plant(ctx.family(), fault):
         state = driver.setup(ctx)
         ctx.sync()
         if cuda:
             torch.cuda.reset_peak_memory_stats(ctx.device)
         setup_s = time.perf_counter() - t_start
-        with port.attention_spans(ctx.trace), tracer.window():
+        with tracer.window():
             record = driver.window(ctx, state)
         ctx.sync()
     peak = torch.cuda.max_memory_allocated(ctx.device) if cuda else 0
@@ -211,9 +220,11 @@ def run(ctx: Context, t_start: float, fault: str = None) -> dict:
     if tracer.trace is not None:
         t = tracer.trace
         device.update(busy_s=t.busy_s(), window_s=t.window_s())
+        spans = collections.Counter(n for n, *_ in t.cpu
+                                    if n.startswith(tracing.PROGRAM))
         print(f"trace: {len(t.cpu)} host events, {len(t.device)} device "
               f"ops ({sum(op[3] is not None for op in t.device)} with their "
-              f"launch), {len(t.ranges(tracing.ATTENTION))} attention spans",
+              f"launch), program spans {dict(sorted(spans.items()))}",
               file=sys.stderr)
         out["breakdown"] = {"device_ops": t.device_ops(),
                             "idle_gaps": t.idle_gaps()}

@@ -4,8 +4,8 @@ inside the program's ``repro_torch.attn.bwd`` spans, in percent. A program
 without the span reads nothing.
 
 Each call's bound is ``yardstick.bound_seconds`` of twice the forward's
-count of its unit (the unit whose ``portbench.unit`` range holds the span's
-start):
+count of its call (``readers.call_works``; a list of works is met in
+reverse, as the backward visits the calls):
 
 - FLOPs: the backward's two products for the forward's one, the convention
   of ``yardstick.model_flops``; recomputation is not counted;
@@ -15,9 +15,7 @@ start):
 
 The count does not depend on what computes the backward: a recompute, a
 backward kernel or a library's are held to the same bound."""
-import bisect
-
-from portbench import readers, tracing, yardstick
+from portbench import readers
 
 SPAN = "repro_torch.attn.bwd"
 LAYER = "Training step: ops._FlashAttention.backward (repro_torch.attn.bwd)"
@@ -27,21 +25,4 @@ BETTER = "higher"
 
 
 def read(run):
-    t = run.trace
-    if t is None:
-        return None
-    calls = t.ranges(SPAN)
-    spent = readers._durations(t.launched_in(calls))
-    if not calls or spent <= 0:
-        return None
-    starts = sorted(s for s, _, tid in t.ranges(tracing.UNIT)
-                    if tid == t.main_tid)
-    if len(starts) != len(run.units):
-        raise AssertionError(f"{len(starts)} unit spans for "
-                             f"{len(run.units)} units")
-    bound = 0.0
-    for s, _, _ in calls:
-        work = run.units[bisect.bisect_right(starts, s) - 1]["attn"]
-        bound += yardstick.bound_seconds(2 * work["flops"],
-                                         2 * work["bytes"])
-    return 100.0 * bound / spent
+    return readers.attn_roofline(run, SPAN, factor=2, reverse=True)

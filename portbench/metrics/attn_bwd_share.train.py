@@ -18,4 +18,4 @@ def read(run):
     if t is None or t.busy_s() <= 0:
         return None
     ops = t.launched_in(t.ranges(SPAN))
-    return 100.0 * readers._durations(ops) / t.busy_s() if ops else None
+    return 100.0 * readers.device_seconds(ops) / t.busy_s() if ops else None

@@ -1,22 +1,18 @@
 """The program under test, as the benchmark reaches it: the ``repro_torch``
 package and nothing else. Its configuration is checked against the
-published widths of the benchmark's configuration file, its parameter
-template gives the layout the benchmark's weights are made in, and in a
-traced run its attention entry is wrapped in a span.
+published widths of the benchmark's configuration file (the fields the
+family's file names), and its parameter template gives the layout the
+benchmark's weights are made in. What differs by family lives in
+``families/<family>.py``.
 """
 from __future__ import annotations
 
-import contextlib
+import importlib
 
-from portbench import tracing
 
-# the program's config field of each published width in a configuration
-# file
-WIDTHS = {"n_layers": "n_layers", "d_model": "d_model",
-          "n_heads": "n_heads", "n_kv_heads": "n_kv_heads",
-          "head_dim": "resolved_head_dim",
-          "d_ff": "d_ff", "coord_dim": "coord_dim",
-          "compute_dtype": "dtype"}
+def family(spec: dict):
+    """The module ``families/<family>.py`` of a configuration file."""
+    return importlib.import_module(f"portbench.families.{spec['family']}")
 
 
 def config(spec: dict, smoke: bool = False):
@@ -28,7 +24,8 @@ def config(spec: dict, smoke: bool = False):
     if smoke:
         return smoke_config(arch)
     cfg = get_config(arch)
-    wrong = {k: (getattr(cfg, v), spec[k]) for k, v in WIDTHS.items()
+    wrong = {k: (getattr(cfg, v), spec[k])
+             for k, v in family(spec).WIDTHS.items()
              if k in spec and getattr(cfg, v) != spec[k]}
     if wrong:
         raise ValueError(f"{arch}: the program's widths differ from the "
@@ -39,7 +36,8 @@ def config(spec: dict, smoke: bool = False):
 def widths(spec: dict, cfg) -> dict:
     """``spec`` with its widths read from ``cfg`` (the same at full size;
     the reduced ones of a smoke config)."""
-    return dict(spec, **{k: getattr(cfg, v) for k, v in WIDTHS.items()
+    return dict(spec, **{k: getattr(cfg, v)
+                         for k, v in family(spec).WIDTHS.items()
                          if k in spec})
 
 
@@ -61,33 +59,3 @@ def layout(cfg) -> list:
         out.append((path, tuple(node.shape), tuple(node.init)))
     walk(model(cfg).template(), ())
     return out
-
-
-@contextlib.contextmanager
-def attention_spans(on: bool):
-    """While ``on``, every call of ``ops.flash_attention`` runs inside a
-    ``portbench.flash_attention`` range (the models look the function up
-    in ``ops`` at each call)."""
-    if not on:
-        yield
-        return
-    from repro_torch.kernels import ops
-    inner = ops.flash_attention
-
-    def spanned(*args, **kwargs):
-        with tracing.range_(tracing.ATTENTION):
-            return inner(*args, **kwargs)
-    ops.flash_attention = spanned
-    try:
-        yield
-    finally:
-        ops.flash_attention = inner
-
-
-def forward(cfg):
-    """The inference entry of a model that is not served: ``f(params,
-    inputs) -> outputs`` (the PDE solver's ``pde.forward``)."""
-    if cfg.family == "pde":
-        from repro_torch.models import pde
-        return lambda params, coords: pde.forward(params, coords, cfg)
-    raise ValueError(f"no forward entry for the {cfg.family} family")

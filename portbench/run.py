@@ -11,8 +11,9 @@ CUDA devices are missing, or where JAX or the JAX package got loaded.
 
 ``--control 1`` runs the cell's control instead (the plain reference in
 float8 in the program's place, no window) and prints its checks, which
-must come out not correct; ``--fault NAME`` plants a fault of
-``portbench/faults.py`` in the program, which must too.
+must come out not correct; ``--fault NAME`` plants a fault of the cell's
+family file (``portbench/families/<family>.py``) in the program, which
+must too.
 """
 import time
 
@@ -48,8 +49,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--control", type=int, choices=(0, 1), default=0)
     ap.add_argument("--fault", default=None,
-                    help="plant this fault of portbench/faults.py in the "
-                         "program (its check must come out not correct)")
+                    help="plant this fault of the cell's family file in "
+                         "the program (its check must come out not "
+                         "correct)")
     args = ap.parse_args(argv)
     _environment()
     from portbench import harness

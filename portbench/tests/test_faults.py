@@ -7,14 +7,14 @@ import time
 import pytest
 
 from portbench import harness
-from portbench.tests.small import SMALL
+from portbench.tests import small
 
 def _faults(cell):
     ctx = harness.context(cell, 1, 0.1, False, device="cpu", smoke=True)
     return harness.driver_of(ctx).faults(ctx)
 
 
-CASES = [(cell, fault) for cell in SMALL
+CASES = [(cell, fault) for cell in small.CELLS
          for fault in (None,) + _faults(cell)]
 
 
@@ -22,7 +22,7 @@ CASES = [(cell, fault) for cell in SMALL
                          ids=[f"{c}-{f or 'sound'}" for c, f in CASES])
 def test_check_catches_the_fault(cell, fault):
     ctx = harness.context(cell, 2 ** 31 + 17, 0.3, False, device="cpu",
-                          smoke=True, traffic_overrides=SMALL[cell])
+                          smoke=True, traffic_overrides=small.smoke(cell))
     out = harness.run(ctx, time.perf_counter(), fault)
     assert out["correct"] is (fault is None), out["checks"]
     assert out["attempted"] >= 1

@@ -1,32 +1,44 @@
-"""The harness finds everything of a cell by name, and a metric, a
-configuration or a mix added as new files is found without an edit."""
+"""The harness finds everything of every cell in ``BENCHMARK.json`` by
+name, the accepted cells among them, and a metric added as a new file is
+found without an edit (``test_new_family.py`` adds a whole family)."""
 import json
 import shutil
 
 import pytest
 
-from portbench import harness
+from portbench import harness, port
+from portbench.tests import small
 
-CELLS = ["pde_solver.infer", "pde_solver.train"]
+# the cells of accepted benchmarks: each must stay; more may come
+ACCEPTED = ["pde_solver.infer", "pde_solver.train"]
 
 
-def test_every_cell_resolves_by_name():
+def test_the_accepted_cells_are_present():
+    assert set(ACCEPTED) <= set(small.CELLS)
+
+
+@pytest.mark.parametrize("cell", small.CELLS)
+def test_every_cell_resolves_by_name(cell):
     b = harness.bench()
-    assert [w["name"] for w in b["workloads"]] == CELLS
-    for w in b["workloads"]:
-        spec = harness.load_json("configs", f"{w['config']}.json")
-        traffic = harness.load_json("traffic", f"{w['traffic']}.json")
-        limits = harness.load_json("limits", f"{w['name']}.json")
-        assert spec["name"] == w["config"]
-        assert limits and all(v > 0 for v in limits.values())
-        assert (harness.HERE / "drivers" / f"{traffic['driver']}.py").exists()
-        assert (harness.HERE / "reference" / f"{spec['reference']}.py").exists()
-        conf = next(c for c in b["configs"] if c["name"] == w["config"])
-        assert conf["file"] == f"portbench/configs/{w['config']}.json"
-        assert conf["reduced"] == spec["reduced"]
+    w = harness.workload(b, cell)
+    spec = harness.load_json("configs", f"{w['config']}.json")
+    traffic = harness.load_json("traffic", f"{w['traffic']}.json")
+    limits = harness.load_json("limits", f"{w['name']}.json")
+    assert spec["name"] == w["config"]
+    assert limits and all(v > 0 for v in limits.values())
+    assert (harness.HERE / "drivers" / f"{traffic['driver']}.py").exists()
+    assert (harness.HERE / "reference" / f"{spec['reference']}.py").exists()
+    fam = port.family(spec)
+    assert fam.WIDTHS and callable(fam.matmul_params)
+    ctx = harness.context(cell, 1, 0.1, False, device="cpu", smoke=True)
+    assert set(harness.driver_of(ctx).faults(ctx)) <= set(fam.FAULTS)
+    assert small.smoke(cell) and small.control(cell)
+    conf = next(c for c in b["configs"] if c["name"] == w["config"])
+    assert conf["file"] == f"portbench/configs/{w['config']}.json"
+    assert conf["reduced"] == spec["reduced"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", small.CELLS)
 @pytest.mark.parametrize("trace", [False, True])
 def test_metric_files_declare_their_entry(cell, trace):
     b = harness.bench()

@@ -10,7 +10,7 @@ import sys
 import pytest
 
 from portbench import harness
-from portbench.tests.small import SMALL
+from portbench.tests import small
 
 ROOT = harness.ROOT
 
@@ -20,7 +20,6 @@ _RUN_ALL = """
 import json, sys, time
 sys.path[:0] = [{root!r}, {src!r}]
 from portbench import harness
-from portbench.tests.small import SMALL
 small = json.loads({small!r})
 for cell, over in small.items():
     ctx = harness.context(cell, 7, 0.2, True, device="cpu", smoke=True,
@@ -41,7 +40,9 @@ def _loaded(code: str) -> set:
 
 def test_a_run_of_every_cell_loads_no_jax():
     loaded = _loaded(_RUN_ALL.format(root=str(ROOT), src=str(ROOT / "src"),
-                                     small=json.dumps(SMALL)))
+                                     small=json.dumps({
+                                         c: small.smoke(c)
+                                         for c in small.CELLS})))
     assert "repro_torch" in loaded and "portbench" in loaded
     assert not loaded & set(harness.FORBIDDEN), loaded & set(
         harness.FORBIDDEN)

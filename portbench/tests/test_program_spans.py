@@ -1,26 +1,33 @@
-"""The metrics that read the program's own spans (``repro_torch.attn.bwd``,
-``repro_torch.pde.forward``) on a hand-made timeline, their silence where
-there is nothing to read (no trace, no device time, a program without the
-spans), and the program's ``repro_torch.attn.fwd`` span inside the
-benchmark's ``portbench.flash_attention`` on the CPU."""
+"""The metrics that read the program's own spans (``repro_torch.attn.fwd``,
+``repro_torch.attn.bwd``, ``repro_torch.pde.forward``) on hand-made
+timelines: the pairing of each attention call with its unit's work for it,
+its refusal of a list of works that the calls do not match, and silence
+where there is nothing to read (no trace, no device time, a program
+without the spans); then, for every cell on the CPU, the program's spans
+in a traced window, each paired with a work."""
 import pytest
-import torch
 
-from portbench import harness, inputs, port, tracing, weights
-from portbench.tests.small import SMALL
+from portbench import harness, readers, tracing, yardstick
+from portbench.tests import small
 from portbench.tests.test_tracing import _Ev
 
 BWD, FWD, ATTN_FWD = ("repro_torch.attn.bwd", "repro_torch.pde.forward",
                       "repro_torch.attn.fwd")
-NEW = ["attn_bwd_share.train", "attn_bwd_roofline.train",
-       "forward_idle_share.infer"]
+READERS = ["attn_bwd_share.train", "attn_bwd_roofline.train",
+           "forward_idle_share.infer", "attn_fwd_roofline.train",
+           "attn_fwd_roofline.infer"]
+# works whose bound is 0.25 s of FLOPs and 0.1 s of bytes
+W_FLOPS = {"flops": 0.25 * yardstick.PEAK_BF16_FLOPS, "bytes": 0.0}
+W_BYTES = {"flops": 0.0, "bytes": 0.1 * yardstick.HBM_BYTES_PER_S}
 
 
 def _timeline(program_spans=True, device=True):
     """Two units on thread 1; the attention backward on thread 2, one call
     a unit; a launch on thread 1 inside the first backward's interval
     (another thread's: not the backward's); forward spans on both
-    threads, the idle gap [0, 3] straddling the first one's start."""
+    threads, the idle gap [0, 3] straddling the first one's start; an
+    attention forward in each unit, launching the 'fwd_kernel' and
+    'gemm'."""
     evs = [
         _Ev(tracing.WINDOW, 0.0, 20.0),
         _Ev(tracing.UNIT, 0.0, 10.0),
@@ -33,7 +40,8 @@ def _timeline(program_spans=True, device=True):
     if program_spans:
         evs += [_Ev(BWD, 2.0, 4.0, tid=2), _Ev(BWD, 12.0, 13.0, tid=2),
                 _Ev(FWD, 1.0, 4.0), _Ev(FWD, 15.0, 16.0),
-                _Ev(FWD, 9.0, 10.0, tid=2)]
+                _Ev(FWD, 9.0, 10.0, tid=2),
+                _Ev(ATTN_FWD, 3.4, 6.5), _Ev(ATTN_FWD, 15.0, 15.5)]
     if device:
         evs += [_Ev("bwd_kernel", 3.0, 5.0, dev="CUDA", corr=11),
                 _Ev("fwd_kernel", 5.0, 6.0, dev="CUDA", corr=14),
@@ -42,11 +50,8 @@ def _timeline(program_spans=True, device=True):
     return evs
 
 
-def _run(trace):
-    units = [{"tokens": 10, "model_flops": 0.0,
-              "attn": {"flops": 0.25 * 989e12, "bytes": 0.0}},
-             {"tokens": 10, "model_flops": 0.0,
-              "attn": {"flops": 0.0, "bytes": 0.1 * 3.35e12}}]
+def _run(trace, works=(W_FLOPS, W_BYTES)):
+    units = [{"tokens": 10, "model_flops": 0.0, "attn": w} for w in works]
     return type("R", (), {"trace": trace, "units": units,
                           "window": (0.0, 20.0)})
 
@@ -66,6 +71,56 @@ def test_readers_on_the_timeline():
     # idle [0, 3], [8, 13], [14, 20]; main-thread forwards [1, 4] and
     # [15, 16] hold 2 s and 1 s of it (the thread-2 one's 1 s is not read)
     assert _read("forward_idle_share.infer", run) == pytest.approx(15.0)
+    # the attention forwards launched 'fwd_kernel' and 'gemm': 3 s for
+    # bounds of 0.25 s (unit 1) and 0.1 s (unit 2; no device time of its
+    # own, the bound still counts against the calls' device time)
+    for name in ("attn_fwd_roofline.train", "attn_fwd_roofline.infer"):
+        assert _read(name, run) == pytest.approx(100.0 * 0.35 / 3.0)
+
+
+def _one_unit(calls):
+    """One unit [0, 10]; an attention forward at each ``(start, end)`` of
+    ``calls``, the k-th launching a kernel of ``k + 1`` seconds."""
+    evs = [_Ev(tracing.WINDOW, 0.0, 10.0), _Ev(tracing.UNIT, 0.0, 10.0)]
+    for k, (s, e) in enumerate(calls):
+        evs += [_Ev(ATTN_FWD, s, e),
+                _Ev("cudaLaunchKernel", s + 0.1, s + 0.2, corr=20 + k),
+                _Ev("attn_kernel", e, e + k + 1, dev="CUDA", corr=20 + k)]
+    return tracing.read_events(evs)
+
+
+def test_each_call_gets_its_own_work():
+    """Two calls of different work in one unit: the bound is summed call
+    by call, each its own work, in the order the calls start."""
+    run = _run(_one_unit([(1.0, 2.0), (4.0, 5.0)]),
+               works=[[W_FLOPS, W_BYTES]])
+    assert [c[:2] + (c[3],) for c in readers.call_works(run, ATTN_FWD)] \
+        == [(1.0, 2.0, W_FLOPS), (4.0, 5.0, W_BYTES)]
+    assert [c[3] for c in readers.call_works(run, ATTN_FWD, reverse=True)] \
+        == [W_BYTES, W_FLOPS]
+    # device time 1 s + 2 s; bounds 0.25 s + 0.1 s, each once
+    assert readers.attn_roofline(run, ATTN_FWD) == pytest.approx(
+        100.0 * 0.35 / 3.0)
+    assert readers.attn_roofline(run, ATTN_FWD, factor=2) == pytest.approx(
+        100.0 * 0.7 / 3.0)
+    # one work for the unit: every call has it
+    run = _run(run.trace, works=[W_FLOPS])
+    assert readers.attn_roofline(run, ATTN_FWD) == pytest.approx(
+        100.0 * 0.5 / 3.0)
+
+
+@pytest.mark.parametrize("works", [[W_FLOPS], [W_FLOPS, W_BYTES, W_FLOPS]],
+                         ids=["fewer", "more"])
+def test_a_list_that_misses_the_calls_raises(works):
+    run = _run(_one_unit([(1.0, 2.0), (4.0, 5.0)]), works=[works])
+    with pytest.raises(AssertionError, match="2 calls"):
+        readers.attn_roofline(run, ATTN_FWD)
+
+
+def test_a_wrong_number_of_unit_spans_raises():
+    run = _run(_one_unit([(1.0, 2.0)]), works=[W_FLOPS, W_BYTES])
+    with pytest.raises(AssertionError, match="1 unit spans for 2 units"):
+        readers.attn_roofline(run, ATTN_FWD)
 
 
 def test_idle_gaps_are_named_by_the_program_span():
@@ -76,7 +131,7 @@ def test_idle_gaps_are_named_by_the_program_span():
     assert gaps["host, no recorded call"] == pytest.approx(11.0)
 
 
-@pytest.mark.parametrize("name", NEW)
+@pytest.mark.parametrize("name", READERS)
 @pytest.mark.parametrize("case", ["no trace", "no device time",
                                   "no program span"])
 def test_nothing_to_read_reads_none(name, case):
@@ -89,25 +144,27 @@ def test_nothing_to_read_reads_none(name, case):
     assert _read(name, _run(trace)) is None
 
 
-def test_each_benchmark_attention_span_holds_one_program_span():
-    cell = "pde_solver.infer"
+@pytest.mark.parametrize("cell", small.CELLS)
+def test_every_attention_span_pairs_with_a_work(cell):
+    """A traced window of the cell on the CPU at the program's smoke size:
+    the program opens its attention spans, every unit as many, and each
+    call (forward, and backward where there is one) pairs with a work."""
     ctx = harness.context(cell, 2 ** 31 + 7, 0.2, True, device="cpu",
-                          smoke=True, traffic_overrides=SMALL[cell])
-    params = weights.make(ctx.layout, ctx.seed_for("weights"), ctx.device,
-                          torch.float32)
-    coords = inputs.mesh_points(ctx.seed, 0, 1, SMALL[cell]["points"],
-                                ctx.spec["coord_dim"], ctx.device)
+                          smoke=True, traffic_overrides=small.smoke(cell))
+    driver = harness.driver_of(ctx)
+    state = driver.setup(ctx)
     tracer = tracing.Tracer(True, cuda=False)
-    with torch.no_grad(), port.attention_spans(True), tracer.window():
-        port.forward(ctx.cfg)(params, coords)
+    with tracer.window():
+        record = driver.window(ctx, state)
     t = tracer.trace
-    outer = t.ranges(tracing.ATTENTION)
-    inner = t.ranges(ATTN_FWD)
-    assert len(outer) == len(inner) == ctx.cfg.n_layers
-    for s, e, tid in outer:
-        held = [1 for s2, e2, t2 in inner if s <= s2 and e2 <= e
-                and t2 == tid]
-        assert len(held) == 1
-    (fs, fe, ftid), = t.ranges(FWD)
-    assert ftid == t.main_tid
-    assert all(fs <= s and e <= fe for s, e, _ in outer)
+    run = harness.Run(units=record["units"], window=record["window"],
+                      setup_s=0.0, peak_bytes=0, trace=t)
+    # the benchmark's own spans are the window and the units alone
+    assert {n for n, *_ in t.cpu if n.startswith("portbench.")} == {
+        tracing.WINDOW, tracing.UNIT}
+    for span, reverse in ((ATTN_FWD, False), (BWD, True)):
+        paired = readers.call_works(run, span, reverse)
+        assert len(paired) == len(t.ranges(span))
+    fwd = readers.call_works(run, ATTN_FWD)
+    assert fwd and len(fwd) % len(run.units) == 0
+    assert all(w["flops"] > 0 and w["bytes"] > 0 for *_, w in fwd)

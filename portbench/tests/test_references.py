@@ -28,7 +28,7 @@ def test_pde_forward_and_loss():
     ctx = _ctx("pde_solver.train")
     p = _weights(ctx)
     b = inputs.mesh_batch(ctx.seed, 0, 1, 96, 3, 4, "cpu")
-    got = port.forward(ctx.cfg)(p, b["coords"])
+    got = ctx.family().forward(ctx.cfg)(p, b["coords"])
     want = pde.forward(p, b["coords"], ctx.spec, F32)
     assert _gap(got, want) < 1e-5
     loss = port.model(ctx.cfg).loss(p, b)

@@ -7,6 +7,8 @@ import pytest
 
 from portbench import readers, tracing
 
+ATTN = "repro_torch.attn.fwd"
+
 
 @dataclasses.dataclass
 class _Ev:
@@ -55,7 +57,7 @@ def _timeline():
     return [
         _Ev(tracing.WINDOW, 0.0, 10.0),
         _Ev(tracing.UNIT, 0.0, 10.0),
-        _Ev(tracing.ATTENTION, 1.0, 2.0),
+        _Ev(ATTN, 1.0, 2.0),
         _Ev("cudaLaunchKernel", 1.5, 1.6, corr=7),
         _Ev("MmBackward0", 5.0, 6.0, tid=2, node=True),
         _Ev("cudaLaunchKernel", 5.5, 5.6, tid=2, corr=8),
@@ -63,7 +65,7 @@ def _timeline():
         _Ev("attn_kernel", 2.0, 4.0, dev="CUDA", corr=7),
         _Ev("gemm", 3.0, 7.0, dev="CUDA", corr=8),
         _Ev("Stream Sync", 8.0, 9.0, dev="CUDA"),
-        _Ev(tracing.ATTENTION, 1.0, 4.0, dev="CUDA", annotation=True),
+        _Ev(ATTN, 1.0, 4.0, dev="CUDA", annotation=True),
     ]
 
 
@@ -77,7 +79,7 @@ def test_read_events_and_busy():
 
 def test_launch_attribution():
     t = tracing.read_events(_timeline())
-    attn = t.launched_in(t.ranges(tracing.ATTENTION))
+    attn = t.launched_in(t.ranges(ATTN))
     assert [op[0] for op in attn] == ["attn_kernel"]
     bwd = t.launched_in(t.ranges(tracing.BACKWARD))
     assert [op[0] for op in bwd] == ["gemm"]
@@ -87,7 +89,7 @@ def test_idle_gaps_named_by_innermost_host_event():
     t = tracing.read_events(_timeline())
     gaps = dict(t.idle_gaps())
     assert gaps["cudaStreamSynchronize"] == pytest.approx(3.0)   # [7, 10]
-    assert gaps[tracing.ATTENTION] == pytest.approx(2.0)          # [0, 2]
+    assert gaps[ATTN] == pytest.approx(2.0)                       # [0, 2]
     assert sum(gaps.values()) == pytest.approx(5.0)
 
 
@@ -98,7 +100,7 @@ def test_readers_on_the_timeline():
     run = type("R", (), {"trace": t, "units": [unit], "window": (0, 10.0)})
     assert readers.idle_share(run) == pytest.approx(50.0)
     assert readers.backward_share(run) == pytest.approx(80.0)    # 4 of 5 s
-    assert readers.attn_roofline(run) == pytest.approx(50.0)     # 1 s of 2
+    assert readers.attn_roofline(run, ATTN) == pytest.approx(50.0)  # 1 s of 2
     assert readers.mfu(run) == pytest.approx(0.1)
     assert readers.rate(run) == pytest.approx(10.0)
     assert readers.p95_ms(run) == pytest.approx(1e4)

@@ -5,9 +5,9 @@ back end (CPU ops and CUDA activity) and keeps the raw events: the
 Python-side parse of the public ``profile`` object costs minutes on a
 window of a million events, so the events are read here directly. The
 harness's spans are ``record_function`` ranges opened from its own files:
-``portbench.window`` around the measured window, ``portbench.unit`` around
-each step or request, and in a traced run ``portbench.flash_attention``
-around every call of the program's ``ops.flash_attention``.
+``portbench.window`` around the measured window and ``portbench.unit``
+around each step or request. The program opens its own while a profiler
+records, named ``repro_torch.<layer>.<what>`` (``src/repro_torch/spans.py``).
 
 Only those spans, the autograd engine's node ranges (its backward) and
 the CUDA runtime's calls are recorded on the host, not every aten op. A device
@@ -26,7 +26,7 @@ from portbench import yardstick
 
 WINDOW = "portbench.window"
 UNIT = "portbench.unit"
-ATTENTION = "portbench.flash_attention"
+PROGRAM = "repro_torch."       # the prefix of the program's spans
 BACKWARD = "backward"          # the ranges of the autograd engine's nodes
 
 # device-side records that are not work on the device

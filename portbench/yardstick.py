@@ -58,15 +58,14 @@ def pde_matmul_params(spec: dict) -> int:
     return c * d + spec["n_layers"] * per_layer + d * out
 
 
-MATMUL_PARAMS = {"pde": pde_matmul_params}
-
-
 def model_flops(spec: dict, tokens: int, attn_flops: float,
                 train: bool) -> float:
     """Model FLOPs: ``2 N T`` plus the attention forward for inference,
     ``6 N T`` plus three times it for a training step (forward, and the
-    backward's two products); recomputation is not counted."""
-    n = MATMUL_PARAMS[spec["family"]](spec)
+    backward's two products); recomputation is not counted. ``N`` is the
+    family's ``matmul_params`` (``families/<family>.py``)."""
+    from portbench import port
+    n = port.family(spec).matmul_params(spec)
     if train:
         return 6.0 * n * tokens + 3.0 * attn_flops
     return 2.0 * n * tokens + attn_flops
